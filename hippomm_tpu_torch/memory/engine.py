@@ -1,0 +1,553 @@
+"""HippocampalMemory — the memory engine (reference: hippocampal_memory.py:214-1612).
+
+Counterpart of hippomm_tpu/memory/engine.py for one CUDA device (the JAX
+engine's data-parallel mesh waits for the port's parallel layer). Same
+stages, same store format:
+
+  * temporal pattern separation: device SSIM over all adjacent frame pairs
+    plus host audio RMS, then the greedy walk (segmentation.py)
+  * perceptual encoding: all segments' frames through the ImageBind vision
+    tower in fixed chunks; all segments' audio clips through one fbank pass
+    and the audio trunk in 32-segment chunks
+  * consolidation: key-frame dedup (consolidation.py)
+  * semantic replay: captions and a summary through the clients (or stub),
+    persisted as a ThetaEvent
+
+Per-video STM checkpoints are written after encoding and resumed at the top
+of process_sequence, as in the JAX engine. A device fault raises.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import logging
+import os
+import time
+from typing import Dict, List, Optional, Sequence
+
+import numpy as np
+import torch
+
+from hippomm_tpu_torch.config import Config
+from hippomm_tpu_torch.memory.consolidation import consolidate_short_term_memory
+from hippomm_tpu_torch.memory.schema import SequenceSegment, ShortTermMemory, ThetaEvent
+from hippomm_tpu_torch.memory.segmentation import segment_sequence
+from hippomm_tpu_torch.memory.store import MemoryStore
+from hippomm_tpu_torch.models.clients import make_client
+from hippomm_tpu_torch.models.foundation import ImageBind, QwenVL, Whisper
+from hippomm_tpu_torch.models.imagebind import model as ib_model
+from hippomm_tpu_torch.models.imagebind.preprocess import preprocess_audio_batch
+from hippomm_tpu_torch.models.whisper.transcribe import Segment
+from hippomm_tpu_torch.utils.device import fetch, resolve_device
+from hippomm_tpu_torch.utils.timers import StageTimer, maybe_profile
+
+logger = logging.getLogger(__name__)
+
+CAPTION_PROMPT = "Describe this image in one concise sentence."
+AUDIO_CHUNK = 32  # segments per audio-trunk forward
+
+
+class HippocampalMemory:
+    def __init__(
+        self,
+        config: Optional[Config] = None,
+        imagebind_path: Optional[str] = None,
+        whisper_model: Optional[str] = None,
+        qwen_path: Optional[str] = None,
+        models: Optional[Dict] = None,
+        device=None,
+    ):
+        self.config = config or Config()
+        self.device = resolve_device(device)
+        m = self.config.models
+        p = self.config.processing
+
+        # engine parameters (reference defaults, hippocampal_memory.py:253-266)
+        self.max_short_term = self.config.memory.max_short_term
+        self.max_long_term = self.config.memory.max_long_term
+        self.frame_buffer_size = p.frame_buffer_size
+        self.max_segment_duration = p.max_segment_duration
+        self.min_segment_duration = p.min_segment_duration
+        self.frame_similarity_threshold = p.frame_similarity_threshold
+        self.audio_silence_threshold = p.audio_silence_threshold
+        self.keyframe_dedup_threshold = p.keyframe_dedup_threshold
+        self.evict_stm_after_replay = self.config.memory.evict_after_replay
+
+        # foundation models (injectable for tests)
+        models = models or {}
+        self.imagebind: ImageBind = models.get("imagebind") or ImageBind(
+            model_path=imagebind_path or m.imagebind_path,
+            variant=m.imagebind_variant,
+            dtype=getattr(torch, m.compute_dtype),
+            device=self.device,
+        )
+        self.whisper: Whisper = models.get("whisper") or Whisper(
+            model_name=whisper_model or m.whisper_model,
+            variant=m.whisper_variant,
+            model_path=getattr(m, "whisper_path", "") or None,
+            random_init=m.whisper_random_init,
+            beam_size=m.whisper_beam_size,
+        )
+        self.qwen: QwenVL = models.get("qwen") or QwenVL(
+            model_name=qwen_path or m.qwen_path, config=self.config
+        )
+        self.frame_client = models.get("frame_client") or make_client(
+            self.config.api.frame_processing, self.config.api.mode, purpose="frame-captioning"
+        )
+
+        # memory state
+        self.short_term_buffer: Dict[str, List[ShortTermMemory]] = {}
+        self.long_term_store: List[ThetaEvent] = []
+        self.consolidated: Dict[str, Dict] = {}
+        self._full_audio: Dict[str, np.ndarray] = {}
+        self._full_transcript: Dict[str, List] = {}  # video_id -> [Segment]
+        # videos whose process_sequence buffered STMs but never finished its
+        # checkpoint — a FAILED attempt's leftovers, discarded on retry
+        self._inflight_ingests: set = set()
+
+        self.store = MemoryStore(
+            self.config.storage.base_dir,
+            features_format=getattr(self.config.storage, "features_format", "json"),
+        )
+        self.timers = StageTimer()
+
+    # ------------------------------------------------------------------ ingest
+
+    def add_video(self, video_id: str, video_path: str = "") -> None:
+        """Register a video (reference: hippocampal_memory.py:1277-1288)."""
+        self.store.add_video(video_id, video_path)
+        self.short_term_buffer.setdefault(video_id, [])
+
+    def process_sequence(
+        self,
+        video_id: str,
+        frame_paths: Optional[Sequence[str]] = None,
+        frame_times: Optional[Sequence[float]] = None,
+        frames_rgb: Optional[np.ndarray] = None,
+        audio_data: Optional[np.ndarray] = None,
+        sample_rate: int = 16000,
+        video_duration: Optional[float] = None,
+        auto_consolidate: bool = True,
+        base_time: float = 0.0,
+        frame_ssim: Optional[np.ndarray] = None,
+        resume: bool = True,
+    ) -> List[ShortTermMemory]:
+        """Segment + perceptually encode a video's frames/audio into STMs
+        (reference: hippocampal_memory.py:1116-1275). Takes in-memory RGB
+        frames; `frame_paths` are recorded in the store. `base_time` offsets
+        every produced timestamp (chunked long videos)."""
+        with self._maybe_trace():
+            return self._process_sequence_impl(
+                video_id, frame_paths, frame_times, frames_rgb, audio_data,
+                sample_rate, video_duration, auto_consolidate, base_time,
+                frame_ssim, resume,
+            )
+
+    def _maybe_trace(self):
+        """torch.profiler trace around a whole ingest pass when
+        system.profile_dir is set (default off — traces are large)."""
+        d = getattr(self.config.system, "profile_dir", None)
+        return maybe_profile(d) if d else contextlib.nullcontext()
+
+    def _process_sequence_impl(
+        self, video_id, frame_paths, frame_times, frames_rgb, audio_data,
+        sample_rate, video_duration, auto_consolidate, base_time, frame_ssim, resume,
+    ) -> List[ShortTermMemory]:
+        # checkpoint fast-path (reference :1136-1150)
+        if resume and self.store.has_checkpoint(video_id):
+            stms = self.store.load_checkpoint(video_id)
+            if stms and video_duration:
+                # a PARTIAL checkpoint must not fast-path into a truncated event
+                covered = max(
+                    float(s.segment_info.get("end_time", 0.0) or 0.0) for s in stms
+                )
+                if covered < float(video_duration) - max(30.0, 0.1 * float(video_duration)):
+                    logger.warning(
+                        "%s: checkpoint covers %.0fs of %.0fs — partial; re-encoding",
+                        video_id, covered, video_duration,
+                    )
+                    stms = None
+            if stms:
+                logger.info("resumed %d STMs from checkpoint for %s", len(stms), video_id)
+                self.short_term_buffer[video_id] = stms
+                if audio_data is not None:
+                    self._full_audio[video_id] = np.asarray(audio_data, np.float32)
+                if auto_consolidate:
+                    self.consolidate(video_id)
+                    self.replay(video_id)
+                return stms
+
+        # a fresh ingest must not extend() onto STMs of a FAILED earlier attempt
+        if (
+            resume
+            and base_time == 0
+            and video_id in self._inflight_ingests
+            and self.short_term_buffer.get(video_id)
+        ):
+            logger.warning(
+                "%s: discarding %d stale STMs from a previous failed attempt",
+                video_id, len(self.short_term_buffer[video_id]),
+            )
+            self.short_term_buffer[video_id] = []
+
+        frame_paths = list(frame_paths) if frame_paths is not None else []
+        frame_times = list(frame_times) if frame_times is not None else []
+        if frames_rgb is None and frame_paths:
+            raise NotImplementedError(
+                "decoding frames from paths needs the media shim, a later slice of the "
+                "PyTorch port; pass frames_rgb"
+            )
+        if audio_data is not None:
+            audio_data = np.asarray(audio_data, dtype=np.float32)
+            prev = self._full_audio.get(video_id)
+            if prev is None or len(audio_data) > len(prev):
+                self._full_audio[video_id] = audio_data
+
+        with self.timers.stage("segmentation"):
+            segments = segment_sequence(
+                frame_paths,
+                frame_times,
+                frames_rgb,
+                audio_data,
+                sample_rate=sample_rate,
+                max_segment=self.max_segment_duration,
+                min_segment=self.min_segment_duration,
+                ssim_threshold=self.frame_similarity_threshold,
+                silence_db=self.audio_silence_threshold,
+                duration=video_duration,
+                precomputed_ssim=frame_ssim,
+                device=self.device,
+            )
+        logger.info("%s: %d segments", video_id, len(segments))
+
+        if base_time:
+            for seg in segments:
+                seg.start_time += base_time
+                seg.end_time += base_time
+                seg.frame_times = [t + base_time for t in seg.frame_times]
+            frame_times = [t + base_time for t in frame_times]
+
+        stms = self._encode_segments(
+            video_id, segments, frames_rgb, frame_times, sample_rate,
+            base_time=base_time, call_audio=audio_data,
+        )
+        self._inflight_ingests.add(video_id)
+        self.short_term_buffer.setdefault(video_id, []).extend(stms)
+
+        with self.timers.stage("checkpoint"):
+            self.store.save_checkpoint(video_id, self.short_term_buffer[video_id])
+        self._inflight_ingests.discard(video_id)
+
+        if auto_consolidate:
+            self.consolidate(video_id)
+            self.replay(video_id)
+        return stms
+
+    @torch.no_grad()
+    def _encode_audio(self, pcm_batch: List[np.ndarray]) -> np.ndarray:
+        """All segments' audio -> (n, 1024): one fbank pass, then the audio
+        trunk in fixed 32-segment chunks (the last padded by repetition)."""
+        ib = self.imagebind
+        mels = preprocess_audio_batch(
+            pcm_batch,
+            mel_bins=ib.cfg.audio_mel_bins,
+            target_len=ib.cfg.audio_target_len,
+            device=ib.device,
+        )
+        outs = []
+        for lo in range(0, mels.shape[0], AUDIO_CHUNK):
+            part = mels[lo : lo + AUDIO_CHUNK]
+            n_real = part.shape[0]
+            if n_real < AUDIO_CHUNK:
+                part = torch.cat([part, part[-1:].expand(AUDIO_CHUNK - n_real, *part.shape[1:])])
+            outs.append(ib_model.audio_forward(ib.params, part, ib.cfg, ib.dtype)[:n_real])
+        return fetch(torch.cat(outs), dtype=np.float32)
+
+    def _encode_segments(
+        self,
+        video_id: str,
+        segments: List[SequenceSegment],
+        frames_rgb: Optional[np.ndarray],
+        frame_times: Sequence[float],
+        sample_rate: int,
+        base_time: float = 0.0,
+        call_audio: Optional[np.ndarray] = None,
+    ) -> List[ShortTermMemory]:
+        """Perceptual encoding, batched across segments."""
+        ft = np.asarray(list(frame_times), dtype=np.float64)
+        seg_frame_idx: List[np.ndarray] = []
+        for seg in segments:
+            if len(ft):
+                idx = np.nonzero((ft >= seg.start_time) & (ft < seg.end_time))[0]
+            else:
+                idx = np.zeros((0,), int)
+            seg_frame_idx.append(idx)
+
+        # ---- audio features: every segment with ≥ 100 ms of audio ----
+        audio_embs: Dict[int, np.ndarray] = {}
+        pcm_batch, mel_owner = [], []
+        for si, seg in enumerate(segments):
+            a = seg.audio_data
+            if a is None or len(a) < sample_rate // 10:
+                continue
+            peak = float(np.max(np.abs(a))) or 1.0
+            pcm_batch.append(a / peak)
+            mel_owner.append(si)
+        if pcm_batch:
+            with self.timers.stage("encode_audio"):
+                embs = self._encode_audio(pcm_batch)
+            for si, e in zip(mel_owner, embs):
+                audio_embs[si] = e[None]
+
+        # ---- vision: one encode over the concatenation of all segments ----
+        vision_feats: Optional[np.ndarray] = None
+        if frames_rgb is not None and len(frames_rgb):
+            all_idx = np.concatenate(seg_frame_idx) if seg_frame_idx else np.zeros((0,), int)
+            with self.timers.stage("encode_vision"):
+                vision_feats = self.imagebind.encode_vision(np.asarray(frames_rgb)[all_idx])
+
+        # ---- transcription: ONE full-track ASR pass, assigned by midpoint ----
+        transcripts: Dict[int, List[Dict]] = {}
+        asr_segs = None
+        if call_audio is not None and len(call_audio) >= sample_rate // 10:
+            with self.timers.stage("transcribe"):
+                local = self.whisper.transcribe(call_audio, sample_rate)
+            asr_segs = [
+                Segment(s.start + base_time, s.end + base_time, s.text) for s in local
+            ] if base_time else local
+            if base_time:
+                self._full_transcript.setdefault(video_id, []).extend(asr_segs)
+            else:
+                self._full_transcript[video_id] = list(asr_segs)
+        if asr_segs is not None:
+            for si, seg in enumerate(segments):
+                lo, hi = seg.start_time, seg.end_time
+                entries = [
+                    {"text": s.text, "start": float(s.start), "end": float(s.end)}
+                    for s in asr_segs
+                    if s.text and lo <= (s.start + s.end) / 2 < hi
+                ]
+                if entries:
+                    transcripts[si] = entries
+        else:  # no track audio: per-segment ASR
+            asr_owner = [
+                si
+                for si, seg in enumerate(segments)
+                if seg.audio_data is not None and len(seg.audio_data) >= sample_rate // 10
+            ]
+            if asr_owner:
+                with self.timers.stage("transcribe"):
+                    seg_results = self.whisper.transcribe_batch(
+                        [segments[si].audio_data for si in asr_owner], sample_rate
+                    )
+                for si, segs in zip(asr_owner, seg_results):
+                    off = segments[si].start_time  # clip-local -> global times
+                    transcripts[si] = [
+                        {"text": s.text, "start": float(s.start + off), "end": float(s.end + off)}
+                        for s in segs
+                        if s.text
+                    ]
+
+        # ---- assemble STMs ----
+        stms: List[ShortTermMemory] = []
+        offset = 0
+        for si, seg in enumerate(segments):
+            idx = seg_frame_idx[si]
+            feats: Dict[str, np.ndarray] = {}
+            if vision_feats is not None and len(idx):
+                feats["vision"] = vision_feats[offset : offset + len(idx)]
+            offset += len(idx)
+            if si in audio_embs:
+                feats["audio"] = audio_embs[si]
+            modalities = [m for m in ("vision", "audio") if m in feats]
+            stms.append(
+                ShortTermMemory(
+                    features=feats,
+                    content="",
+                    timestamp=time.time(),
+                    source_time=seg.start_time,
+                    modalities=modalities,
+                    segment_info={
+                        "video_id": video_id,
+                        "start_time": seg.start_time,
+                        "end_time": seg.end_time,
+                        "frames": list(seg.frames),
+                        "frame_times": list(seg.frame_times),
+                    },
+                    transcription=transcripts.get(si, []),
+                )
+            )
+        return stms
+
+    # ------------------------------------------------------------- consolidate
+
+    def consolidate(self, video_id: Optional[str] = None) -> Optional[Dict]:
+        """Merge a video's STMs into one consolidated record
+        (reference: hippocampal_memory.py:540-586)."""
+        if video_id is None:
+            for vid in list(self.short_term_buffer):
+                self.consolidate(vid)
+            return None
+        stms = self.short_term_buffer.get(video_id, [])
+        with self.timers.stage("consolidate"):
+            merged = consolidate_short_term_memory(
+                stms, keyframe_threshold=self.keyframe_dedup_threshold, device=self.device
+            )
+        if merged is not None:
+            merged["video_id"] = video_id
+            self.consolidated[video_id] = merged
+        return merged
+
+    # ------------------------------------------------------------------ replay
+
+    def replay(self, video_id: Optional[str] = None) -> Optional[ThetaEvent]:
+        """Semantic replay: caption key frames, summarize, persist ThetaEvent
+        (reference: hippocampal_memory.py:588-752)."""
+        if video_id is None:
+            if not self.consolidated:
+                return None
+            video_id = next(iter(self.consolidated))
+        merged = self.consolidated.get(video_id)
+        if merged is None:
+            merged = self.consolidate(video_id)
+            if merged is None:
+                return None
+
+        # one caption per frames[] slot, placeholders included
+        captions: List[str] = []
+        frame_paths = list(merged.get("frames", []))
+        if any(frame_paths):
+            jpegs = []
+            for p in frame_paths:
+                if not p:
+                    jpegs.append(b"")
+                    continue
+                try:
+                    with open(p, "rb") as f:
+                        jpegs.append(f.read())
+                except OSError:
+                    jpegs.append(b"")
+            with self.timers.stage("caption"):
+                captions = self.frame_client.caption_images(jpegs, CAPTION_PROMPT)
+
+        transcripts = merged.get("audio_transcription", [])
+        with self.timers.stage("summary"):
+            summary = self._summarize_event(captions, transcripts, merged["modalities"])
+
+        event = ThetaEvent(
+            video_id=video_id,
+            features={k: v for k, v in merged["features"].items()},
+            feature_times=merged["feature_times"],
+            frames=merged.get("frames", []),
+            frame_times=merged.get("frame_times", []),
+            frame_captions=captions,
+            audio_times=merged.get("audio_times", []),
+            audio_transcription=transcripts,
+            summary=summary,
+            start_time=merged["start_time"],
+            end_time=merged["end_time"],
+            modalities=merged["modalities"],
+        )
+        # holistic transcription over the full audio track (reference :1367-1415);
+        # reuses the single full-track ASR pass from perceptual encoding
+        segs = self._full_transcript.get(video_id)
+        if segs is None:
+            full_audio = self._full_audio.get(video_id)
+            if full_audio is not None and len(full_audio) > 1600:
+                with self.timers.stage("holistic_transcribe"):
+                    segs = self.whisper.transcribe(full_audio)
+        if segs:
+            event.holistic_audio_transcription = [
+                {"text": s.text, "start": float(s.start), "end": float(s.end)}
+                for s in segs
+                if s.text
+            ]
+
+        self.store.save_theta_event(event)
+        self.long_term_store.append(event)
+        if len(self.long_term_store) > self.max_long_term:
+            self.long_term_store = self.long_term_store[-self.max_long_term :]
+        self.consolidated.pop(video_id, None)
+        if self.evict_stm_after_replay:
+            self.short_term_buffer.pop(video_id, None)
+        # the cached track stays resident only while no audio.npy exists on disk
+        if os.path.exists(os.path.join(self.store.audio_dir, video_id, "audio.npy")):
+            self._full_audio.pop(video_id, None)
+        self._full_transcript.pop(video_id, None)
+        return event
+
+    def discard_pending(self, video_id: str) -> None:
+        """Drop everything a FAILED ingest attempt left behind."""
+        self._full_audio.pop(video_id, None)
+        self._full_transcript.pop(video_id, None)
+        self.short_term_buffer.pop(video_id, None)
+        self.consolidated.pop(video_id, None)
+        self._inflight_ingests.discard(video_id)
+
+    def _summarize_event(
+        self, captions: List[str], transcripts: List[str], modalities: List[str]
+    ) -> str:
+        parts = []
+        if captions:
+            shown = captions if len(captions) <= 1000 else captions[:: max(1, len(captions) // 1000)]
+            parts.append("Frame captions:\n" + "\n".join(f"- {c}" for c in shown))
+        if transcripts:
+            texts = [t.get("text", "") if isinstance(t, dict) else str(t) for t in transcripts]
+            parts.append("Audio transcription:\n" + " ".join(texts))
+        if not parts:
+            return ""
+        prompt = (
+            "Summarize the following video content in one sentence.\n\n" + "\n\n".join(parts)
+        )
+        try:
+            return self.qwen.generate(prompt, max_tokens=128).strip()
+        except Exception:  # noqa: BLE001 — a failed VLM call must not lose the event
+            logger.exception("summary generation failed")
+            if captions:
+                return captions[0]
+            if transcripts:
+                t0 = transcripts[0]
+                return t0.get("text", "") if isinstance(t0, dict) else str(t0)
+            return ""
+
+    # ------------------------------------------------------------- persistence
+
+    def save_theta_event(self, event: ThetaEvent) -> str:
+        return self.store.save_theta_event(event)
+
+    def load_theta_event(self, event_id: str) -> ThetaEvent:
+        event = self.store.load_theta_event(event_id)
+        if all(e.event_id != event.event_id for e in self.long_term_store):
+            self.long_term_store.append(event)
+        return event
+
+    def load_all_events(self) -> List[ThetaEvent]:
+        self.long_term_store = self.store.load_all_events()
+        return self.long_term_store
+
+    def _save_checkpoint(self, video_id: str) -> str:
+        return self.store.save_checkpoint(video_id, self.short_term_buffer.get(video_id, []))
+
+    def _check_for_checkpoint(self, video_id: str) -> bool:
+        return self.store.has_checkpoint(video_id)
+
+    def _load_checkpoint(self, video_id: str) -> bool:
+        stms = self.store.load_checkpoint(video_id)
+        if stms is None:
+            return False
+        self.short_term_buffer[video_id] = stms
+        return True
+
+    # ------------------------------------------------------------------- misc
+
+    def get_stats(self) -> Dict:
+        """Buffer sizes + config snapshot (reference: hippocampal_memory.py:969-978)."""
+        return {
+            "short_term_videos": len(self.short_term_buffer),
+            "short_term_memories": sum(len(v) for v in self.short_term_buffer.values()),
+            "long_term_events": len(self.long_term_store),
+            "max_short_term": self.max_short_term,
+            "max_long_term": self.max_long_term,
+            "frame_buffer_size": self.frame_buffer_size,
+            "timers": self.timers.summary(),
+        }

@@ -1,0 +1,138 @@
+"""Build-at-first-use loader for the port's native code (csrc/).
+
+Two shared libraries with plain C interfaces, loaded with ctypes:
+
+  * the Hopper kernels (csrc/*.cu → one .so): every `.cu` source compiles
+    with its own `nvcc` process, all started together, then one link step.
+    Targets sm_90a. Needs `nvcc` (PATH or /usr/local/cuda/bin) — there is no
+    fallback: a wrapper handed a CUDA tensor launches its kernel or raises.
+  * the Pillow-exact bicubic resize (csrc/media_resize.cpp, host C++), built
+    with the host C++ compiler. None when no compiler is found; the caller
+    then resamples with PIL, as the JAX package does without its shim.
+
+Outputs go to `_build/` inside the package (listed in .gitignore), named by
+a hash of sources and flags, so an edited source never loads a stale build.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from typing import List, Optional
+
+_CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
+BUILD_DIR = os.path.join(os.path.dirname(_CSRC), "_build")
+KERNEL_SOURCES = ("flash_mha.cu", "fused_mlp.cu")
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+]
+
+_lock = threading.Lock()
+_kernels: Optional[ctypes.CDLL] = None
+_resize: Optional[ctypes.CDLL] = None
+_resize_tried = False
+#: ptxas register / shared-memory report of the last kernel build
+build_log: str = ""
+
+
+def _digest(paths: List[str], flags: List[str]) -> str:
+    h = hashlib.sha256(" ".join(flags).encode())
+    for p in paths:
+        with open(p, "rb") as f:
+            h.update(f.read())
+    return h.hexdigest()[:16]
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cand = "/usr/local/cuda/bin/nvcc"
+    if os.path.exists(cand):
+        return cand
+    raise RuntimeError("nvcc not found (PATH, /usr/local/cuda/bin): cannot build csrc/*.cu")
+
+
+def _build_kernels(lib_path: str) -> None:
+    global build_log
+    nvcc = _nvcc()
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    procs, objs = [], []
+    for src in KERNEL_SOURCES:
+        obj = f"{lib_path}.{os.getpid()}.{os.path.splitext(src)[0]}.o"
+        objs.append(obj)
+        procs.append((src, subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-c", os.path.join(_CSRC, src), "-o", obj],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        )))
+    logs, failed = [], []
+    for src, p in procs:
+        out, _ = p.communicate()
+        logs.append(f"== {src}\n{out}")
+        if p.returncode != 0:
+            failed.append(src)
+    build_log = "\n".join(logs)
+    if failed:
+        raise RuntimeError(f"nvcc failed for {failed}:\n{build_log}")
+    tmp = f"{lib_path}.tmp{os.getpid()}"
+    link = subprocess.run(
+        [nvcc, "-shared", "-o", tmp, *objs],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+    )
+    if link.returncode != 0:
+        raise RuntimeError(f"nvcc link failed:\n{link.stdout}")
+    os.replace(tmp, lib_path)
+
+
+def kernels() -> ctypes.CDLL:
+    """The Hopper kernel library, built on first call (seconds with nvcc)."""
+    global _kernels
+    with _lock:
+        if _kernels is not None:
+            return _kernels
+        srcs = [os.path.join(_CSRC, s) for s in KERNEL_SOURCES]
+        lib_path = os.path.join(BUILD_DIR, f"libhippomm_kernels_{_digest(srcs, NVCC_FLAGS)}.so")
+        if not os.path.exists(lib_path):
+            _build_kernels(lib_path)
+        lib = ctypes.CDLL(lib_path)
+        vp, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        lib.hmm_flash_mha_bf16.argtypes = [vp, vp, vp, vp, i32, i32, i32, i32, f32, vp]
+        lib.hmm_flash_mha_bf16.restype = i32
+        lib.hmm_fused_mlp_bf16.argtypes = [vp, vp, vp, vp, vp, vp, i32, i32, i32, vp]
+        lib.hmm_fused_mlp_bf16.restype = i32
+        _kernels = lib
+        return lib
+
+
+def resize_lib() -> Optional[ctypes.CDLL]:
+    """The host bicubic resize+crop library, or None without a C++ compiler."""
+    global _resize, _resize_tried
+    with _lock:
+        if _resize is not None or _resize_tried:
+            return _resize
+        _resize_tried = True
+        cxx = shutil.which("g++") or shutil.which("c++")
+        if cxx is None:
+            return None
+        src = os.path.join(_CSRC, "media_resize.cpp")
+        flags = ["-O3", "-fPIC", "-shared", "-std=c++17", "-pthread"]
+        lib_path = os.path.join(BUILD_DIR, f"libhmm_resize_{_digest([src], flags)}.so")
+        if not os.path.exists(lib_path):
+            os.makedirs(BUILD_DIR, exist_ok=True)
+            tmp = f"{lib_path}.tmp{os.getpid()}"
+            subprocess.run([cxx, *flags, "-o", tmp, src], check=True, capture_output=True)
+            os.replace(tmp, lib_path)
+        lib = ctypes.CDLL(lib_path)
+        lib.hmm_resize_bicubic_crop_batch.restype = ctypes.c_int
+        lib.hmm_resize_bicubic_crop_batch.argtypes = [
+            ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_int,
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
+        ]
+        _resize = lib
+        return lib
