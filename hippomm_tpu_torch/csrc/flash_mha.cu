@@ -9,182 +9,220 @@
 // Bound on the H100: at the ingest shapes (Tk 257 / 230, hd 80 / 64) the
 // work is ~4·Tq·Tk·hd flops against q/k/v/o read and written once, about
 // 130 flops per byte — under the card's ~295 bf16 flops per byte, so the
-// kernel is bound by device-memory bytes. The design keeps every byte to one
-// read: each block owns 64 query rows of one head and streams that head's
-// K/V through shared memory in 64-key tiles with an online softmax (running
-// max m, running sum l, output rescaled by exp(m_old − m_new)), so a whole
-// head's logits never exist anywhere but registers and shared memory.
+// kernel is bound by device-memory bytes. The design keeps every byte to
+// one read and the logits in registers (the FlashAttention-2 schedule):
+// each block owns 64 query rows of one head (4 warps × 16 rows); K/V stream
+// through shared memory in 64-key tiles; each warp keeps its Q fragments,
+// its 16×64 logits and its 16×hd output accumulator in registers and runs
+// an online softmax there (running max m, running sum l, output rescaled by
+// exp(m_old − m_new)). The logit accumulator's register layout is exactly
+// the A-operand layout of the next product, so P never leaves registers.
 //
 // Numerics differ from the TPU kernel's default body in one place: the TPU
 // body normalises the weights before the bf16 cast; an online softmax casts
 // the unnormalised exp(s − m) and divides the fp32 output at the end (the
 // TPU kernel's `defer_div` body). The two differ by ≤ 1 bf16 ulp.
 //
-// Tensor cores through the WMMA API (16×16×16 bf16 tiles, fp32
-// accumulators). Ragged edges: K/V rows at and past Tk are zero-filled in
-// shared memory and their logits set to −inf; Q rows past Tq are zero and
-// never stored. hd must be a multiple of 16 and at most 128 (the wrapper pads).
+// Tensor cores through mma.sync m16n8k16 (bf16 in, fp32 accumulate) with
+// ldmatrix from padded shared-memory rows. Ragged edges: K/V rows at and past
+// Tk are zero-filled and their logits set to −inf; Q rows past Tq are zero
+// and never stored. hd must be a multiple of 16 and at most 128 (the wrapper
+// pads); q/k/v/o 16-byte aligned.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 
 #include <cmath>
 #include <cstdint>
 
-using namespace nvcuda;
-
 namespace {
 
-constexpr int kBQ = 64;     // query rows per block (4 warps × 16)
-constexpr int kBK = 64;     // keys per K/V tile
-constexpr int kWarps = 4;
-constexpr int kThreads = kWarps * 32;
+constexpr int kBQ = 64;  // query rows per block (4 warps × 16)
+constexpr int kBK = 64;  // keys per K/V tile
+constexpr int kThreads = 128;
 
-__host__ __device__ constexpr int round128(int b) { return (b + 127) / 128 * 128; }
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
 
-template <int HD>
-struct Layout {
-  static constexpr int HDS = HD + 8;  // padded row (bf16 and fp32 tiles)
-  static constexpr int q_bytes = round128(kBQ * HDS * 2);
-  static constexpr int kv_bytes = round128(kBK * HDS * 2);
-  static constexpr int s_bytes = round128(16 * kBK * 4);    // per warp, fp32 logits
-  static constexpr int p_bytes = round128(16 * kBK * 2);    // per warp, bf16 weights
-  static constexpr int o_bytes = round128(16 * HDS * 4);    // per warp, fp32 output
-  static constexpr int st_bytes = round128(3 * 16 * 4);     // per warp, m / l / alpha
-  static constexpr int warp_bytes = s_bytes + p_bytes + o_bytes + st_bytes;
-  static constexpr int total = q_bytes + 2 * kv_bytes + kWarps * warp_bytes;
-};
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+// d += a · b for one m16n8k16 tile (a row-major 16×16, b col-major 16×8)
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x (low half) = lo
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// rows [r0, r0 + 64) of a (rows, HD) bf16 matrix into a padded smem tile;
+// rows at and past `rows` are zero
+template <int HD, int LD>
+__device__ __forceinline__ void load_tile(__nv_bfloat16* dst, const __nv_bfloat16* src, int r0,
+                                          int rows) {
+  constexpr int kVec = HD / 8;  // 16-byte vectors per row
+  for (int i = threadIdx.x; i < 64 * kVec; i += kThreads) {
+    const int r = i / kVec, c = (i % kVec) * 8;
+    uint4 v = make_uint4(0u, 0u, 0u, 0u);
+    if (r0 + r < rows) v = *reinterpret_cast<const uint4*>(src + (int64_t)(r0 + r) * HD + c);
+    *reinterpret_cast<uint4*>(dst + r * LD + c) = v;
+  }
+}
 
 template <int HD>
 __global__ void __launch_bounds__(kThreads)
 flash_mha_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                 const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
-                 int tq, int tk, float scale) {
-  using Lay = Layout<HD>;
-  constexpr int HDS = Lay::HDS;
+                 const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o, int tq,
+                 int tk, float scale) {
+  constexpr int LD = HD + 8;       // padded smem row (16-byte multiple, fewer bank conflicts)
+  constexpr int KS = HD / 16;      // k-steps of Q·Kᵀ
+  constexpr int NO = HD / 8;       // n8 tiles of the output
   extern __shared__ __align__(128) unsigned char smem[];
   __nv_bfloat16* q_s = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* k_s = reinterpret_cast<__nv_bfloat16*>(smem + Lay::q_bytes);
-  __nv_bfloat16* v_s = reinterpret_cast<__nv_bfloat16*>(smem + Lay::q_bytes + Lay::kv_bytes);
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  unsigned char* wbase = smem + Lay::q_bytes + 2 * Lay::kv_bytes + warp * Lay::warp_bytes;
-  float* s_w = reinterpret_cast<float*>(wbase);
-  __nv_bfloat16* p_w = reinterpret_cast<__nv_bfloat16*>(wbase + Lay::s_bytes);
-  float* o_w = reinterpret_cast<float*>(wbase + Lay::s_bytes + Lay::p_bytes);
-  float* m_w = reinterpret_cast<float*>(wbase + Lay::s_bytes + Lay::p_bytes + Lay::o_bytes);
-  float* l_w = m_w + 16;
-  float* a_w = m_w + 32;
+  __nv_bfloat16* k_s = q_s + kBQ * LD;
+  __nv_bfloat16* v_s = k_s + kBK * LD;
 
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t4 = lane & 3;  // accumulator row group / column pair
   const int64_t bh = blockIdx.y;
   const int q0 = blockIdx.x * kBQ;
   const __nv_bfloat16* Q = q + bh * (int64_t)tq * HD;
   const __nv_bfloat16* K = k + bh * (int64_t)tk * HD;
   const __nv_bfloat16* V = v + bh * (int64_t)tk * HD;
   __nv_bfloat16* O = o + bh * (int64_t)tq * HD;
-  const __nv_bfloat16 zero = __float2bfloat16(0.0f);
 
-  for (int i = threadIdx.x; i < kBQ * HD; i += kThreads) {
-    const int r = i / HD, c = i % HD;
-    q_s[r * HDS + c] = (q0 + r < tq) ? Q[(int64_t)(q0 + r) * HD + c] : zero;
-  }
-  for (int i = lane; i < 16 * HD; i += 32) o_w[(i / HD) * HDS + i % HD] = 0.0f;
-  if (lane < 16) {
-    m_w[lane] = -INFINITY;
-    l_w[lane] = 0.0f;
-  }
+  load_tile<HD, LD>(q_s, Q, q0, tq);
+  __syncthreads();
+  uint32_t qa[KS][4];
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk)
+    ldsm_x4(qa[kk], smem_addr(q_s + (warp * 16 + (lane & 15)) * LD + kk * 16 + (lane >> 4) * 8));
 
-  const int r = lane >> 1;          // softmax row of this lane
-  const int c0 = (lane & 1) * 32;   // its half of the 64 keys
+  float acc[NO][4];
+#pragma unroll
+  for (int n = 0; n < NO; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.0f;
+  float m_run[2] = {-INFINITY, -INFINITY};
+  float l_run[2] = {0.0f, 0.0f};
+
   for (int kt0 = 0; kt0 < tk; kt0 += kBK) {
     __syncthreads();  // every warp is done with the previous K/V tile
-    for (int i = threadIdx.x; i < kBK * HD; i += kThreads) {
-      const int kr = i / HD, c = i % HD;
-      const bool in = kt0 + kr < tk;
-      k_s[kr * HDS + c] = in ? K[(int64_t)(kt0 + kr) * HD + c] : zero;
-      v_s[kr * HDS + c] = in ? V[(int64_t)(kt0 + kr) * HD + c] : zero;
-    }
+    load_tile<HD, LD>(k_s, K, kt0, tk);
+    load_tile<HD, LD>(v_s, V, kt0, tk);
     __syncthreads();
 
-    // S = Q_w · K_tileᵀ: this warp's 16 rows × 64 keys
+    // S = Q_w · K_tileᵀ: 16 rows × 64 keys as eight n8 tiles
+    float s[8][4];
 #pragma unroll
-    for (int nt = 0; nt < kBK / 16; ++nt) {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-      wmma::fill_fragment(acc, 0.0f);
+    for (int n = 0; n < 8; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.0f;
 #pragma unroll
-      for (int kk = 0; kk < HD / 16; ++kk) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> a;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::col_major> b;
-        wmma::load_matrix_sync(a, q_s + warp * 16 * HDS + kk * 16, HDS);
-        wmma::load_matrix_sync(b, k_s + nt * 16 * HDS + kk * 16, HDS);
-        wmma::mma_sync(acc, a, b, acc);
+    for (int kk = 0; kk < KS; ++kk) {
+#pragma unroll
+      for (int np = 0; np < 4; ++np) {
+        uint32_t b[4];
+        ldsm_x4(b, smem_addr(k_s + (np * 16 + (lane & 7) + (lane >> 4) * 8) * LD + kk * 16 +
+                             ((lane >> 3) & 1) * 8));
+        mma_bf16(s[2 * np], qa[kk], b[0], b[1]);
+        mma_bf16(s[2 * np + 1], qa[kk], b[2], b[3]);
       }
-      wmma::store_matrix_sync(s_w + nt * 16, acc, kBK, wmma::mem_row_major);
     }
-    __syncwarp();
 
-    // online softmax over this tile: two lanes per row, 32 keys each
-    float mx = -INFINITY;
-#pragma unroll 8
-    for (int j = 0; j < 32; ++j) {
-      const int col = c0 + j;
-      const float s = (kt0 + col < tk) ? s_w[r * kBK + col] * scale : -INFINITY;
-      s_w[r * kBK + col] = s;
-      mx = fmaxf(mx, s);
-    }
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-    const float m_old = m_w[r];
-    const float m_new = fmaxf(m_old, mx);  // finite: every tile holds a real key
-    float sum = 0.0f;
-#pragma unroll 8
-    for (int j = 0; j < 32; ++j) {
-      const int col = c0 + j;
-      const float p = expf(s_w[r * kBK + col] - m_new);
-      p_w[r * kBK + col] = __float2bfloat16(p);
-      sum += p;
-    }
-    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-    __syncwarp();
-    if ((lane & 1) == 0) {
-      const float alpha = expf(m_old - m_new);
-      a_w[r] = alpha;
-      l_w[r] = l_w[r] * alpha + sum;
-      m_w[r] = m_new;
-    }
-    __syncwarp();
-    for (int i = lane; i < 16 * HD; i += 32) o_w[(i / HD) * HDS + i % HD] *= a_w[i / HD];
-    __syncwarp();
-
-    // O_w += P_w · V_tile
+    // online softmax; this thread holds rows g (e = 0, 1) and g + 8 (e = 2, 3)
+    float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
-    for (int dt = 0; dt < HD / 16; ++dt) {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-      wmma::load_matrix_sync(acc, o_w + dt * 16, HDS, wmma::mem_row_major);
+    for (int n = 0; n < 8; ++n) {
 #pragma unroll
-      for (int kk = 0; kk < kBK / 16; ++kk) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> a;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> b;
-        wmma::load_matrix_sync(a, p_w + kk * 16, kBK);
-        wmma::load_matrix_sync(b, v_s + kk * 16 * HDS + dt * 16, HDS);
-        wmma::mma_sync(acc, a, b, acc);
+      for (int e = 0; e < 4; ++e) {
+        const int key = kt0 + n * 8 + 2 * t4 + (e & 1);
+        const float val = key < tk ? s[n][e] * scale : -INFINITY;
+        s[n][e] = val;
+        mx[e >> 1] = fmaxf(mx[e >> 1], val);
       }
-      wmma::store_matrix_sync(o_w + dt * 16, acc, HDS, wmma::mem_row_major);
     }
-    __syncwarp();
+    float alpha[2], m_new[2], rsum[2] = {0.0f, 0.0f};
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+      m_new[h] = fmaxf(m_run[h], mx[h]);  // finite: every tile holds a real key
+      alpha[h] = expf(m_run[h] - m_new[h]);
+      m_run[h] = m_new[h];
+    }
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = expf(s[n][e] - m_new[e >> 1]);
+        s[n][e] = p;
+        rsum[e >> 1] += p;
+      }
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      rsum[h] += __shfl_xor_sync(0xffffffffu, rsum[h], 1);
+      rsum[h] += __shfl_xor_sync(0xffffffffu, rsum[h], 2);
+      l_run[h] = l_run[h] * alpha[h] + rsum[h];
+    }
+#pragma unroll
+    for (int n = 0; n < NO; ++n) {
+      acc[n][0] *= alpha[0];
+      acc[n][1] *= alpha[0];
+      acc[n][2] *= alpha[1];
+      acc[n][3] *= alpha[1];
+    }
+
+    // O_w += P · V_tile; P's accumulator layout is the A-operand layout
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const uint32_t pa[4] = {pack_bf16(s[2 * j][0], s[2 * j][1]),
+                              pack_bf16(s[2 * j][2], s[2 * j][3]),
+                              pack_bf16(s[2 * j + 1][0], s[2 * j + 1][1]),
+                              pack_bf16(s[2 * j + 1][2], s[2 * j + 1][3])};
+#pragma unroll
+      for (int dp = 0; dp < NO / 2; ++dp) {
+        uint32_t b[4];
+        ldsm_x4_trans(b, smem_addr(v_s + (j * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LD +
+                                   dp * 16 + (lane >> 4) * 8));
+        mma_bf16(acc[2 * dp], pa, b[0], b[1]);
+        mma_bf16(acc[2 * dp + 1], pa, b[2], b[3]);
+      }
+    }
   }
 
-  for (int i = lane; i < 16 * HD; i += 32) {
-    const int rr = i / HD, c = i % HD;
-    const int row = q0 + warp * 16 + rr;
-    if (row < tq) O[(int64_t)row * HD + c] = __float2bfloat16(o_w[rr * HDS + c] / l_w[rr]);
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = q0 + warp * 16 + g + 8 * h;
+    if (row < tq) {
+      const float inv = 1.0f / l_run[h];
+#pragma unroll
+      for (int n = 0; n < NO; ++n) {
+        __nv_bfloat162 val = __floats2bfloat162_rn(acc[n][2 * h] * inv, acc[n][2 * h + 1] * inv);
+        *reinterpret_cast<__nv_bfloat162*>(O + (int64_t)row * HD + n * 8 + 2 * t4) = val;
+      }
+    }
   }
 }
 
 template <int HD>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o, int bh, int tq,
                    int tk, float scale, cudaStream_t stream) {
-  constexpr int bytes = Layout<HD>::total;
+  constexpr int bytes = (kBQ + 2 * kBK) * (HD + 8) * 2;
   cudaError_t err = cudaFuncSetAttribute(
       flash_mha_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return err;
@@ -200,7 +238,8 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, int bh,
 extern "C" {
 
 // q (bh, tq, hd), k/v (bh, tk, hd), o (bh, tq, hd): contiguous bf16 on the
-// current device. Launches on `stream`; returns the CUDA error code (0 = ok).
+// current device, 16-byte aligned. Launches on `stream`; returns the CUDA
+// error code (0 = ok).
 int hmm_flash_mha_bf16(const void* q, const void* k, const void* v, void* o, int bh, int tq,
                        int tk, int hd, float scale, void* stream) {
   if (bh <= 0 || tq <= 0 || tk <= 0) return (int)cudaErrorInvalidValue;

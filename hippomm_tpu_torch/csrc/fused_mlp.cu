@@ -5,52 +5,113 @@
 // (reached through `fused_mlp` / `fused_mlp_vjp`). As there, the (N, F)
 // hidden activation — the largest tensor of an encoder block — never exists
 // in device memory: each block owns a 32-row tile of x and walks the hidden
-// dim in 128-wide chunks. Per chunk it computes the fc1 slice into shared
-// memory, adds b1, rounds to bf16 (the cast-before-GELU of models/layers.py
-// mlp), applies the exact erf GELU (CUDA has erff; the TPU kernel's
+// dim in 128-wide chunks. Per chunk it computes the fc1 slice in registers,
+// adds b1, rounds to bf16 (the cast-before-GELU of models/layers.py mlp),
+// applies the exact erf GELU (CUDA has erff; the TPU kernel's
 // Abramowitz–Stegun and polynomial erfs existed only because Mosaic has
-// none), and accumulates that chunk's fc2 partial into a (32, D) fp32
-// accumulator kept in shared memory. After the last chunk it adds b2 and
-// writes bf16 once.
+// none), parks the bf16 chunk in shared memory, and accumulates its fc2
+// partial into a (32, D) fp32 accumulator kept in shared memory. After the
+// last chunk it adds b2 and writes bf16 once.
 //
 // Bound on the H100: 4·N·D·F flops (216 GFLOP for the ViT-H tower at 32
 // frames) against ~N·D·4 + D·F·4 bytes — far above the ~295 flops per byte
-// where bf16 tensor cores, not memory, are the limit: compute-bound. This
-// first version is simple rather than fast: the weights are re-read from L2
-// by every 32-row tile (they stay resident in the 50 MB L2: 26 MB bf16 at
-// ViT-H) and WMMA fragments are loaded straight from global memory. The
-// 32-row tile is what the fp32 accumulator allows: 32 × 1280 × 4 B = 160 KB
-// of the 227 KB a block may hold; 64 rows would not fit.
+// where bf16 tensor cores, not memory, are the limit: compute-bound. What
+// holds this design back instead is L2: the 32-row tile is what the fp32
+// accumulator allows (32 × 1280 × 4 B = 160 KB of the 227 KB a block may
+// hold; 64 rows would not fit), so every row tile streams all of W1 and W2
+// (26 MB bf16 at ViT-H, resident in the 50 MB L2) once. The weights flow
+// through a two-stage cp.async ring of 64-wide slices while the previous
+// slice feeds mma.sync m16n8k16 (bf16 in, fp32 accumulate) via ldmatrix.
+// Splitting D across a thread-block cluster (bigger row tiles, less L2
+// traffic) is the next step.
 //
 // Requirements (checked by the wrapper): N a multiple of 32 (the wrapper
-// pads), D and F multiples of 128, D ≤ 1536, all tensors contiguous; x, W1,
-// W2 bf16; b1, b2 fp32.
+// pads), D and F multiples of 128, D ≤ 1280, all tensors contiguous and
+// 16-byte aligned; x, W1, W2 bf16; b1, b2 fp32.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 
 #include <cmath>
 #include <cstdint>
 
-using namespace nvcuda;
-
 namespace {
 
-constexpr int kBM = 32;    // rows per block
-constexpr int kBF = 128;   // hidden chunk
-constexpr int kWarps = 8;  // one 16-wide hidden column per warp in fc1
-constexpr int kThreads = kWarps * 32;
-constexpr int kHS = kBF + 8;  // padded row of the fp32 / bf16 chunk tiles
+constexpr int kBM = 32;       // rows per block
+constexpr int kBF = 128;      // hidden chunk
+constexpr int kSL = 64;       // slice width of every pipeline stage
+constexpr int kThreads = 256;  // 8 warps
+constexpr int kXLD = kSL + 8;  // padded rows of the fc1 stage tiles (bf16)
+constexpr int kWLD = kBF + 8;  // padded rows of the fc2 stage tile and of G (bf16)
+constexpr int kStageBytes = (kBM + kBF) * kXLD * 2;  // X slice + W1 slice ≥ W2 slice
+constexpr int kGBytes = kBM * kWLD * 2;
 
-__host__ __device__ constexpr int round128(int b) { return (b + 127) / 128 * 128; }
+__host__ __device__ inline int acc_ld(int d) { return d + 8; }  // ≡ 8 (mod 32): no float2 conflicts
+__host__ __device__ inline int acc_bytes(int d) { return kBM * acc_ld(d) * 4; }
 
-__host__ __device__ inline int acc_ld(int d) { return d + 8; }
-__host__ __device__ inline int acc_bytes(int d) { return round128(kBM * acc_ld(d) * 4); }
-constexpr int kHBytes = round128(kBM * kHS * 4);
-constexpr int kGBytes = round128(kBM * kHS * 2);
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
 
-__global__ void __launch_bounds__(kThreads)
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(dst)), "l"(src));
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ float bf16_round(float x) {
+  return __bfloat162float(__float2bfloat16(x));
+}
+
+__device__ __forceinline__ float gelu_erf(float x) {
+  return 0.5f * x * (1.0f + erff(x * 0.70710678118654752f));
+}
+
+// Stage st of the pipeline: per hidden chunk, D/64 fc1 slices (x[:, k:k+64]
+// and W1[chunk, k:k+64]) then D/64 fc2 slices (W2[d:d+64, chunk]).
+__device__ __forceinline__ void load_stage(int st, int ks, unsigned char* buf,
+                                           const __nv_bfloat16* X, const __nv_bfloat16* w1,
+                                           const __nv_bfloat16* w2, int d, int f) {
+  const int chunk = st / (2 * ks), r = st % (2 * ks);
+  const int f0 = chunk * kBF;
+  __nv_bfloat16* s = reinterpret_cast<__nv_bfloat16*>(buf);
+  if (r < ks) {
+    const int k0 = r * kSL;
+    {  // X slice: 32 rows × 8 vectors, one per thread
+      const int row = threadIdx.x >> 3, v = threadIdx.x & 7;
+      cp_async16(s + row * kXLD + v * 8, X + (int64_t)row * d + k0 + v * 8);
+    }
+    __nv_bfloat16* ws = s + kBM * kXLD;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {  // W1 slice: 128 rows × 8 vectors
+      const int idx = threadIdx.x + i * kThreads, row = idx >> 3, v = idx & 7;
+      cp_async16(ws + row * kXLD + v * 8, w1 + (int64_t)(f0 + row) * d + k0 + v * 8);
+    }
+  } else {
+    const int d0 = (r - ks) * kSL;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {  // W2 slice: 64 rows × 16 vectors
+      const int idx = threadIdx.x + i * kThreads, row = idx >> 4, v = idx & 15;
+      cp_async16(s + row * kWLD + v * 8, w2 + (int64_t)(d0 + row) * f + f0 + v * 8);
+    }
+  }
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+__global__ void __launch_bounds__(kThreads, 1)
 fused_mlp_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ w1,
                  const float* __restrict__ b1, const __nv_bfloat16* __restrict__ w2,
                  const float* __restrict__ b2, __nv_bfloat16* __restrict__ out, int n, int d,
@@ -58,71 +119,111 @@ fused_mlp_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __res
   extern __shared__ __align__(128) unsigned char smem[];
   const int lda = acc_ld(d);
   float* acc_s = reinterpret_cast<float*>(smem);
-  float* h_s = reinterpret_cast<float*>(smem + acc_bytes(d));
-  __nv_bfloat16* g_s = reinterpret_cast<__nv_bfloat16*>(smem + acc_bytes(d) + kHBytes);
-  const int warp = threadIdx.x / 32;
+  __nv_bfloat16* g_s = reinterpret_cast<__nv_bfloat16*>(smem + acc_bytes(d));
+  unsigned char* stage[2] = {smem + acc_bytes(d) + kGBytes,
+                             smem + acc_bytes(d) + kGBytes + kStageBytes};
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int mt = warp & 1;            // 16-row half of the tile
+  const int nb1 = (warp >> 1) * 32;   // fc1: this warp's 32 hidden columns of the chunk
+  const int nb2 = (warp >> 1) * 16;   // fc2: this warp's 16 output columns of a slice
   const int64_t m0 = (int64_t)blockIdx.x * kBM;
   const __nv_bfloat16* X = x + m0 * d;
-  const int dtiles = d / 16;
+  const int ks = d / kSL;
+  const int total = (f / kBF) * 2 * ks;
 
-  for (int f0 = 0; f0 < f; f0 += kBF) {
-    // fc1: hidden columns [f0 + 16·warp, +16) for both 16-row halves
-    {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> c0, c1;
-      wmma::fill_fragment(c0, 0.0f);
-      wmma::fill_fragment(c1, 0.0f);
-      const __nv_bfloat16* W = w1 + (int64_t)(f0 + warp * 16) * d;
-      for (int kk = 0; kk < dtiles; ++kk) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> a0, a1;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::col_major> b;
-        wmma::load_matrix_sync(b, W + kk * 16, d);
-        wmma::load_matrix_sync(a0, X + kk * 16, d);
-        wmma::load_matrix_sync(a1, X + (int64_t)16 * d + kk * 16, d);
-        wmma::mma_sync(c0, a0, b, c0);
-        wmma::mma_sync(c1, a1, b, c1);
-      }
-      wmma::store_matrix_sync(h_s + warp * 16, c0, kHS, wmma::mem_row_major);
-      wmma::store_matrix_sync(h_s + 16 * kHS + warp * 16, c1, kHS, wmma::mem_row_major);
+  for (int i = threadIdx.x; i < kBM * lda; i += kThreads) acc_s[i] = 0.0f;
+
+  float h[4][4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) h[j][0] = h[j][1] = h[j][2] = h[j][3] = 0.0f;
+  uint32_t ga[kBF / 16][4];
+
+  load_stage(0, ks, stage[0], X, w1, w2, d, f);
+  for (int st = 0; st < total; ++st) {
+    if (st + 1 < total) {
+      load_stage(st + 1, ks, stage[(st + 1) & 1], X, w1, w2, d, f);
+      asm volatile("cp.async.wait_group 1;\n" ::);
+    } else {
+      asm volatile("cp.async.wait_group 0;\n" ::);
     }
     __syncthreads();
-
-    // + b1 (fp32) → bf16 → exact GELU in fp32 → bf16
-    for (int i = threadIdx.x; i < kBM * kBF; i += kThreads) {
-      const int r = i / kBF, c = i % kBF;
-      const float h = __bfloat162float(__float2bfloat16(h_s[r * kHS + c] + b1[f0 + c]));
-      const float g = 0.5f * h * (1.0f + erff(h * 0.70710678118654752f));
-      g_s[r * kHS + c] = __float2bfloat16(g);
-    }
-    __syncthreads();
-
-    // fc2 partial: acc[:, dt] += G · W2[dt, f0:f0+128]ᵀ for this warp's dt
-    for (int dt = warp; dt < dtiles; dt += kWarps) {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> c0, c1;
-      if (f0 == 0) {
-        wmma::fill_fragment(c0, 0.0f);
-        wmma::fill_fragment(c1, 0.0f);
-      } else {
-        wmma::load_matrix_sync(c0, acc_s + dt * 16, lda, wmma::mem_row_major);
-        wmma::load_matrix_sync(c1, acc_s + 16 * lda + dt * 16, lda, wmma::mem_row_major);
+    const __nv_bfloat16* s = reinterpret_cast<const __nv_bfloat16*>(stage[st & 1]);
+    const int chunk = st / (2 * ks), r = st % (2 * ks);
+    const int f0 = chunk * kBF;
+    if (r < ks) {
+      // fc1: h (16 rows × 32 hidden) += x_slice · W1_sliceᵀ
+      const __nv_bfloat16* ws = s + kBM * kXLD;
+#pragma unroll
+      for (int kk = 0; kk < kSL / 16; ++kk) {
+        uint32_t a[4];
+        ldsm_x4(a, s + (mt * 16 + (lane & 15)) * kXLD + kk * 16 + (lane >> 4) * 8);
+#pragma unroll
+        for (int np = 0; np < 2; ++np) {
+          uint32_t b[4];
+          ldsm_x4(b, ws + (nb1 + np * 16 + (lane & 7) + (lane >> 4) * 8) * kXLD + kk * 16 +
+                         ((lane >> 3) & 1) * 8);
+          mma_bf16(h[2 * np], a, b[0], b[1]);
+          mma_bf16(h[2 * np + 1], a, b[2], b[3]);
+        }
       }
-      const __nv_bfloat16* W = w2 + (int64_t)(dt * 16) * f + f0;
+      if (r == ks - 1) {
+        // + b1 → bf16 → exact GELU → bf16 into G; the chunk's fc2 reads it
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int col = nb1 + j * 8 + 2 * t4;
+          const float bias0 = b1[f0 + col], bias1 = b1[f0 + col + 1];
+#pragma unroll
+          for (int hh = 0; hh < 2; ++hh) {
+            const int row = mt * 16 + g + 8 * hh;
+            const float v0 = gelu_erf(bf16_round(h[j][2 * hh] + bias0));
+            const float v1 = gelu_erf(bf16_round(h[j][2 * hh + 1] + bias1));
+            *reinterpret_cast<__nv_bfloat162*>(g_s + row * kWLD + col) =
+                __floats2bfloat162_rn(v0, v1);
+          }
+          h[j][0] = h[j][1] = h[j][2] = h[j][3] = 0.0f;
+        }
+      }
+    } else {
+      const int j = r - ks;
+      if (j == 0) {  // G was completed before this stage's barrier
+#pragma unroll
+        for (int kk = 0; kk < kBF / 16; ++kk)
+          ldsm_x4(ga[kk], g_s + (mt * 16 + (lane & 15)) * kWLD + kk * 16 + (lane >> 4) * 8);
+      }
+      // fc2: acc[:, d0 + nb2 : +16] += G · W2_sliceᵀ
+      const int d0 = j * kSL;
+      float c[2][4];
+#pragma unroll
+      for (int tt = 0; tt < 2; ++tt) {
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const float2 v = *reinterpret_cast<const float2*>(
+              acc_s + (mt * 16 + g + 8 * hh) * lda + d0 + nb2 + tt * 8 + 2 * t4);
+          c[tt][2 * hh] = v.x;
+          c[tt][2 * hh + 1] = v.y;
+        }
+      }
 #pragma unroll
       for (int kk = 0; kk < kBF / 16; ++kk) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> a0, a1;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::col_major> b;
-        wmma::load_matrix_sync(b, W + kk * 16, f);
-        wmma::load_matrix_sync(a0, g_s + kk * 16, kHS);
-        wmma::load_matrix_sync(a1, g_s + 16 * kHS + kk * 16, kHS);
-        wmma::mma_sync(c0, a0, b, c0);
-        wmma::mma_sync(c1, a1, b, c1);
+        uint32_t b[4];
+        ldsm_x4(b, s + (nb2 + (lane & 7) + (lane >> 4) * 8) * kWLD + kk * 16 +
+                       ((lane >> 3) & 1) * 8);
+        mma_bf16(c[0], ga[kk], b[0], b[1]);
+        mma_bf16(c[1], ga[kk], b[2], b[3]);
       }
-      wmma::store_matrix_sync(acc_s + dt * 16, c0, lda, wmma::mem_row_major);
-      wmma::store_matrix_sync(acc_s + 16 * lda + dt * 16, c1, lda, wmma::mem_row_major);
+#pragma unroll
+      for (int tt = 0; tt < 2; ++tt) {
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          *reinterpret_cast<float2*>(acc_s + (mt * 16 + g + 8 * hh) * lda + d0 + nb2 + tt * 8 +
+                                     2 * t4) = make_float2(c[tt][2 * hh], c[tt][2 * hh + 1]);
+        }
+      }
     }
-    // the next chunk's fc1 writes only h_s, which no warp reads any more;
-    // the __syncthreads after it orders g_s reuse
+    __syncthreads();  // this stage's buffer is refilled two stages on
   }
-  __syncthreads();
 
   for (int i = threadIdx.x; i < kBM * d; i += kThreads) {
     const int r = i / d, c = i % d;
@@ -135,12 +236,12 @@ fused_mlp_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __res
 extern "C" {
 
 // x (n, d) bf16 with n % 32 == 0; w1 (f, d) bf16; b1 (f,) fp32; w2 (d, f)
-// bf16; b2 (d,) fp32; out (n, d) bf16 — contiguous, on the current device.
-// Launches on `stream`; returns the CUDA error code (0 = ok).
+// bf16; b2 (d,) fp32; out (n, d) bf16 — contiguous, 16-byte aligned, on the
+// current device. Launches on `stream`; returns the CUDA error code (0 = ok).
 int hmm_fused_mlp_bf16(const void* x, const void* w1, const void* b1, const void* w2,
                        const void* b2, void* out, int n, int d, int f, void* stream) {
-  if (n <= 0 || n % kBM || d % 128 || f % kBF || d > 1536) return (int)cudaErrorInvalidValue;
-  const int bytes = acc_bytes(d) + kHBytes + kGBytes;
+  if (n <= 0 || n % kBM || d % 128 || f % kBF || d > 1280) return (int)cudaErrorInvalidValue;
+  const int bytes = acc_bytes(d) + kGBytes + 2 * kStageBytes;
   cudaError_t err = cudaFuncSetAttribute(
       fused_mlp_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return (int)err;

@@ -62,8 +62,8 @@ def flash_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float) -
         raise TypeError(f"flash_mha kernel takes bfloat16, got {q.dtype}")
     if not flash_supported(tq, tk, hd):
         raise ValueError(f"flash_mha kernel does not take tq={tq} tk={tk} hd={hd}")
-    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
-        raise ValueError("flash_mha kernel takes contiguous q, k, v")
+    if any(not t.is_contiguous() or t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("flash_mha kernel takes contiguous, 16-byte aligned q, k, v")
     hdp = -(-hd // 16) * 16
     if hdp != hd:
         # zero columns add 0 to q·k and give zero output columns (sliced off)

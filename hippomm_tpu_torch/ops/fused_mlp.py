@@ -2,9 +2,10 @@
 
 Counterpart of hippomm_tpu/ops/fused_mlp.py (`fused_mlp` over the Pallas
 `_mlp_kernel`). The kernel is CUDA C++ in csrc/fused_mlp.cu (32-row tiles,
-128-wide hidden chunks, fp32 accumulator in shared memory: the (N, F) hidden
-never reaches device memory). `fused_mlp_ref` is the same function in plain
-PyTorch, in the op order of hippomm_tpu.ops.fused_mlp._ref_mlp:
+128-wide hidden chunks, fp32 accumulator in shared memory, weights streamed
+through a cp.async ring: the (N, F) hidden never reaches device memory).
+`fused_mlp_ref` is the same function in plain PyTorch, in the op order of
+hippomm_tpu.ops.fused_mlp._ref_mlp:
 
     h = cast(x·W1ᵀ + b1) → exact-erf GELU → cast(h·W2ᵀ + b2)
 
@@ -21,9 +22,10 @@ import torch.nn.functional as F
 
 _LANES = 128
 _ROWS = 32  # the kernel's row tile
-# The kernel's (32, D) fp32 accumulator lives in shared memory: D ≤ 1536
-# keeps it (plus the chunk tiles) inside the 227 KB a Hopper block may use.
-_MAX_D = 1536
+# The kernel's (32, D) fp32 accumulator lives in shared memory beside its
+# two-stage weight ring: D ≤ 1280 keeps both inside the 227 KB a Hopper
+# block may use (ViT-H and Whisper large are 1280).
+_MAX_D = 1280
 
 
 def _chunk_f(f: int) -> int:
@@ -76,8 +78,8 @@ def fused_mlp(x, w1, b1, w2, b2) -> torch.Tensor:
     w1, w2 = w1.to(torch.bfloat16), w2.to(torch.bfloat16)
     b1, b2 = b1.float(), b2.float()
     for name, t in (("x", x), ("w1", w1), ("b1", b1), ("w2", w2), ("b2", b2)):
-        if not t.is_contiguous() or t.data_ptr() % 32:
-            raise ValueError(f"fused_mlp kernel takes contiguous, 32-byte aligned {name}")
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"fused_mlp kernel takes contiguous, 16-byte aligned {name}")
     np_ = -(-n // _ROWS) * _ROWS
     if np_ != n:
         x = F.pad(x, (0, 0, 0, np_ - n))

@@ -100,9 +100,11 @@ def test_fused_mlp_ref_matches_jax(impl):
 
 def test_fused_mlp_gate_matches_jax_within_kernel_bound():
     for n, d, f in [(8224, 1280, 5120), (21984, 768, 3072), (7, 128, 512), (40, 96, 512),
-                    (40, 128, 200), (40, 1536, 6144)]:
+                    (40, 128, 200), (40, 1024, 4096)]:
         assert tfm.fused_mlp_supported(n, d, f) == jfm.fused_mlp_supported(n, d, f)
-    assert not tfm.fused_mlp_supported(64, 1664, 6656)  # accumulator would not fit
+    # the shared-memory accumulator bounds D; JAX admits these, the port does not
+    assert jfm.fused_mlp_supported(64, 1408, 5632)
+    assert not tfm.fused_mlp_supported(64, 1408, 5632)
 
 
 @pytest.mark.parametrize("bias_kv", [False, True])
@@ -130,7 +132,7 @@ def test_attention_separate_projections_and_mask_match_jax():
 
 
 def test_mlp_cast_out_routes_fused_and_matches_unfused():
-    d, f = 128, 512
+    d = 128
     p = jl.init_block(jax.random.PRNGKey(8), d)["mlp"]
     x = np.random.default_rng(9).standard_normal((3, 12, d)).astype(np.float32)
     want = np.asarray(jl.mlp(p, jnp.asarray(x), dtype=jnp.float32))
