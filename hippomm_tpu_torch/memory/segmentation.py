@@ -14,7 +14,6 @@ size rule, not a fallback.
 
 from __future__ import annotations
 
-import logging
 from typing import List, Optional, Sequence
 
 import numpy as np
@@ -25,7 +24,6 @@ from hippomm_tpu_torch.ops.resize import resize_frames
 from hippomm_tpu_torch.ops.ssim import adjacent_ssim, rgb_to_gray, ssim_pairs_host
 from hippomm_tpu_torch.utils.device import fetch
 
-logger = logging.getLogger(__name__)
 
 SSIM_DOWNSCALE_H = 90  # reference computes SSIM on small grayscale frames
 SSIM_DOWNSCALE_W = 160

@@ -13,7 +13,9 @@ Counterpart of hippomm_tpu/ops/resize.py:
 
 from __future__ import annotations
 
+import ctypes
 import functools
+import os
 
 import numpy as np
 import torch
@@ -60,9 +62,6 @@ def resize_crop_u8(frames, size: int = 224) -> np.ndarray:
 
     lib = _native.resize_lib()
     if lib is not None:
-        import ctypes
-        import os
-
         frames = np.ascontiguousarray(frames)
         out = np.empty((n, size, size, 3), np.uint8)
         rc = lib.hmm_resize_bicubic_crop_batch(

@@ -96,3 +96,20 @@ def test_persisted_event_round_trips(events):
     assert loaded.summary == te.summary
     assert te.features["vision"].shape[1] == 1024
     np.testing.assert_allclose(np.linalg.norm(te.features["vision"], axis=1), 1.0, atol=1e-5)
+
+
+@pytest.mark.parametrize("t", [20, 70])
+def test_adjacent_similarity_gray_matches_jax(t):
+    """Both sides of the ≤33-frame size rule: host fp32 below it, the
+    chunked device pass above it."""
+    from hippomm_tpu.memory.segmentation import adjacent_similarity_gray as jgray
+    from hippomm_tpu_torch.memory.segmentation import adjacent_similarity_gray as tgray
+
+    rng = np.random.default_rng(11)
+    grays = np.clip(rng.integers(40, 200, (1, 45, 80)) + rng.normal(0, 6, (t, 45, 80)), 0, 255)
+    grays = grays.astype(np.uint8)
+    grays[t // 2:] = 255 - grays[t // 2:]
+    want = jgray(grays)
+    got = tgray(grays, device="cpu")
+    assert got.shape == want.shape == (t - 1,)
+    assert np.abs(got - want).max() <= 1e-4
