@@ -31,11 +31,12 @@ def tiny():
     cfg_j = jm.tiny_config()
     params_j = jm.init_imagebind(jax.random.PRNGKey(0), cfg_j)
     # perturb the zero-initialised biases / cls tokens so every term counts
-    leaves, tree = jax.tree.flatten(params_j)
-    keys = jax.random.split(jax.random.PRNGKey(1), len(leaves))
-    leaves = [a + 0.02 * jax.random.normal(k, a.shape) for a, k in zip(leaves, keys)]
-    params_j = jax.tree.unflatten(tree, leaves)
-    params_np = jax.tree.map(np.asarray, params_j)
+    # (numpy noise: per-leaf jax.random calls would compile once per shape)
+    rng = np.random.default_rng(1)
+    params_np = jax.tree.map(
+        lambda a: (np.asarray(a) + 0.02 * rng.standard_normal(a.shape)).astype(np.float32), params_j
+    )
+    params_j = jax.tree.map(jnp.asarray, params_np)
     cfg_t = tm.tiny_config()
     params_t = params_from_jax(params_np, cfg_t, "cpu", torch.float32)
     return cfg_j, params_j, cfg_t, params_t

@@ -1,6 +1,6 @@
-"""The PyTorch port stands alone: importing it pulls in neither `jax` nor
-any module of the JAX package, and every entry point refuses to run
-silently on the CPU when CUDA is absent."""
+"""The PyTorch port stands alone: importing it (in a fresh interpreter) pulls
+in neither `jax` nor any module of the JAX package, and every entry point
+refuses to run silently on the CPU when CUDA is absent."""
 
 import os
 import subprocess
@@ -44,33 +44,25 @@ sys.exit(1 if bad else 0)
 """
 
 
-def _run(code, **env):
-    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    return subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
-                          cwd=repo, env={**os.environ, **env}, timeout=300)
-
-
 def test_port_imports_neither_jax_nor_the_jax_package():
-    proc = _run(_PROBE.format(mods=_MODULES))
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    proc = subprocess.run([sys.executable, "-c", _PROBE.format(mods=_MODULES)],
+                          capture_output=True, text=True, cwd=repo, timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
 @pytest.mark.parametrize("entry", ["engine", "imagebind"])
-def test_entry_point_without_device_raises_without_cuda(entry):
-    stmt = {"engine": "HippocampalMemory(cfg)", "imagebind": "ImageBind(variant='tiny')"}[entry]
-    code = (
-        "import torch; torch.cuda.is_available = lambda: False\n"
-        "from hippomm_tpu_torch.config import Config\n"
-        "from hippomm_tpu_torch.memory.engine import HippocampalMemory\n"
-        "from hippomm_tpu_torch.models.foundation import ImageBind\n"
-        "import tempfile\n"
-        "cfg = Config(); cfg.api.mode = 'stub'; cfg.models.imagebind_variant = 'tiny'\n"
-        "cfg.storage.base_dir = tempfile.mkdtemp()\n"
-        "try:\n"
-        f"    {stmt}\n"
-        "except RuntimeError as e:\n"
-        "    print('RAISED', e); raise SystemExit(0)\n"
-        "raise SystemExit('no error')\n"
-    )
-    proc = _run(code)
-    assert proc.returncode == 0 and "RAISED" in proc.stdout, proc.stdout + proc.stderr
+def test_entry_point_without_device_raises_without_cuda(entry, monkeypatch, tmp_path):
+    import torch
+
+    from hippomm_tpu_torch.config import Config
+    from hippomm_tpu_torch.memory.engine import HippocampalMemory
+    from hippomm_tpu_torch.models.foundation import ImageBind
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = Config()
+    cfg.api.mode = "stub"
+    cfg.models.imagebind_variant = "tiny"
+    cfg.storage.base_dir = str(tmp_path)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        HippocampalMemory(cfg) if entry == "engine" else ImageBind(variant="tiny")

@@ -112,7 +112,8 @@ def test_encoder_block_matches_jax(bias_kv):
     d, heads, t, bsz = 64, 4, 21, 2
     p = jl.init_block(jax.random.PRNGKey(3), d, bias_kv=bias_kv)
     # non-trivial biases and norms so every term is exercised
-    p = jax.tree.map(lambda a: a + 0.05 * jax.random.normal(jax.random.PRNGKey(4), a.shape), p)
+    rng = np.random.default_rng(4)
+    p = jax.tree.map(lambda a: jnp.asarray(a + 0.05 * rng.standard_normal(a.shape), jnp.float32), p)
     x = np.random.default_rng(5).standard_normal((bsz, t, d)).astype(np.float32)
     want = np.asarray(jl.encoder_block(p, jnp.asarray(x), heads, dtype=jnp.float32))
     got = tl.encoder_block(_to_torch(p), torch.from_numpy(x), heads, dtype=torch.float32)

@@ -80,7 +80,8 @@ def rows():
 
     for bias_kv in (False, True):
         p = jl.init_block(jax.random.PRNGKey(3), 64, bias_kv=bias_kv)
-        p = jax.tree.map(lambda a: a + 0.05 * jax.random.normal(jax.random.PRNGKey(4), a.shape), p)
+        r = np.random.default_rng(4)
+        p = jax.tree.map(lambda a: jnp.asarray(a + 0.05 * r.standard_normal(a.shape), jnp.float32), p)
         xb = np.random.default_rng(5).standard_normal((2, 21, 64)).astype(np.float32)
         want = np.asarray(jl.encoder_block(p, jnp.asarray(xb), 4, dtype=jnp.float32))
         got = tl.encoder_block(_t(p), torch.from_numpy(xb), 4, dtype=torch.float32).numpy()
@@ -89,9 +90,8 @@ def rows():
 
     cfg_j = jm.tiny_config()
     pj = jm.init_imagebind(jax.random.PRNGKey(0), cfg_j)
-    leaves, tree = jax.tree.flatten(pj)
-    keys = jax.random.split(jax.random.PRNGKey(1), len(leaves))
-    pj = jax.tree.unflatten(tree, [a + 0.02 * jax.random.normal(kk, a.shape) for a, kk in zip(leaves, keys)])
+    r1 = np.random.default_rng(1)
+    pj = jax.tree.map(lambda a: jnp.asarray(a + 0.02 * r1.standard_normal(a.shape), jnp.float32), pj)
     pt = params_from_jax(jax.tree.map(np.asarray, pj), tm.tiny_config(), "cpu", torch.float32)
     img = np.random.default_rng(2).standard_normal((3, 3, 56, 56)).astype(np.float32)
     out.append(("models/imagebind vision_forward (tiny, fp32)", 1e-5, _err(
