@@ -22,13 +22,8 @@ DEFAULT_CONFIG_PATH = os.path.join(
 
 @dataclasses.dataclass
 class SystemConfig:
-    device: str = "tpu"  # "tpu" | "cpu" (reference: "cuda"/"cpu")
-    # mesh axis sizes; None = use all local devices data-parallel
-    mesh_data: Optional[int] = None
-    mesh_model: int = 1
-    # multi-slice: leading replica axis on slice boundaries (params replicate,
-    # batch shards over it; keeps TP collectives inside a slice / off DCN)
-    mesh_replicas: int = 1
+    # The device is the entry points' `device=` argument, and the port runs
+    # on one device; the YAML's system.device and mesh_* keys are ignored.
     # when set, each process_sequence runs under torch.profiler and writes a
     # Chrome trace into this directory (stage timers are always on; this is
     # the trace half)

@@ -52,6 +52,11 @@ class ImageBind:
         params: Optional[Dict] = None,
     ):
         self.device = resolve_device(device)
+        if self.device.type == "cuda" and dtype != torch.bfloat16:
+            # every encoder block runs K1/K2, whose CUDA kernels are bf16 only
+            raise NotImplementedError(
+                f"ImageBind on CUDA runs in bfloat16 (models.compute_dtype); got {dtype}"
+            )
         self.cfg = ib_model.get_config(variant)
         self.dtype = dtype
         if params is not None:

@@ -10,8 +10,9 @@ Counterpart of hippomm_tpu/models/layers.py, with the same conventions:
 
 Mask-free attention routes to the K1 kernel (ops/flash_attention) and
 `mlp(cast_out=True)` to the K2 kernel (ops/fused_mlp) wherever the JAX
-package's shape gates admit; the kernels take bf16, so an fp32 run on CUDA
-keeps the plain op order, as the JAX package does off the TPU.
+package's shape gates admit, whatever the dtype. On CPU tensors the kernel
+wrappers run their plain versions; on CUDA a call the kernels cannot take
+(fp32, or K2 with D > 1280) raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -62,11 +63,6 @@ def layer_norm(p: Params, x: torch.Tensor, eps: float = 1e-6, out_dtype=None) ->
 def gelu(x: torch.Tensor) -> torch.Tensor:
     # exact (erf) GELU — torch nn.GELU default
     return F.gelu(x)
-
-
-def _kernel_dtype_ok(x: torch.Tensor, dtype) -> bool:
-    """The CUDA kernels take bf16; CPU tensors take the plain versions."""
-    return x.device.type == "cpu" or dtype == torch.bfloat16
 
 
 def attention(
@@ -130,7 +126,7 @@ def attention(
     q, k, v = split(q), split(k), split(v)
     scale = 1.0 / math.sqrt(hd)
     b_, _, t_, _ = q.shape
-    if mask is None and flash_supported(q.shape[2], k.shape[2], hd) and _kernel_dtype_ok(q, dtype):
+    if mask is None and flash_supported(q.shape[2], k.shape[2], hd):
         out = flash_mha(q, k, v, scale)
     else:
         logits = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
@@ -149,7 +145,7 @@ def mlp(p: Params, x: torch.Tensor, dtype=torch.bfloat16, cast_out: bool = False
     if cast_out and p["fc1"].get("bias") is not None and p["fc2"].get("bias") is not None:
         f, d = p["fc1"]["weight"].shape
         n = math.prod(x.shape[:-1])
-        if fused_mlp_supported(n, d, f) and _kernel_dtype_ok(x, dtype):
+        if fused_mlp_supported(n, d, f):
             y = fused_mlp(
                 x.reshape(n, d).to(dtype),
                 p["fc1"]["weight"], p["fc1"]["bias"], p["fc2"]["weight"], p["fc2"]["bias"],

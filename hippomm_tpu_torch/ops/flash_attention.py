@@ -59,7 +59,7 @@ def flash_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float) -
     if q.device.type != "cuda":
         raise ValueError(f"flash_mha: unsupported device {q.device}")
     if q.dtype != torch.bfloat16:
-        raise TypeError(f"flash_mha kernel takes bfloat16, got {q.dtype}")
+        raise NotImplementedError(f"the flash_mha CUDA kernel takes bfloat16 only, got {q.dtype}")
     if not flash_supported(tq, tk, hd):
         raise ValueError(f"flash_mha kernel does not take tq={tq} tk={tk} hd={hd}")
     if any(not t.is_contiguous() or t.data_ptr() % 16 for t in (q, k, v)):

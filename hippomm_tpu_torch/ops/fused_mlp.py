@@ -24,21 +24,14 @@ _LANES = 128
 _ROWS = 32  # the kernel's row tile
 # The kernel's (32, D) fp32 accumulator lives in shared memory beside its
 # two-stage weight ring: D ≤ 1280 keeps both inside the 227 KB a Hopper
-# block may use (ViT-H and Whisper large are 1280).
+# block may use (ViT-H and Whisper large are 1280). Wider D needs D split
+# over a thread-block cluster, which is not written yet.
 _MAX_D = 1280
 
 
-def _chunk_f(f: int) -> int:
-    for bf in (512, 256, _LANES):
-        if f % bf == 0:
-            return bf
-    return 0
-
-
 def fused_mlp_supported(n: int, d: int, f: int) -> bool:
-    """Static gate of hippomm_tpu.ops.fused_mlp.fused_mlp_supported, plus the
-    CUDA kernel's shared-memory bound on D."""
-    return n >= 8 and d % _LANES == 0 and f % _LANES == 0 and _chunk_f(f) > 0 and d <= _MAX_D
+    """Static gate, as hippomm_tpu.ops.fused_mlp.fused_mlp_supported."""
+    return n >= 8 and d % _LANES == 0 and f % _LANES == 0
 
 
 def fused_mlp_ref(x, w1, b1, w2, b2) -> torch.Tensor:
@@ -72,9 +65,13 @@ def fused_mlp(x, w1, b1, w2, b2) -> torch.Tensor:
     if x.device.type != "cuda":
         raise ValueError(f"fused_mlp: unsupported device {x.device}")
     if x.dtype != torch.bfloat16:
-        raise TypeError(f"fused_mlp kernel takes bfloat16, got {x.dtype}")
+        raise NotImplementedError(f"the fused_mlp CUDA kernel takes bfloat16 only, got {x.dtype}")
     if not fused_mlp_supported(n, d, f):
         raise ValueError(f"fused_mlp kernel does not take n={n} d={d} f={f}")
+    if d > _MAX_D:
+        raise NotImplementedError(
+            f"the fused_mlp CUDA kernel takes d <= {_MAX_D} (its shared-memory accumulator), got {d}"
+        )
     w1, w2 = w1.to(torch.bfloat16), w2.to(torch.bfloat16)
     b1, b2 = b1.float(), b2.float()
     for name, t in (("x", x), ("w1", w1), ("b1", b1), ("w2", w2), ("b2", b2)):

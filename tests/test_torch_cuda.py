@@ -21,7 +21,12 @@ def cuda_device():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(32, 16, 257, 257, 80), (96, 12, 229, 230, 64), (2, 3, 33, 40, 48)])
+@pytest.mark.parametrize(
+    "shape",
+    # the two ingest shapes, a short ragged one, and hd 40, which the wrapper
+    # pads to a multiple of 16
+    [(32, 16, 257, 257, 80), (96, 12, 229, 230, 64), (2, 3, 33, 40, 48), (2, 3, 33, 40, 40)],
+)
 def test_flash_kernel_matches_plain_on_cuda(cuda_device, shape):
     b, h, tq, tk, hd = shape
     g = torch.Generator(device=cuda_device).manual_seed(0)
@@ -52,3 +57,19 @@ def test_fused_mlp_kernel_matches_plain_on_cuda(cuda_device, n, d, f):
     ref = tfm.fused_mlp_ref(x, w1, b1, w2, b2)
     err = (out.float() - ref.float()).abs().max().item()
     assert err <= 2e-2 * ref.float().abs().max().item()
+
+
+@pytest.mark.cuda
+def test_kernels_raise_for_what_they_do_not_take(cuda_device):
+    """fp32 operands and K2 with D > 1280 raise instead of running plain."""
+    q = torch.zeros((1, 2, 17, 64), device=cuda_device)
+    with pytest.raises(NotImplementedError, match="bfloat16"):
+        tfa.flash_mha(q, q, q, 0.125)
+    for dt, d, f, match in ((torch.float32, 128, 512, "bfloat16"), (torch.bfloat16, 1408, 5632, "1280")):
+        x = torch.zeros((64, d), device=cuda_device, dtype=dt)
+        w1 = torch.zeros((f, d), device=cuda_device, dtype=dt)
+        w2 = torch.zeros((d, f), device=cuda_device, dtype=dt)
+        b1 = torch.zeros((f,), device=cuda_device)
+        b2 = torch.zeros((d,), device=cuda_device)
+        with pytest.raises(NotImplementedError, match=match):
+            tfm.fused_mlp(x, w1, b1, w2, b2)

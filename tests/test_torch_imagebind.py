@@ -24,6 +24,7 @@ from hippomm_tpu_torch.ops import resize as tres
 from hippomm_tpu_torch.ops import silence as tsil
 from hippomm_tpu_torch.ops import similarity as tsim
 from hippomm_tpu_torch.ops import ssim as tssim
+from torch_parity import assert_close
 
 
 @pytest.fixture(scope="module")
@@ -56,18 +57,18 @@ def test_carry_unstacks_blocks(tiny):
     assert bf["audio"]["blocks"][0]["attn"]["bias_k"].dtype == torch.float32
 
 
-def test_vision_forward_matches_jax(tiny):
+def test_vision_forward_matches_jax(request, tiny):
     cfg_j, params_j, cfg_t, params_t = tiny
     s = cfg_j.image_size
     x = np.random.default_rng(2).standard_normal((3, 3, s, s)).astype(np.float32)
     want = np.asarray(jm.vision_forward(params_j, jnp.asarray(x), cfg_j, jnp.float32))
     got = tm.vision_forward(params_t, torch.from_numpy(x), cfg_t, torch.float32).numpy()
     assert got.shape == (3, 1024)
-    assert np.abs(got - want).max() <= 1e-5
+    assert_close(request, got, want, 1e-5)
 
 
 @pytest.mark.parametrize("multi_clip", [False, True])
-def test_audio_forward_matches_jax(tiny, multi_clip):
+def test_audio_forward_matches_jax(request, tiny, multi_clip):
     cfg_j, params_j, cfg_t, params_t = tiny
     shape = (2, 3, 1, 128, 204) if multi_clip else (2, 1, 128, 204)
     mel = np.random.default_rng(3).standard_normal(shape).astype(np.float32)
@@ -75,66 +76,67 @@ def test_audio_forward_matches_jax(tiny, multi_clip):
     got = tm.audio_forward(params_t, torch.from_numpy(mel), cfg_t, torch.float32).numpy()
     assert got.shape == (2, 1024)
     # unit vectors scaled by 20: the ≤1e-5 bound holds on the normalised rows
-    assert np.abs(got / 20.0 - want / 20.0).max() <= 1e-5
+    assert_close(request, got, want, 1e-5, scale=20.0)
 
 
-def test_preprocess_audio_matches_jax():
+def test_preprocess_audio_matches_jax(request):
     rng = np.random.default_rng(4)
     pcms = [rng.uniform(-0.5, 0.5, n).astype(np.float32) for n in (16000 * 7, 9000, 16000 * 3)]
     want = np.asarray(jpre.preprocess_audio_batch(pcms))
     got = tpre.preprocess_audio_batch(pcms).numpy()
     assert got.shape == want.shape == (3, 3, 1, 128, 204)
-    assert np.abs(got - want).max() <= 1e-4
+    assert_close(request, got, want, 1e-4)
 
 
-def test_kaldi_fbank_matches_jax():
+def test_kaldi_fbank_matches_jax(request):
     pcm = np.random.default_rng(5).uniform(-1, 1, 16000 * 2).astype(np.float32)
     want = np.asarray(jmel.KaldiFbank(128)(jnp.asarray(pcm)))
     got = tmel.KaldiFbank(128)(torch.from_numpy(pcm)).numpy()
-    assert got.shape == want.shape
-    assert np.abs(got - want).max() <= 1e-4
+    assert_close(request, got, want, 1e-4)
 
 
-def test_resize_frames_matches_jax():
+def test_resize_frames_matches_jax(request):
     frames = np.random.default_rng(6).integers(0, 256, (4, 120, 200, 3), dtype=np.uint8)
     want = np.asarray(jres.resize_frames(jnp.asarray(frames), 45, 80)).astype(np.int32)
     got = tres.resize_frames(torch.from_numpy(frames), 45, 80).numpy().astype(np.int32)
     assert got.shape == want.shape == (4, 45, 80, 3)
-    diff = np.abs(got - want)
     # rounding of an fp32 value that lands on .5 may fall either way
-    assert diff.max() <= 1 and (diff > 0).mean() < 1e-3
+    assert_close(request, got, want, 1, "max_abs_err_levels")
+    share = float((got != want).mean())
+    request.node.user_properties.append(("share_differing", f"{share!r} < 0.001"))
+    assert share < 1e-3
 
 
-def test_resize_crop_and_normalize_match_jax():
+def test_resize_crop_and_normalize_match_jax(request):
     frames = np.random.default_rng(7).integers(0, 256, (2, 90, 160, 3), dtype=np.uint8)
     crops_j = jres.resize_crop_u8(frames, 56)
     crops_t = tres.resize_crop_u8(frames, 56)
     np.testing.assert_array_equal(crops_t, crops_j)
     want = np.asarray(jres.normalize_nchw(jnp.asarray(crops_j)))
     got = tres.normalize_nchw(torch.from_numpy(crops_t)).numpy()
-    assert np.abs(got - want).max() <= 1e-6
+    assert_close(request, got, want, 1e-6)
 
 
-def test_adjacent_ssim_matches_jax():
+def test_adjacent_ssim_matches_jax(request):
     rng = np.random.default_rng(8)
     base = rng.integers(0, 256, (1, 45, 80), dtype=np.uint8).astype(np.float32)
     frames = np.clip(base + rng.normal(0, 8, (6, 45, 80)), 0, 255).astype(np.float32)
     frames[3:] = 255.0 - frames[3:]  # a cut
     want = np.asarray(jssim.adjacent_ssim(jnp.asarray(frames)))
     got = tssim.adjacent_ssim(torch.from_numpy(frames)).numpy()
-    assert np.abs(got - want).max() <= 1e-4
+    assert_close(request, got, want, 1e-4)
     rgb = rng.integers(0, 256, (2, 5, 7, 3), dtype=np.uint8)
     np.testing.assert_allclose(tssim.rgb_to_gray(torch.from_numpy(rgb)).numpy(),
                                np.asarray(jssim.rgb_to_gray(jnp.asarray(rgb))), atol=1e-4)
 
 
-def test_window_rms_db_matches_jax():
+def test_window_rms_db_matches_jax(request):
     pcm = np.random.default_rng(9).uniform(-0.3, 0.3, 16000 * 3).astype(np.float32)
     pcm[16000:20000] = 0.0
     for win, hop in [(8000, 1600), (800, 800), (1000, 300)]:
         want = np.asarray(jsil.window_rms_db(jnp.asarray(pcm), win, hop))
         got = tsil.window_rms_db(torch.from_numpy(pcm), win, hop).numpy()
-        assert np.abs(got - want).max() <= 1e-3
+        assert_close(request, got, want, 1e-3, f"max_abs_err_db[{win},{hop}]")
         np.testing.assert_allclose(tsil.window_rms_db_host(pcm, win, hop),
                                    jsil.window_rms_db_host(pcm, win, hop), atol=1e-5)
     assert tsil.detect_silence_regions(pcm) == jsil.detect_silence_regions(pcm)
@@ -162,6 +164,25 @@ def test_entry_points_default_to_cuda(monkeypatch):
         ImageBind(variant="tiny")
     ib = ImageBind(variant="tiny", device="cpu", dtype=torch.float32)
     assert ib.device.type == "cpu"
+
+
+@pytest.mark.parametrize("entry", ["imagebind", "engine"])
+def test_cuda_entry_points_refuse_float32(monkeypatch, tmp_path, entry):
+    """The K1/K2 CUDA kernels are bf16 only: an fp32 tower on the card is
+    refused when it is built, before any weight is allocated."""
+    from hippomm_tpu_torch.config import Config
+    from hippomm_tpu_torch.memory.engine import HippocampalMemory
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    cfg = Config()
+    cfg.api.mode, cfg.models.imagebind_variant = "stub", "tiny"
+    cfg.models.compute_dtype = "float32"
+    cfg.storage.base_dir = str(tmp_path)
+    with pytest.raises(NotImplementedError, match="bfloat16"):
+        if entry == "engine":
+            HippocampalMemory(cfg)
+        else:
+            ImageBind(variant="tiny", dtype=torch.float32)
 
 
 def test_whisper_variants_outside_the_stub_wait_for_their_slice():

@@ -21,6 +21,7 @@ from hippomm_tpu_torch.memory.engine import HippocampalMemory as TMemory
 from hippomm_tpu_torch.models.foundation import ImageBind as TImageBind
 from hippomm_tpu_torch.models.foundation import Whisper as TWhisper
 from hippomm_tpu_torch.models.imagebind.carry import params_from_jax
+from torch_parity import assert_close
 
 _SPEC = dict(duration=50.0, fps=2.0, width=160, height=120, scene_changes=(18.0, 36.0),
              silence_regions=((35.5, 36.5),), seed=5)
@@ -72,7 +73,7 @@ def test_segments_agree(events):
         assert a.transcription == b.transcription
 
 
-def test_theta_event_agrees(events):
+def test_theta_event_agrees(request, events):
     _, je, _ = events["jax"]
     _, te, _ = events["torch"]
     assert te.frames == je.frames  # the kept key frames
@@ -86,8 +87,7 @@ def test_theta_event_agrees(events):
     assert (te.start_time, te.end_time, te.modalities) == (je.start_time, je.end_time, je.modalities)
     # features to 1e-5 on the unit-norm embeddings (audio rows are 20·unit)
     for k, norm in (("vision", 1.0), ("audio", 20.0)):
-        assert te.features[k].shape == je.features[k].shape
-        assert np.abs(te.features[k] - je.features[k]).max() / norm <= 1e-5
+        assert_close(request, te.features[k], je.features[k], 1e-5, f"max_abs_err_{k}", scale=norm)
 
 
 def test_persisted_event_round_trips(events):
@@ -99,7 +99,7 @@ def test_persisted_event_round_trips(events):
 
 
 @pytest.mark.parametrize("t", [20, 70])
-def test_adjacent_similarity_gray_matches_jax(t):
+def test_adjacent_similarity_gray_matches_jax(request, t):
     """Both sides of the ≤33-frame size rule: host fp32 below it, the
     chunked device pass above it."""
     from hippomm_tpu.memory.segmentation import adjacent_similarity_gray as jgray
@@ -112,4 +112,4 @@ def test_adjacent_similarity_gray_matches_jax(t):
     want = jgray(grays)
     got = tgray(grays, device="cpu")
     assert got.shape == want.shape == (t - 1,)
-    assert np.abs(got - want).max() <= 1e-4
+    assert_close(request, got, want, 1e-4)

@@ -19,6 +19,7 @@ from hippomm_tpu.ops import fused_mlp as jfm
 from hippomm_tpu_torch.models import layers as tl
 from hippomm_tpu_torch.ops import flash_attention as tfa
 from hippomm_tpu_torch.ops import fused_mlp as tfm
+from torch_parity import assert_close
 
 
 def _to_torch(tree, dtype=torch.float32):
@@ -43,7 +44,7 @@ _ATTN_SHAPES = [(1, 2, 257, 257, 80), (1, 2, 229, 230, 64), (1, 1, 33, 33, 64)]
 
 @pytest.mark.parametrize("shape", _ATTN_SHAPES)
 @pytest.mark.parametrize("dtype,tol", [("float32", 1e-5), ("bfloat16", 2e-2)])
-def test_flash_ref_matches_jax(shape, dtype, tol):
+def test_flash_ref_matches_jax(request, shape, dtype, tol):
     b, h, tq, tk, hd = shape
     rng = np.random.default_rng(0)
     q, k, v = (rng.standard_normal((b, h, t, hd)).astype(np.float32) for t in (tq, tk, tk))
@@ -57,8 +58,8 @@ def test_flash_ref_matches_jax(shape, dtype, tol):
     out = tfa.flash_mha(tq_, tk_, tv_, float(scale))
     assert out.dtype == tdt and out.shape == (b, h, tq, hd)
     got = out.float().numpy()
-    assert np.abs(got - kern).max() <= tol
-    assert np.abs(got - ein).max() <= tol
+    assert_close(request, got, kern, tol, "vs_pallas_interpret")
+    assert_close(request, got, ein, tol, "vs_einsum")
 
 
 def test_flash_wrapper_cpu_is_plain_and_uncounted():
@@ -80,7 +81,7 @@ def test_flash_gate_matches_jax():
 
 
 @pytest.mark.parametrize("impl", ["ref", "interpret"])
-def test_fused_mlp_ref_matches_jax(impl):
+def test_fused_mlp_ref_matches_jax(request, impl):
     n, d, f = 40, 128, 512
     rng = np.random.default_rng(2)
     x = rng.standard_normal((n, d)).astype(np.float32)
@@ -95,20 +96,36 @@ def test_fused_mlp_ref_matches_jax(impl):
         want = jfm.fused_mlp(*args, interpret=True, gelu_impl="as")
     got = tfm.fused_mlp(*(torch.from_numpy(a) for a in (x, w1, b1, w2, b2)))
     assert got.dtype == torch.float32
-    assert np.abs(got.numpy() - np.asarray(want)).max() <= 1e-5
+    assert_close(request, got.numpy(), want, 1e-5)
 
 
 def test_fused_mlp_gate_matches_jax_within_kernel_bound():
     for n, d, f in [(8224, 1280, 5120), (21984, 768, 3072), (7, 128, 512), (40, 96, 512),
-                    (40, 128, 200), (40, 1024, 4096)]:
+                    (40, 128, 200), (40, 1024, 4096), (64, 1408, 5632)]:
         assert tfm.fused_mlp_supported(n, d, f) == jfm.fused_mlp_supported(n, d, f)
-    # the shared-memory accumulator bounds D; JAX admits these, the port does not
-    assert jfm.fused_mlp_supported(64, 1408, 5632)
-    assert not tfm.fused_mlp_supported(64, 1408, 5632)
+    # the kernel's shared-memory accumulator bounds D: the gate admits D 1408,
+    # and the wrapper raises for it on CUDA (test_torch_cuda.py) rather than
+    # routing it around the kernel
+    assert tfm.fused_mlp_supported(64, 1408, 5632) and tfm._MAX_D == 1280
+
+
+@pytest.mark.parametrize("d,heads", [(128, 4), (1408, 11)])
+def test_layers_route_by_the_jax_gates_only(monkeypatch, d, heads):
+    """fp32 and D > 1280 reach the kernel wrappers just as bf16 and D ≤ 1280
+    do; only the JAX shape gates decide."""
+    calls = []
+    for mod, name in ((tl, "flash_mha"), (tl, "fused_mlp")):
+        real = getattr(mod, name)
+        monkeypatch.setattr(mod, name, lambda *a, _r=real, _n=name: calls.append(_n) or _r(*a))
+    p = tl.init_block(torch.Generator().manual_seed(0), d, "cpu", torch.float32)
+    x = torch.randn((2, 5, d), generator=torch.Generator().manual_seed(1))
+    out = tl.encoder_block(p, x, heads, dtype=torch.float32)
+    assert out.shape == x.shape and torch.isfinite(out).all()
+    assert calls == ["flash_mha", "fused_mlp"]
 
 
 @pytest.mark.parametrize("bias_kv", [False, True])
-def test_encoder_block_matches_jax(bias_kv):
+def test_encoder_block_matches_jax(request, bias_kv):
     d, heads, t, bsz = 64, 4, 21, 2
     p = jl.init_block(jax.random.PRNGKey(3), d, bias_kv=bias_kv)
     # non-trivial biases and norms so every term is exercised
@@ -117,10 +134,10 @@ def test_encoder_block_matches_jax(bias_kv):
     x = np.random.default_rng(5).standard_normal((bsz, t, d)).astype(np.float32)
     want = np.asarray(jl.encoder_block(p, jnp.asarray(x), heads, dtype=jnp.float32))
     got = tl.encoder_block(_to_torch(p), torch.from_numpy(x), heads, dtype=torch.float32)
-    assert np.abs(got.numpy() - want).max() <= 1e-5 * max(1.0, np.abs(want).max())
+    assert_close(request, got.numpy(), want, 1e-5, scale=max(1.0, float(np.abs(want).max())))
 
 
-def test_attention_separate_projections_and_mask_match_jax():
+def test_attention_separate_projections_and_mask_match_jax(request):
     d, heads, t = 32, 4, 9
     p = jl.init_attention(jax.random.PRNGKey(6), d, packed=False)
     x = np.random.default_rng(7).standard_normal((2, t, d)).astype(np.float32)
@@ -129,14 +146,14 @@ def test_attention_separate_projections_and_mask_match_jax():
                                    dtype=jnp.float32))
     got = tl.attention(_to_torch(p), torch.from_numpy(x), num_heads=heads,
                        mask=torch.from_numpy(mask), dtype=torch.float32)
-    assert np.abs(got.numpy() - want).max() <= 1e-5
+    assert_close(request, got.numpy(), want, 1e-5)
 
 
-def test_mlp_cast_out_routes_fused_and_matches_unfused():
+def test_mlp_cast_out_routes_fused_and_matches_unfused(request):
     d = 128
     p = jl.init_block(jax.random.PRNGKey(8), d)["mlp"]
     x = np.random.default_rng(9).standard_normal((3, 12, d)).astype(np.float32)
     want = np.asarray(jl.mlp(p, jnp.asarray(x), dtype=jnp.float32))
     got = tl.mlp(_to_torch(p), torch.from_numpy(x), dtype=torch.float32, cast_out=True)
     assert got.shape == (3, 12, d)
-    assert np.abs(got.numpy() - want).max() <= 1e-5
+    assert_close(request, got.numpy(), want, 1e-5)
