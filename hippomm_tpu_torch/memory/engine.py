@@ -8,7 +8,8 @@ stages, same store format:
     plus host audio RMS, then the greedy walk (segmentation.py)
   * perceptual encoding: all segments' frames through the ImageBind vision
     tower in fixed chunks; all segments' audio clips through one fbank pass
-    and the audio trunk in 32-segment chunks
+    and the audio trunk in 32-segment chunks; the full track through
+    Whisper once, its segments assigned to STMs by midpoint
   * consolidation: key-frame dedup (consolidation.py)
   * semantic replay: captions and a summary through the clients (or stub),
     persisted as a ThetaEvent
@@ -87,6 +88,7 @@ class HippocampalMemory:
             model_path=getattr(m, "whisper_path", "") or None,
             random_init=m.whisper_random_init,
             beam_size=m.whisper_beam_size,
+            device=self.device,
         )
         self.qwen: QwenVL = models.get("qwen") or QwenVL(
             model_name=qwen_path or m.qwen_path, config=self.config
@@ -244,9 +246,10 @@ class HippocampalMemory:
         return stms
 
     @torch.no_grad()
-    def _encode_audio(self, pcm_batch: List[np.ndarray]) -> np.ndarray:
-        """All segments' audio -> (n, 1024): one fbank pass, then the audio
-        trunk in fixed 32-segment chunks (the last padded by repetition)."""
+    def _encode_audio(self, pcm_batch: List[np.ndarray]) -> torch.Tensor:
+        """All segments' audio -> (n, 1024) on the device, not read back: one
+        fbank pass, then the audio trunk in fixed 32-segment chunks (the last
+        padded by repetition)."""
         ib = self.imagebind
         mels = preprocess_audio_batch(
             pcm_batch,
@@ -261,7 +264,7 @@ class HippocampalMemory:
             if n_real < AUDIO_CHUNK:
                 part = torch.cat([part, part[-1:].expand(AUDIO_CHUNK - n_real, *part.shape[1:])])
             outs.append(ib_model.audio_forward(ib.params, part, ib.cfg, ib.dtype)[:n_real])
-        return fetch(torch.cat(outs), dtype=np.float32)
+        return torch.cat(outs)
 
     def _encode_segments(
         self,
@@ -293,11 +296,17 @@ class HippocampalMemory:
             peak = float(np.max(np.abs(a))) or 1.0
             pcm_batch.append(a / peak)
             mel_owner.append(si)
+        audio_dev = None
         if pcm_batch:
             with self.timers.stage("encode_audio"):
-                embs = self._encode_audio(pcm_batch)
-            for si, e in zip(mel_owner, embs):
-                audio_embs[si] = e[None]
+                audio_dev = self._encode_audio(pcm_batch)
+
+        # ---- call_audio ASR: queue it now, collect it at the transcribe
+        # stage below. After the audio trunk's work (whose read-back must not
+        # wait behind the ASR) and before any read-back, so the device runs
+        # the Whisper encoder while the host resizes and uploads frames.
+        has_call_audio = call_audio is not None and len(call_audio) >= sample_rate // 10
+        asr_finish = self.whisper.transcribe_async(call_audio, sample_rate) if has_call_audio else None
 
         # ---- vision: one encode over the concatenation of all segments ----
         vision_feats: Optional[np.ndarray] = None
@@ -306,18 +315,28 @@ class HippocampalMemory:
             with self.timers.stage("encode_vision"):
                 vision_feats = self.imagebind.encode_vision(np.asarray(frames_rgb)[all_idx])
 
+        if audio_dev is not None:
+            with self.timers.stage("encode_audio"):
+                embs = fetch(audio_dev, dtype=np.float32)
+            for si, e in zip(mel_owner, embs):
+                audio_embs[si] = e[None]
+
         # ---- transcription: ONE full-track ASR pass, assigned by midpoint ----
         transcripts: Dict[int, List[Dict]] = {}
         asr_segs = None
-        if call_audio is not None and len(call_audio) >= sample_rate // 10:
+        if has_call_audio:
             with self.timers.stage("transcribe"):
-                local = self.whisper.transcribe(call_audio, sample_rate)
+                local = (asr_finish() if asr_finish is not None
+                         else self.whisper.transcribe(call_audio, sample_rate))
             asr_segs = [
                 Segment(s.start + base_time, s.end + base_time, s.text) for s in local
             ] if base_time else local
             if base_time:
+                # chunked flow: accumulate chunks in global time
                 self._full_transcript.setdefault(video_id, []).extend(asr_segs)
             else:
+                # a fresh pass over the video's start: reset, so a retried
+                # video's transcript does not stack on the failed attempt's
                 self._full_transcript[video_id] = list(asr_segs)
         if asr_segs is not None:
             for si, seg in enumerate(segments):

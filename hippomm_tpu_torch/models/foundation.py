@@ -6,8 +6,9 @@ towers:
   * ImageBind.encode_vision / encode_audio — fixed-size chunked device
     forwards (a 128-wide bulk tier and a 32-wide tier for vision, as the JAX
     wrapper, so both packages batch frames the same way)
-  * Whisper — the deterministic stub transcriber; the Whisper tower itself
-    (checkpoint, random_init or variant "tiny") is a later slice of the port
+  * Whisper.transcribe / transcribe_batch / transcribe_async — the Whisper
+    transcriber (models/whisper) from a checkpoint, from random weights
+    (`random_init`, or variant "tiny"), or the deterministic stub
   * QwenVL.generate — OpenAI-protocol HTTP client or stub
 """
 
@@ -24,7 +25,8 @@ from hippomm_tpu_torch.config import Config
 from hippomm_tpu_torch.models.clients import ChatClient, make_client
 from hippomm_tpu_torch.models.imagebind import model as ib_model
 from hippomm_tpu_torch.models.imagebind.preprocess import preprocess_audio
-from hippomm_tpu_torch.models.whisper.transcribe import Segment
+from hippomm_tpu_torch.models.whisper import model as wh_model
+from hippomm_tpu_torch.models.whisper.transcribe import Segment, WhisperTranscriber
 from hippomm_tpu_torch.ops.resize import normalize_nchw, resize_crop_u8
 from hippomm_tpu_torch.utils.device import fetch, resolve_device
 
@@ -32,8 +34,6 @@ logger = logging.getLogger(__name__)
 
 CHUNK = 32
 BIG_CHUNK = 128  # bulk tier for the vision tower (see encode_vision)
-
-_LATER_SLICE = "the Whisper slice of the PyTorch port"
 
 
 class ImageBind:
@@ -156,34 +156,67 @@ class StubWhisperSegments:
 
 
 class Whisper:
-    """ASR wrapper (reference surface: transcribe with timestamps). Same
-    variant logic as the JAX wrapper; in this slice only its stub branch
-    exists — the default distil-large-v3 without a checkpoint or random_init
-    becomes the stub, everything that needs the tower raises."""
+    """ASR wrapper (reference surface: transcribe with timestamps; feature
+    extraction deliberately unsupported). The variant logic of the JAX
+    wrapper: an explicit checkpoint path loads (or raises), variant "stub"
+    is the stub, "tiny" or `random_init` builds random weights from `seed`
+    at the variant's full width, and the default without a checkpoint falls
+    back to the stub. `params` (e.g. from whisper.carry.params_from_jax)
+    replaces the random init. The tower runs on CUDA unless `device` says
+    otherwise; on CUDA in bfloat16 only (its encoder blocks run K1/K2)."""
 
     def __init__(
         self,
         model_name: str = "distil-large-v3",
         model_path: Optional[str] = None,
         variant: Optional[str] = None,
+        dtype=torch.bfloat16,
         seed: int = 0,
         random_init: bool = False,
         beam_size: int = 5,
+        device=None,
+        params: Optional[Dict] = None,
     ):
         self.model_name = model_name
         variant = variant or model_name
-        self.cfg = None
+        ckpt = None
         if model_path:
-            raise NotImplementedError(
-                f"models.whisper_path={model_path!r}: loading Whisper checkpoints is {_LATER_SLICE}"
-            )
+            for cand in (
+                model_path,
+                os.path.join(model_path, "pytorch_model.bin"),
+                os.path.join(model_path, "model.safetensors"),
+                os.path.join(model_path, "whisper.pth"),
+            ):
+                if os.path.isfile(cand):
+                    ckpt = cand
+                    break
+            if ckpt is None:
+                # an explicit checkpoint path that loads nothing fails loudly
+                # instead of filling stores with stub transcripts
+                raise FileNotFoundError(
+                    f"models.whisper_path={model_path!r}: no checkpoint found "
+                    "(looked for the path itself, pytorch_model.bin, "
+                    "model.safetensors, whisper.pth)"
+                )
+        self.cfg = None
         if variant == "stub":
             self._impl = StubWhisperSegments()
-        elif variant == "tiny" or random_init:
-            raise NotImplementedError(
-                f"Whisper variant {variant!r} (random_init={random_init}) runs the Whisper "
-                f"tower, which is {_LATER_SLICE}"
-            )
+        elif ckpt or params is not None or variant == "tiny" or random_init:
+            self.device = resolve_device(device)
+            if self.device.type == "cuda" and dtype != torch.bfloat16:
+                raise NotImplementedError(f"Whisper on CUDA runs in bfloat16; got {dtype}")
+            self.cfg = wh_model.get_config(variant)
+            if ckpt:
+                from hippomm_tpu_torch.models.whisper.convert import load_whisper
+
+                params = load_whisper(ckpt, self.cfg, self.device, dtype)
+                tokenizer = _try_whisper_tokenizer(model_path)
+            else:
+                # random weights: the real compute path at the variant's width
+                if params is None:
+                    params = wh_model.init_whisper(self.cfg, self.device, dtype, seed)
+                tokenizer = None
+            self._impl = WhisperTranscriber(params, self.cfg, tokenizer, dtype, beam_size=beam_size)
         else:
             logger.warning("no Whisper checkpoint — using deterministic stub transcriber")
             self._impl = StubWhisperSegments()
@@ -196,17 +229,38 @@ class Whisper:
     def transcribe_batch(
         self, audios: Sequence[np.ndarray], sample_rate: int = 16000
     ) -> List[List[Segment]]:
-        return [self._impl.transcribe(np.asarray(a, dtype=np.float32), sample_rate) for a in audios]
+        """Many clips in bucketed chunk batches: one encoder forward and one
+        batched decode per bucket."""
+        pcms = [np.asarray(a, dtype=np.float32) for a in audios]
+        if hasattr(self._impl, "transcribe_many"):
+            return self._impl.transcribe_many(pcms, sample_rate)
+        return [self._impl.transcribe(p, sample_rate) for p in pcms]
 
     def transcribe_async(self, audio: np.ndarray, sample_rate: int = 16000):
-        """The stub has nothing to overlap: returns None (the JAX wrapper's
-        contract for its stub)."""
+        """Queue the transcription's device work now; returns a zero-arg
+        finisher (None for the stub — nothing to overlap)."""
+        if hasattr(self._impl, "transcribe_many_async"):
+            inner = self._impl.transcribe_many_async([np.asarray(audio, dtype=np.float32)], sample_rate)
+            return lambda: inner()[0]
         return None
 
     def __call__(self, *a, **k):
         raise NotImplementedError(
             "Whisper is transcription-only; use ImageBind for audio features"
         )
+
+
+def _try_whisper_tokenizer(model_path: Optional[str]):
+    """The checkpoint directory's tokenizer, or None (empty texts) where
+    `transformers` or the tokenizer files are absent."""
+    if not model_path:
+        return None
+    try:
+        from transformers import WhisperTokenizerFast
+
+        return WhisperTokenizerFast.from_pretrained(model_path, local_files_only=True)
+    except Exception:
+        return None
 
 
 class QwenVL:

@@ -39,9 +39,10 @@ def _unstack(tree: Any, depth: int, i: int) -> Any:
     return a[i]
 
 
-def params_from_jax(tree_of_numpy: Dict, cfg: ImageBindConfig, device, dtype=torch.bfloat16) -> Dict:
-    """JAX ImageBind params (numpy leaves) -> the port's parameter dict."""
-    depths = {"vision": cfg.vision.depth, "audio": cfg.audio.depth, "text": cfg.text.depth}
+def carry_towers(tree_of_numpy: Dict, depths: Dict[str, int], device, dtype) -> Dict:
+    """{tower: {key: leaf or subtree}} with depth-stacked `blocks` -> the same
+    tree with each tower's `blocks` as a list of `depths[tower]` per-layer
+    dicts; 2-D `weight` leaves in `dtype`, everything else fp32 tensors."""
     out: Dict = {}
     for tower, sub in tree_of_numpy.items():
         conv = {}
@@ -53,3 +54,9 @@ def params_from_jax(tree_of_numpy: Dict, cfg: ImageBindConfig, device, dtype=tor
                 conv[key] = _convert(val, device, dtype, key)
         out[tower] = conv
     return out
+
+
+def params_from_jax(tree_of_numpy: Dict, cfg: ImageBindConfig, device, dtype=torch.bfloat16) -> Dict:
+    """JAX ImageBind params (numpy leaves) -> the port's parameter dict."""
+    depths = {"vision": cfg.vision.depth, "audio": cfg.audio.depth, "text": cfg.text.depth}
+    return carry_towers(tree_of_numpy, depths, device, dtype)

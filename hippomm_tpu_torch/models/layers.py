@@ -8,11 +8,18 @@ Counterpart of hippomm_tpu/models/layers.py, with the same conventions:
   * LayerNorm statistics and affine always run in fp32
   * the residual stream is kept in the compute dtype
 
-Mask-free attention routes to the K1 kernel (ops/flash_attention) and
-`mlp(cast_out=True)` to the K2 kernel (ops/fused_mlp) wherever the JAX
-package's shape gates admit, whatever the dtype. On CPU tensors the kernel
-wrappers run their plain versions; on CUDA a call the kernels cannot take
-(fp32, or K2 with D > 1280) raises NotImplementedError.
+Kernel routes, by the JAX package's flags and shape gates only, whatever
+the dtype:
+  * mask-free attention → K4 `flash_mha_bthd` on the native (B, T, H, hd)
+    views when HIPPOMM_FLASH_BTHD=1 and `bthd_supported` admits the shape
+    (ImageBind vision, H = 16), else K1 `flash_mha` on head-split copies
+    (ops/flash_attention);
+  * the encoder block's x + mlp(ln_2(x)) → K3 `fused_ln_mlp_residual` when
+    HIPPOMM_FUSED_BLOCK=1 (`_mlp_halfblock`), else `mlp(cast_out=True)` → K2
+    `fused_mlp` (ops/fused_mlp).
+On CPU tensors the kernel wrappers run their plain versions; on CUDA a call
+the kernels cannot take (fp32, or K2/K3 with D > 1280) raises
+NotImplementedError.
 """
 
 from __future__ import annotations
@@ -23,6 +30,8 @@ from typing import Any, Dict, List, Optional
 import torch
 import torch.nn.functional as F
 
+from hippomm_tpu_torch.ops import flash_attention as fa
+from hippomm_tpu_torch.ops import fused_mlp as fm
 from hippomm_tpu_torch.ops.flash_attention import flash_mha, flash_supported
 from hippomm_tpu_torch.ops.fused_mlp import fused_mlp, fused_mlp_supported
 
@@ -90,10 +99,14 @@ def attention(
         w = p["in_proj"]["weight"].to(dtype)
         b = p["in_proj"].get("bias")
         if self_attn:
-            # one (D, 3D) product; slicing columns equals three products
+            # one (D, 3D) product; slicing columns equals three products, and
+            # casting before slicing equals casting each slice: q/k/v stay
+            # views of one (B, T, 3D) tensor (row stride 3D), which K4 reads
+            # without a copy
             qkv = matmul_f32(x_q.to(dtype), w)
             if b is not None:
                 qkv = qkv + b.float()
+            qkv = qkv.to(dtype)
             q, k, v = qkv[..., :d], qkv[..., d : 2 * d], qkv[..., 2 * d :]
         else:
             q = matmul_f32(x_q.to(dtype), w[:d])
@@ -119,12 +132,26 @@ def attention(
         if mask is not None:  # appended position is always attendable
             mask = F.pad(mask, (0, 1))
 
+    scale = 1.0 / math.sqrt(hd)
+    if mask is None and fa.bthd_default():
+        # transpose-free route (JAX layers.attention): K4 reads q/k/v in the
+        # (B, T, H, hd) layout their reshape gives for free, and writes the
+        # output in it, which out_proj reads with a free reshape
+        bq, tq_, tk_ = q.shape[0], q.shape[1], k.shape[1]
+        if fa.bthd_supported(bq, num_heads, tq_, tk_, hd):
+            out = fa.flash_mha_bthd(
+                q.reshape(bq, tq_, num_heads, hd),
+                k.reshape(bq, tk_, num_heads, hd),
+                v.reshape(bq, tk_, num_heads, hd),
+                scale,
+            )
+            return linear(p["out_proj"], out.reshape(bq, tq_, d), dtype)
+
     def split(t):  # (B, T, D) -> (B, H, T, hd)
         b_, t_, _ = t.shape
         return t.reshape(b_, t_, num_heads, hd).transpose(1, 2).contiguous()
 
     q, k, v = split(q), split(k), split(v)
-    scale = 1.0 / math.sqrt(hd)
     b_, _, t_, _ = q.shape
     if mask is None and flash_supported(q.shape[2], k.shape[2], hd):
         out = flash_mha(q, k, v, scale)
@@ -170,8 +197,27 @@ def encoder_block(
         p["attn"], layer_norm(p["norm_1"], x, eps, out_dtype=dtype),
         num_heads=num_heads, mask=mask, dtype=dtype,
     ).to(dtype)
+    return _mlp_halfblock(p, x, eps, dtype)
+
+
+def _mlp_halfblock(p: Params, x: torch.Tensor, eps: float, dtype) -> torch.Tensor:
+    """x + mlp(ln2(x)); one K3 launch (LN prologue, fc1/GELU/fc2, residual
+    epilogue) under HIPPOMM_FUSED_BLOCK=1, with the JAX package's gates:
+    both biases present, x already in `dtype` (the kernel computes in and
+    emits x.dtype), and the K2 shape gate."""
+    pm = p["mlp"]
+    if pm["fc1"].get("bias") is not None and pm["fc2"].get("bias") is not None and x.dtype == dtype:
+        f, d = pm["fc1"]["weight"].shape
+        n = math.prod(x.shape[:-1])
+        if fm.fused_block_default() and fused_mlp_supported(n, d, f):
+            y = fm.fused_ln_mlp_residual(
+                x.reshape(n, d), p["norm_2"]["weight"], p["norm_2"]["bias"],
+                pm["fc1"]["weight"], pm["fc1"]["bias"], pm["fc2"]["weight"], pm["fc2"]["bias"],
+                eps,
+            )
+            return y.reshape(x.shape)
     return x + mlp(
-        p["mlp"], layer_norm(p["norm_2"], x, eps, out_dtype=dtype), dtype=dtype, cast_out=True,
+        pm, layer_norm(p["norm_2"], x, eps, out_dtype=dtype), dtype=dtype, cast_out=True,
     ).to(dtype)
 
 

@@ -1,0 +1,442 @@
+"""Whisper encoder/decoder in PyTorch with KV-cached greedy and beam decode.
+
+Counterpart of hippomm_tpu/models/whisper/model.py, same architecture and
+parameter tree (blocks as a per-layer list instead of depth-stacked leaves):
+log-mel input (ops/mel.WhisperMel), two convolutions and a pre-LN encoder
+stack, and a decoder whose autoregressive loop runs over static-shape KV
+caches. The JAX `lax.scan` over layers is a Python loop; its device
+`while_loop` is a host loop that stops once every row has emitted
+<|endoftext|> (one device→host read per token).
+
+Routing on the card: every encoder block's self-attention goes to K1 (H = 20
+fails the K4 gate) and its MLP to K2 (`mlp(cast_out=True)`); the decoder's
+causal and cached attention and its fp32-output MLP stay plain PyTorch, as
+they stay XLA in the JAX package.
+
+The KV caches are updated in place (the JAX arrays are functional copies);
+beam reordering gathers new caches, as JAX's `take` does.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Dict, List, Tuple
+
+import numpy as np
+import torch
+
+from hippomm_tpu_torch.models import layers as L
+
+
+@dataclasses.dataclass(frozen=True)
+class WhisperConfig:
+    n_mels: int = 128
+    d_model: int = 1280
+    encoder_layers: int = 32
+    decoder_layers: int = 2
+    heads: int = 20
+    ffn: int = 5120
+    vocab_size: int = 51866
+    max_source_positions: int = 1500  # 30 s of mel frames / 2
+    max_target_positions: int = 448
+    eps: float = 1e-5
+    # special tokens (large-v3 vocab layout)
+    bos_token: int = 50258  # <|startoftranscript|>
+    eot_token: int = 50257  # <|endoftext|>
+    lang_en_token: int = 50259
+    task_transcribe_token: int = 50360
+    no_timestamps_token: int = 50364
+
+
+def distil_large_v3_config() -> WhisperConfig:
+    return WhisperConfig()
+
+
+def large_v3_config() -> WhisperConfig:
+    """openai/whisper-large-v3: same encoder, full 32-layer decoder."""
+    return WhisperConfig(decoder_layers=32)
+
+
+def tiny_config() -> WhisperConfig:
+    """Hermetic tiny variant (matches a tiny-random transformers WhisperModel)."""
+    return WhisperConfig(
+        n_mels=80,
+        d_model=64,
+        encoder_layers=2,
+        decoder_layers=2,
+        heads=4,
+        ffn=128,
+        vocab_size=256,
+        max_source_positions=100,
+        max_target_positions=32,
+        bos_token=250,
+        eot_token=251,
+        lang_en_token=252,
+        task_transcribe_token=253,
+        no_timestamps_token=254,
+    )
+
+
+def get_config(variant: str) -> WhisperConfig:
+    if variant == "distil-large-v3":
+        return distil_large_v3_config()
+    if variant == "large-v3":
+        return large_v3_config()
+    if variant == "tiny":
+        return tiny_config()
+    raise ValueError(f"unknown whisper variant: {variant}")
+
+
+# ---------------------------------------------------------------------------
+# Init (random weights from a seed)
+# ---------------------------------------------------------------------------
+
+
+def _init_whisper_block(g, d: int, ffn: int, cross: bool, device, dtype) -> Dict:
+    def attn():
+        p = {name: L.init_linear(g, d, d, device, dtype)
+             for name in ("q_proj", "k_proj", "v_proj", "out_proj")}
+        p["k_proj"].pop("bias")  # whisper: k_proj has no bias
+        return p
+
+    p = {
+        "self_attn": attn(),
+        "self_ln": L.init_layer_norm(d, device),
+        "mlp": {"fc1": L.init_linear(g, d, ffn, device, dtype),
+                "fc2": L.init_linear(g, ffn, d, device, dtype)},
+        "final_ln": L.init_layer_norm(d, device),
+    }
+    if cross:
+        p["cross_attn"] = attn()
+        p["cross_ln"] = L.init_layer_norm(d, device)
+    return p
+
+
+def _sinusoids(length: int, channels: int) -> np.ndarray:
+    """Whisper encoder positional embedding (sinusoidal)."""
+    log_timescale = np.log(10000) / (channels // 2 - 1)
+    inv = np.exp(-log_timescale * np.arange(channels // 2))
+    scaled = np.arange(length)[:, None] * inv[None, :]
+    return np.concatenate([np.sin(scaled), np.cos(scaled)], axis=1).astype(np.float32)
+
+
+def init_whisper(cfg: WhisperConfig, device, dtype=torch.bfloat16, seed: int = 0,
+                 generator: torch.Generator = None) -> Dict:
+    """Random init on `device` from `generator` (or one seeded with `seed`),
+    with the JAX package's distributions. Linear weights are stored in
+    `dtype` (the forward casts them to it anyway); norms, biases,
+    embeddings and convolution kernels stay fp32."""
+    device = torch.device(device)
+    g = generator if generator is not None else torch.Generator(device=device).manual_seed(seed)
+    d = cfg.d_model
+
+    def normal(shape, std):
+        return std * torch.randn(shape, generator=g, device=device)
+
+    return {
+        "encoder": {
+            "conv1": {"weight": normal((d, cfg.n_mels, 3), 0.02),
+                      "bias": torch.zeros((d,), device=device)},
+            "conv2": {"weight": normal((d, d, 3), 0.02), "bias": torch.zeros((d,), device=device)},
+            "pos_embed": torch.from_numpy(_sinusoids(cfg.max_source_positions, d)).to(device),
+            "blocks": [_init_whisper_block(g, d, cfg.ffn, False, device, dtype)
+                       for _ in range(cfg.encoder_layers)],
+            "ln": L.init_layer_norm(d, device),
+        },
+        "decoder": {
+            "token_embedding": normal((cfg.vocab_size, d), 0.02),
+            "pos_embed": normal((cfg.max_target_positions, d), 0.01),
+            "blocks": [_init_whisper_block(g, d, cfg.ffn, True, device, dtype)
+                       for _ in range(cfg.decoder_layers)],
+            "ln": L.init_layer_norm(d, device),
+        },
+    }
+
+
+# ---------------------------------------------------------------------------
+# Encoder
+# ---------------------------------------------------------------------------
+
+
+def _whisper_block(p, x, heads, eps, mask=None, dtype=torch.bfloat16, cross_kv=None):
+    # residual stream kept in `dtype`; LN statistics stay fp32
+    x = x.to(dtype)
+    x = x + L.attention(
+        p["self_attn"], L.layer_norm(p["self_ln"], x, eps, out_dtype=dtype),
+        num_heads=heads, mask=mask, dtype=dtype,
+    ).to(dtype)
+    if cross_kv is not None:
+        x = x + L.attention(
+            p["cross_attn"],
+            L.layer_norm(p["cross_ln"], x, eps, out_dtype=dtype),
+            x_kv=cross_kv,
+            num_heads=heads,
+            dtype=dtype,
+        ).to(dtype)
+    x = x + L.mlp(
+        p["mlp"], L.layer_norm(p["final_ln"], x, eps, out_dtype=dtype), dtype=dtype,
+        cast_out=True,
+    ).to(dtype)
+    return x
+
+
+def _conv1d_f32(x: torch.Tensor, p: Dict, stride: int, dtype) -> torch.Tensor:
+    """Kernel-3, pad-1 convolution of x (B, T, C) as unfold + one matmul that
+    returns fp32 from `dtype` operands (JAX's conv with
+    preferred_element_type=float32) → (B, T_out, C_out), bias added."""
+    w = p["weight"]  # (C_out, C_in, 3)
+    xp = torch.nn.functional.pad(x.to(dtype), (0, 0, 1, 1))
+    cols = xp.unfold(1, 3, stride)  # (B, T_out, C_in, 3): flattens as w's (C_in, 3)
+    y = L.matmul_f32(cols.reshape(*cols.shape[:2], -1), w.reshape(w.shape[0], -1).to(dtype))
+    return y + p["bias"].float()
+
+
+@torch.no_grad()
+def encoder_forward(params: Dict, mel: torch.Tensor, cfg: WhisperConfig, dtype=torch.bfloat16):
+    """mel (B, n_mels, T) -> (B, T//2, d) fp32. T must be
+    2·max_source_positions for checkpoint-positional parity (pad/trim in the
+    caller)."""
+    p = params["encoder"]
+    x = mel.transpose(1, 2)  # (B, T, n_mels)
+    x = L.gelu(_conv1d_f32(x, p["conv1"], 1, dtype))  # kernel 3, stride 1, pad 1
+    x = L.gelu(_conv1d_f32(x, p["conv2"], 2, dtype))  # kernel 3, stride 2, pad 1
+    x = x + p["pos_embed"][None, : x.shape[1]].float()
+    x = x.to(dtype)
+    for pb in p["blocks"]:
+        x = _whisper_block(pb, x, cfg.heads, cfg.eps, dtype=dtype)
+    return L.layer_norm(p["ln"], x, cfg.eps)
+
+
+# ---------------------------------------------------------------------------
+# Decoder with KV cache
+# ---------------------------------------------------------------------------
+
+
+def _proj_heads(p, x, heads, dtype):
+    """(B, T, D) -> (B, H, T, hd) through a linear proj (fp32)."""
+    y = L.linear(p, x, dtype)
+    b, t, d = y.shape
+    return y.reshape(b, t, heads, d // heads).transpose(1, 2)
+
+
+def _logits(p: Dict, x: torch.Tensor, dtype) -> torch.Tensor:
+    """Tied output projection: x (..., d) → (..., vocab) fp32."""
+    return L.matmul_f32(x.to(dtype), p["token_embedding"].to(dtype))
+
+
+@torch.no_grad()
+def decoder_forward(params: Dict, tokens: torch.Tensor, enc_out: torch.Tensor, cfg: WhisperConfig,
+                    dtype=torch.bfloat16):
+    """Teacher-forced decoder: tokens (B, T) -> logits (B, T, vocab) fp32."""
+    p = params["decoder"]
+    t = tokens.shape[1]
+    x = p["token_embedding"][tokens.long()].float() + p["pos_embed"][None, :t].float()
+    causal = torch.triu(torch.full((t, t), float("-inf"), device=x.device), diagonal=1)
+    x = x.to(dtype)
+    for pb in p["blocks"]:
+        x = _whisper_block(pb, x, cfg.heads, cfg.eps, mask=causal, dtype=dtype, cross_kv=enc_out)
+    x = L.layer_norm(p["ln"], x, cfg.eps)
+    return _logits(p, x, dtype)
+
+
+def _cross_kv(params: Dict, enc_out: torch.Tensor, heads: int, dtype) -> List[Tuple[torch.Tensor, torch.Tensor]]:
+    """Cross-attention K/V once per layer: [(k, v)] each (B, H, S, hd) in `dtype`."""
+    return [
+        (_proj_heads(pb["cross_attn"]["k_proj"], enc_out, heads, dtype).to(dtype),
+         _proj_heads(pb["cross_attn"]["v_proj"], enc_out, heads, dtype).to(dtype))
+        for pb in params["decoder"]["blocks"]
+    ]
+
+
+def _step_layers(params, cfg, x, pos: int, self_k, self_v, xkv, dtype, beam: int = 1):
+    """One token (x: (rows, 1, d) fp32) through all decoder layers; writes
+    the new K/V at `pos` of the caches self_k/self_v ((L, rows, H, max_len,
+    hd), in place).
+
+    `beam` > 1 declares that rows = B·beam hypothesis rows whose cross K/V
+    are per chunk (each (B, H, S, hd), not beam-repeated): the cross
+    attention groups a chunk's beam queries against the chunk's single K/V."""
+    d = x.shape[-1]
+    heads, hd = cfg.heads, d // cfg.heads
+    scale = 1.0 / math.sqrt(hd)
+    max_len = self_k.shape[3]
+    key_mask = (torch.arange(max_len, device=x.device) <= pos)[None, None, None, :]
+    h = x
+    for li, pb in enumerate(params["decoder"]["blocks"]):
+        hn = L.layer_norm(pb["self_ln"], h, cfg.eps)
+        q = _proj_heads(pb["self_attn"]["q_proj"], hn, heads, dtype)
+        self_k[li, :, :, pos] = _proj_heads(pb["self_attn"]["k_proj"], hn, heads, dtype)[:, :, 0]
+        self_v[li, :, :, pos] = _proj_heads(pb["self_attn"]["v_proj"], hn, heads, dtype)[:, :, 0]
+        logits = torch.matmul(q.to(dtype).float(), self_k[li].float().transpose(-1, -2)) * scale
+        logits = logits.masked_fill(~key_mask, float("-inf"))
+        w = torch.softmax(logits, dim=-1)
+        attn = torch.matmul(w.to(dtype).float(), self_v[li].float())
+        attn = attn.transpose(1, 2).reshape(h.shape[0], 1, d)
+        h = h + L.linear(pb["self_attn"]["out_proj"], attn, dtype)
+        # cross-attention against the precomputed encoder K/V, beam-grouped
+        xk, xv = xkv[li]
+        q = _proj_heads(pb["cross_attn"]["q_proj"], L.layer_norm(pb["cross_ln"], h, cfg.eps), heads, dtype)
+        rows = q.shape[0]
+        qg = q.reshape(rows // beam, beam, heads, 1, hd)
+        logits = torch.matmul(qg.to(dtype).float(), xk.float()[:, None].transpose(-1, -2)) * scale
+        w = torch.softmax(logits, dim=-1)
+        attn = torch.matmul(w.to(dtype).float(), xv.float()[:, None])
+        attn = attn.reshape(rows, heads, 1, hd).transpose(1, 2).reshape(rows, 1, d)
+        h = h + L.linear(pb["cross_attn"]["out_proj"], attn, dtype)
+        h = h + L.mlp(pb["mlp"], L.layer_norm(pb["final_ln"], h, cfg.eps), dtype=dtype)
+    return h
+
+
+def _embed_at(p, tokens, pos: int) -> torch.Tensor:
+    return (p["token_embedding"][tokens[:, pos : pos + 1].long()].float()
+            + p["pos_embed"][pos][None, None].float())
+
+
+def _next_logits(params, cfg, tokens, pos: int, self_k, self_v, xkv, dtype, beam: int = 1):
+    """Process the token at `pos` and return vocab logits for position pos+1."""
+    p = params["decoder"]
+    x = _step_layers(params, cfg, _embed_at(p, tokens, pos), pos, self_k, self_v, xkv, dtype, beam)
+    x = L.layer_norm(p["ln"], x, cfg.eps)
+    return _logits(p, x[:, 0], dtype)
+
+
+def _caches(cfg: WhisperConfig, rows: int, d: int, max_len: int, dtype, device):
+    """Self-attention K/V caches, in the compute dtype (every read casts to it)."""
+    shape = (cfg.decoder_layers, rows, cfg.heads, max_len, d // cfg.heads)
+    return torch.zeros(shape, dtype=dtype, device=device), torch.zeros(shape, dtype=dtype, device=device)
+
+
+@torch.no_grad()
+def greedy_decode(
+    params: Dict,
+    enc_out: torch.Tensor,
+    prompt: torch.Tensor,
+    cfg: WhisperConfig,
+    max_len: int = 224,
+    dtype=torch.bfloat16,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Greedy autoregressive decode. enc_out (B, S, d); prompt (B, P) forced
+    decoder ids. Returns (tokens (B, max_len) int32, lengths (B,) int32);
+    the loop exits once every row has emitted <|endoftext|>."""
+    p = params["decoder"]
+    b, _, d = enc_out.shape
+    dev = enc_out.device
+    plen = prompt.shape[1]
+    xkv = _cross_kv(params, enc_out, cfg.heads, dtype)
+    tokens = torch.zeros((b, max_len), dtype=torch.int32, device=dev)
+    tokens[:, :plen] = prompt.to(device=dev, dtype=torch.int32)
+    self_k, self_v = _caches(cfg, b, d, max_len, dtype, dev)
+    finished = torch.zeros((b,), dtype=torch.bool, device=dev)
+    lengths = torch.full((b,), max_len, dtype=torch.int32, device=dev)
+
+    for i in range(plen - 1):  # prefill the prompt token by token
+        _step_layers(params, cfg, _embed_at(p, tokens, i), i, self_k, self_v, xkv, dtype)
+
+    for pos in range(plen, max_len):
+        logits = _next_logits(params, cfg, tokens, pos - 1, self_k, self_v, xkv, dtype)
+        nxt = torch.argmax(logits, dim=-1).to(torch.int32)
+        nxt = torch.where(finished, cfg.eot_token, nxt)
+        tokens[:, pos] = nxt
+        now_done = nxt == cfg.eot_token
+        lengths = torch.where(now_done & ~finished, pos, lengths)
+        finished = finished | now_done
+        if bool(finished.all()):
+            break
+    return tokens, lengths
+
+
+@torch.no_grad()
+def beam_decode_batch(
+    params: Dict,
+    enc_out: torch.Tensor,
+    prompt: torch.Tensor,
+    cfg: WhisperConfig,
+    max_len: int = 224,
+    beam: int = 5,
+    dtype=torch.bfloat16,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Batched beam search: B independent chunks, each with `beam`
+    hypotheses, all B·beam rows on the batch axis of the cached step.
+    Per-chunk re-ranking is a row-local top-k over beam·V candidates (ties
+    to the lower index, as lax.top_k); finished hypotheses only propose EOT
+    at zero added score. Stops once every hypothesis has finished.
+
+    Returns (tokens (B, beam, max_len), lengths (B, beam), scores (B, beam))
+    sorted per chunk by length-normalised log-prob, best first."""
+    p = params["decoder"]
+    bsz, _, d = enc_out.shape
+    dev = enc_out.device
+    plen = prompt.shape[1]
+    rows = bsz * beam
+    neg = -1e30
+    vocab = p["token_embedding"].shape[0]
+
+    xkv = _cross_kv(params, enc_out, cfg.heads, dtype)  # per chunk, not beam-repeated
+    tokens = torch.zeros((rows, max_len), dtype=torch.int32, device=dev)
+    tokens[:, :plen] = prompt.to(device=dev, dtype=torch.int32).repeat_interleave(beam, dim=0)
+    self_k, self_v = _caches(cfg, rows, d, max_len, dtype, dev)
+    # per chunk: hypothesis 0 starts live, the others at -1e30 so the first
+    # expansion fans out
+    scores = torch.full((bsz, beam), neg, device=dev)
+    scores[:, 0] = 0.0
+    finished = torch.zeros((rows,), dtype=torch.bool, device=dev)
+    lengths = torch.full((rows,), max_len, dtype=torch.int32, device=dev)
+
+    for i in range(plen - 1):
+        _step_layers(params, cfg, _embed_at(p, tokens, i), i, self_k, self_v, xkv, dtype, beam)
+
+    row_base = (torch.arange(bsz, device=dev) * beam)[:, None]
+    frozen = torch.full((vocab,), neg, device=dev)
+    frozen[cfg.eot_token] = 0.0
+    for pos in range(plen, max_len):
+        logits = _next_logits(params, cfg, tokens, pos - 1, self_k, self_v, xkv, dtype, beam)
+        logprobs = torch.log_softmax(logits, dim=-1)
+        logprobs = torch.where(finished[:, None], frozen[None], logprobs)
+        cand = scores.reshape(rows, 1) + logprobs
+        top_s, flat = torch.sort(cand.reshape(bsz, beam * vocab), dim=1, descending=True, stable=True)
+        top_s, flat = top_s[:, :beam], flat[:, :beam]
+        src = (row_base + flat // vocab).reshape(-1)
+        tok = (flat % vocab).to(torch.int32).reshape(-1)
+
+        tokens = tokens[src]
+        self_k = self_k[:, src]
+        self_v = self_v[:, src]
+        lengths = lengths[src]
+        was_done = finished[src]
+        tok = torch.where(was_done, cfg.eot_token, tok)
+        tokens[:, pos] = tok
+        now_done = tok == cfg.eot_token
+        lengths = torch.where(now_done & ~was_done, pos, lengths)
+        scores = top_s
+        finished = was_done | now_done
+        if bool(finished.all()):
+            break
+    tokens = tokens.reshape(bsz, beam, max_len)
+    lengths = lengths.reshape(bsz, beam)
+    # normalise per generated token including EOT (whose log-prob is in the
+    # cumulative score), as faster-whisper ranks
+    gen_len = torch.clamp(lengths - plen + 1, min=1).float()
+    norm = scores / gen_len
+    order = torch.argsort(-norm, dim=1, stable=True)
+    tokens = torch.take_along_dim(tokens, order[:, :, None], dim=1)
+    lengths = torch.take_along_dim(lengths, order, dim=1)
+    norm = torch.take_along_dim(norm, order, dim=1)
+    return tokens, lengths, norm
+
+
+def beam_decode(
+    params: Dict,
+    enc_out: torch.Tensor,
+    prompt: torch.Tensor,
+    cfg: WhisperConfig,
+    max_len: int = 224,
+    beam: int = 5,
+    dtype=torch.bfloat16,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Single-chunk wrapper over beam_decode_batch: enc_out (1, S, d) →
+    (tokens (beam, max_len), lengths (beam,), scores (beam,)), best first."""
+    tokens, lengths, norm = beam_decode_batch(
+        params, enc_out, prompt, cfg, max_len=max_len, beam=beam, dtype=dtype
+    )
+    return tokens[0], lengths[0], norm[0]

@@ -100,11 +100,17 @@ def kernels() -> ctypes.CDLL:
         if not os.path.exists(lib_path):
             _build_kernels(lib_path)
         lib = ctypes.CDLL(lib_path)
-        vp, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        vp, i32, i64, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
         lib.hmm_flash_mha_bf16.argtypes = [vp, vp, vp, vp, i32, i32, i32, i32, f32, vp]
         lib.hmm_flash_mha_bf16.restype = i32
+        lib.hmm_flash_mha_bthd_bf16.argtypes = [vp, vp, vp, vp, i32, i32, i32, i32, i32,
+                                                *[i64] * 9, f32, vp]
+        lib.hmm_flash_mha_bthd_bf16.restype = i32
         lib.hmm_fused_mlp_bf16.argtypes = [vp, vp, vp, vp, vp, vp, i32, i32, i32, vp]
         lib.hmm_fused_mlp_bf16.restype = i32
+        lib.hmm_fused_ln_mlp_residual_bf16.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp,
+                                                       i32, i32, i32, f32, vp]
+        lib.hmm_fused_ln_mlp_residual_bf16.restype = i32
         _kernels = lib
         return lib
 

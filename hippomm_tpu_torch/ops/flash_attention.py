@@ -1,21 +1,34 @@
-"""K1: fused mask-free multi-head attention — Hopper kernel + plain version.
+"""K1 and K4: fused mask-free multi-head attention — Hopper kernel + plain versions.
 
-Counterpart of hippomm_tpu/ops/flash_attention.py (`flash_mha` over the
-Pallas `_mha_kernel`). The kernel itself is CUDA C++ in
-csrc/flash_mha.cu (one block per 64 query rows of one head, K/V streamed
-through shared memory with an online softmax); `flash_mha_ref` is the same
-function in plain PyTorch, in the JAX op order:
+Counterpart of hippomm_tpu/ops/flash_attention.py:
+
+  * K1 `flash_mha` (the Pallas `_mha_kernel`): q/k/v head-split, (B, H, T, hd)
+  * K4 `flash_mha_bthd` (the Pallas `_mha_kernel_bthd`): q/k/v in the native
+    (B, T, H, hd) layout of the QKV projection's reshape — no head-split or
+    merge transposes. Routed by `models/layers.attention` when
+    HIPPOMM_FLASH_BTHD=1 (`bthd_default`) and the JAX gate `bthd_supported`
+    admits the shape (H = 16, the ImageBind vision tower; H = 12 and H = 20
+    keep K1).
+
+Both are one CUDA C++ kernel over element strides, csrc/flash_mha.cu (one
+block per 64 query rows of one head, K/V streamed through shared memory with
+an online softmax); K4 reads strided views, such as the q slice of a packed
+(B, T, 3D) projection, without a copy. `flash_mha_ref` / `flash_mha_bthd_ref`
+are the same functions in plain PyTorch, in the JAX op order:
 
     softmax(q·kᵀ·scale) in fp32 → cast to q.dtype → ·v, fp32 accumulation
     → q.dtype
 
-`flash_mha` runs the kernel for a CUDA tensor and the plain version for a
+Each wrapper runs the kernel for a CUDA tensor and the plain version for a
 CPU tensor — nothing else: a CUDA call that the kernel cannot take raises.
-The TPU-only schedules of the JAX module (CLS-split, fast-exp, the BTHD
-layout) were written for the v5e's vector unit and have no counterpart here.
+The TPU-only schedules of the JAX module (CLS-split, fast-exp) were written
+for the v5e's vector unit and have no counterpart here.
 """
 
 from __future__ import annotations
+
+import functools
+import os
 
 import torch
 import torch.nn.functional as F
@@ -25,6 +38,11 @@ import torch.nn.functional as F
 # packages route the same shapes to the kernel.
 _MAX_TK = 2048
 _MAX_HD = 128
+_LANES = 128
+
+
+def _round_up(x: int, m: int) -> int:
+    return ((x + m - 1) // m) * m
 
 
 def flash_supported(tq: int, tk: int, hd: int) -> bool:
@@ -85,3 +103,105 @@ def flash_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float) -
 
 
 flash_mha.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K4: the (B, T, H, hd) layout
+# ---------------------------------------------------------------------------
+
+
+@functools.lru_cache(maxsize=1)
+def bthd_default() -> bool:
+    """Route policy for the transpose-free layout, as the JAX package's:
+    HIPPOMM_FLASH_BTHD=1 turns it on; default off."""
+    flag = os.environ.get("HIPPOMM_FLASH_BTHD", "auto").lower()
+    if flag in ("1", "true", "on"):
+        return True
+    return False
+
+
+def _bthd_gh(h: int):
+    if h % 8 == 0:
+        return 8
+    if h <= 8:
+        return h
+    return None
+
+
+def bthd_supported(b: int, h: int, tq: int, tk: int, hd: int) -> bool:
+    """Static gate, as hippomm_tpu.ops.flash_attention.bthd_supported (its
+    head grouping and per-step VMEM budget), so both packages route the same
+    shapes to the (B, T, H, hd) kernel; the CUDA kernel itself has no such
+    limit."""
+    gh = _bthd_gh(h)
+    if gh is None or hd > _LANES:
+        return False
+    per_step = 2 * (2 * tq + 2 * tk) * gh * _round_up(hd, _LANES) * 2 + tq * tk * 4
+    return per_step <= 10 * 1024 * 1024
+
+
+def flash_mha_bthd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float) -> torch.Tensor:
+    """Plain PyTorch attention in (B, T, H, hd): q (B, Tq, H, hd), k/v
+    (B, Tk, H, hd) → (B, Tq, H, hd) in q.dtype; flash_mha_ref on the
+    head-split views."""
+    return flash_mha_ref(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), scale).transpose(1, 2)
+
+
+def _bht_strides(t: torch.Tensor):
+    """(batch, head, row) element strides of a (B, T, H, hd) view — the
+    order the C entry point takes."""
+    return t.stride(0), t.stride(2), t.stride(1)
+
+
+def flash_mha_bthd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float) -> torch.Tensor:
+    """Fused attention in the native (B, T, H, hd) layout: the CUDA kernel
+    for CUDA tensors (bf16; strided views with a contiguous hd axis, every
+    stride a multiple of 8 elements, 16-byte aligned), the plain version for
+    CPU tensors. Returns a contiguous (B, Tq, H, hd) tensor on CUDA. Counts
+    kernel launches in `flash_mha_bthd.launches`."""
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
+        raise ValueError(
+            f"flash_mha_bthd takes 4-D (B, T, H, hd) tensors, got {q.shape} {k.shape} {v.shape}"
+        )
+    b, tq, h, hd = q.shape
+    tk = k.shape[1]
+    if k.shape != (b, tk, h, hd) or v.shape != k.shape:
+        raise ValueError(f"flash_mha_bthd shape mismatch: q {q.shape} k {k.shape} v {v.shape}")
+    if not (q.device == k.device == v.device) or not (q.dtype == k.dtype == v.dtype):
+        raise ValueError("flash_mha_bthd: q, k, v must share device and dtype")
+    if q.device.type == "cpu":
+        return flash_mha_bthd_ref(q, k, v, scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_mha_bthd: unsupported device {q.device}")
+    if q.dtype != torch.bfloat16:
+        raise NotImplementedError(f"the flash_mha_bthd CUDA kernel takes bfloat16 only, got {q.dtype}")
+    if hd > _MAX_HD:
+        raise ValueError(f"flash_mha_bthd kernel takes hd <= {_MAX_HD}, got {hd}")
+    hdp = -(-hd // 16) * 16
+    if hdp != hd:
+        # the padding copies, as the JAX wrapper's pad does; zero columns add
+        # 0 to q·k and give zero output columns (sliced off)
+        q, k, v = (F.pad(t, (0, hdp - hd)) for t in (q, k, v))
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.stride(3) != 1 or any(s % 8 for s in t.stride()[:3]) or t.data_ptr() % 16:
+            raise ValueError(
+                f"flash_mha_bthd kernel takes {name} with a contiguous hd axis, strides that are "
+                f"multiples of 8 and a 16-byte aligned start; got strides {t.stride()}"
+            )
+    out = torch.empty((b, tq, h, hdp), dtype=q.dtype, device=q.device)
+    from hippomm_tpu_torch.ops import _native
+
+    lib = _native.kernels()
+    with torch.cuda.device(q.device):
+        rc = lib.hmm_flash_mha_bthd_bf16(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, h, tq, tk, hdp,
+            *_bht_strides(q), *_bht_strides(k), *_bht_strides(v), float(scale),
+            torch.cuda.current_stream(q.device).cuda_stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"flash_mha_bthd kernel launch failed: CUDA error {rc}")
+    flash_mha_bthd.launches += 1
+    return out if hdp == hd else out[..., :hd]
+
+
+flash_mha_bthd.launches = 0

@@ -23,9 +23,10 @@ def cuda_device():
 @pytest.mark.cuda
 @pytest.mark.parametrize(
     "shape",
-    # the two ingest shapes, a short ragged one, and hd 40, which the wrapper
-    # pads to a multiple of 16
-    [(32, 16, 257, 257, 80), (96, 12, 229, 230, 64), (2, 3, 33, 40, 48), (2, 3, 33, 40, 40)],
+    # the two ImageBind ingest shapes, the Whisper encoder's, a short ragged
+    # one, and hd 40, which the wrapper pads to a multiple of 16
+    [(32, 16, 257, 257, 80), (96, 12, 229, 230, 64), (4, 20, 1500, 1500, 64), (2, 3, 33, 40, 48),
+     (2, 3, 33, 40, 40)],
 )
 def test_flash_kernel_matches_plain_on_cuda(cuda_device, shape):
     b, h, tq, tk, hd = shape
@@ -42,7 +43,8 @@ def test_flash_kernel_matches_plain_on_cuda(cuda_device, shape):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n,d,f", [(8224, 1280, 5120), (21984, 768, 3072), (40, 128, 512)])
+@pytest.mark.parametrize("n,d,f", [(8224, 1280, 5120), (21984, 768, 3072), (6000, 1280, 5120),
+                                   (40, 128, 512)])
 def test_fused_mlp_kernel_matches_plain_on_cuda(cuda_device, n, d, f):
     g = torch.Generator(device=cuda_device).manual_seed(1)
     x = torch.randn((n, d), generator=g, device=cuda_device).to(torch.bfloat16)
@@ -73,3 +75,78 @@ def test_kernels_raise_for_what_they_do_not_take(cuda_device):
         b2 = torch.zeros((d,), device=cuda_device)
         with pytest.raises(NotImplementedError, match=match):
             tfm.fused_mlp(x, w1, b1, w2, b2)
+
+
+def _mlp_operands(device, n, d, f, seed):
+    g = torch.Generator(device=device).manual_seed(seed)
+    x = torch.randn((n, d), generator=g, device=device).to(torch.bfloat16)
+    gamma = 1.0 + 0.1 * torch.randn((d,), generator=g, device=device)
+    beta = 0.1 * torch.randn((d,), generator=g, device=device)
+    w1 = (torch.randn((f, d), generator=g, device=device) / d ** 0.5).to(torch.bfloat16)
+    b1 = 0.1 * torch.randn((f,), generator=g, device=device)
+    w2 = (torch.randn((d, f), generator=g, device=device) / f ** 0.5).to(torch.bfloat16)
+    b2 = 0.1 * torch.randn((d,), generator=g, device=device)
+    return x, gamma, beta, w1, b1, w2, b2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "n,d,f",
+    # the vision and audio ingest shapes, N not a multiple of 32 at D 768, a small one
+    [(8224, 1280, 5120), (21984, 768, 3072), (45, 768, 3072), (40, 128, 512)],
+)
+def test_fused_ln_mlp_residual_kernel_matches_plain_on_cuda(cuda_device, n, d, f):
+    x, gamma, beta, w1, b1, w2, b2 = _mlp_operands(cuda_device, n, d, f, 2)
+    before = tfm.fused_ln_mlp_residual.launches
+    out = tfm.fused_ln_mlp_residual(x, gamma, beta, w1, b1, w2, b2, 1e-6)
+    torch.cuda.synchronize()
+    assert tfm.fused_ln_mlp_residual.launches == before + 1
+    assert out.shape == (n, d) and out.dtype == torch.bfloat16
+    ref = tfm.fused_ln_mlp_residual_ref(x, gamma, beta, w1, b1, w2, b2, 1e-6)
+    err = (out.float() - ref.float()).abs().max().item()
+    assert err <= 2e-2 * ref.float().abs().max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "b,t,h,hd,packed",
+    # the vision tower's shape as (B, T, D) reshapes and as slices of a packed
+    # (B, T, 3D) projection (row stride 3D); a ragged one; hd 40 (padded)
+    [(32, 257, 16, 80, False), (32, 257, 16, 80, True), (2, 33, 8, 64, True),
+     (2, 33, 4, 40, False)],
+)
+def test_flash_bthd_kernel_matches_plain_on_cuda(cuda_device, b, t, h, hd, packed):
+    d = h * hd
+    g = torch.Generator(device=cuda_device).manual_seed(3)
+    if packed:
+        qkv = torch.randn((b, t, 3 * d), generator=g, device=cuda_device).to(torch.bfloat16)
+        q, k, v = qkv[..., :d], qkv[..., d:2 * d], qkv[..., 2 * d:]
+    else:
+        q, k, v = (torch.randn((b, t, d), generator=g, device=cuda_device).to(torch.bfloat16)
+                   for _ in range(3))
+    q4, k4, v4 = (x.reshape(b, t, h, hd) for x in (q, k, v))
+    assert q4.stride(2) == hd and q4.stride(1) == (3 * d if packed else d)
+    before = tfa.flash_mha_bthd.launches
+    out = tfa.flash_mha_bthd(q4, k4, v4, hd ** -0.5)
+    torch.cuda.synchronize()
+    assert tfa.flash_mha_bthd.launches == before + 1
+    assert out.shape == (b, t, h, hd)
+    ref = tfa.flash_mha_bthd_ref(q4, k4, v4, hd ** -0.5)
+    assert (out.float() - ref.float()).abs().max().item() <= 2e-2
+
+
+@pytest.mark.cuda
+def test_k3_k4_raise_for_what_they_do_not_take(cuda_device):
+    """K3 with fp32 operands or D > 1280, and K4 with fp32, raise instead of
+    running plain."""
+    for dt, d, f, match in ((torch.float32, 128, 512, "bfloat16"), (torch.bfloat16, 1408, 5632, "1280")):
+        x = torch.zeros((64, d), device=cuda_device, dtype=dt)
+        vec = torch.zeros((d,), device=cuda_device)
+        w1 = torch.zeros((f, d), device=cuda_device, dtype=dt)
+        w2 = torch.zeros((d, f), device=cuda_device, dtype=dt)
+        b1 = torch.zeros((f,), device=cuda_device)
+        with pytest.raises(NotImplementedError, match=match):
+            tfm.fused_ln_mlp_residual(x, vec, vec, w1, b1, w2, vec, 1e-6)
+    q = torch.zeros((1, 17, 2, 64), device=cuda_device)
+    with pytest.raises(NotImplementedError, match="bfloat16"):
+        tfa.flash_mha_bthd(q, q, q, 0.125)

@@ -20,6 +20,10 @@ _MODULES = [
     "hippomm_tpu_torch.models.imagebind.model",
     "hippomm_tpu_torch.models.imagebind.carry",
     "hippomm_tpu_torch.models.imagebind.preprocess",
+    "hippomm_tpu_torch.models.whisper.model",
+    "hippomm_tpu_torch.models.whisper.carry",
+    "hippomm_tpu_torch.models.whisper.convert",
+    "hippomm_tpu_torch.models.whisper.transcribe",
     "hippomm_tpu_torch.ops.flash_attention",
     "hippomm_tpu_torch.ops.fused_mlp",
     "hippomm_tpu_torch.ops.resize",
@@ -51,18 +55,31 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
-@pytest.mark.parametrize("entry", ["engine", "imagebind"])
+@pytest.mark.parametrize("entry", ["engine", "imagebind", "whisper"])
 def test_entry_point_without_device_raises_without_cuda(entry, monkeypatch, tmp_path):
     import torch
 
     from hippomm_tpu_torch.config import Config
     from hippomm_tpu_torch.memory.engine import HippocampalMemory
-    from hippomm_tpu_torch.models.foundation import ImageBind
+    from hippomm_tpu_torch.models.foundation import ImageBind, Whisper
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = Config()
     cfg.api.mode = "stub"
     cfg.models.imagebind_variant = "tiny"
     cfg.storage.base_dir = str(tmp_path)
+    make = {"engine": lambda: HippocampalMemory(cfg), "imagebind": lambda: ImageBind(variant="tiny"),
+            "whisper": lambda: Whisper(variant="tiny")}[entry]
     with pytest.raises(RuntimeError, match="no CUDA device"):
-        HippocampalMemory(cfg) if entry == "engine" else ImageBind(variant="tiny")
+        make()
+
+
+def test_whisper_stub_needs_no_device(monkeypatch):
+    """The stub transcriber runs no tower, so it builds without CUDA."""
+    import torch
+
+    from hippomm_tpu_torch.models.foundation import Whisper
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    w = Whisper(variant="stub")
+    assert w.cfg is None and w.transcribe_async([0.0] * 16000) is None
