@@ -6,12 +6,13 @@ Phases (any failure exits non-zero and prints no result line):
   1. build  — compile the Hopper kernels from hippomm_tpu_torch/csrc with nvcc
   2. kernels — K1 (flash attention), K2 (fused MLP), K3 (LN+MLP+residual)
      and K4 (attention in the (B, T, H, hd) layout) against their plain
-     PyTorch versions at every shape the ingest path gives them, in bf16;
+     PyTorch versions at every shape the ingest and query paths give them,
+     in bf16, and K5 (cosine top-k) in fp32 at stores of 2e5 and 1e6 rows;
      kernel, plain and library-call times (CUDA events) beside each bound
-  3. towers — the ImageBind-Huge vision tower through the kernels, in the
-     default and in the fused-block configuration, and the Whisper
-     distil-large-v3 encoder through the kernels, each against the same
-     forward with the kernels routed out
+  3. towers — the ImageBind-Huge vision and text towers through the
+     kernels, in the default and in the fused-block configuration, and the
+     Whisper distil-large-v3 encoder through the kernels, each against the
+     same forward with the kernels routed out
   4. engine — HippocampalMemory.process_sequence on a 120 s synthetic clip at
      full ImageBind-Huge and Whisper distil-large-v3 width (random weights
      from a seed, stub clients): one ThetaEvent persisted, features checked,
@@ -21,6 +22,18 @@ Phases (any failure exits non-zero and prints no result line):
      id with HIPPOMM_FUSED_BLOCK=1 and HIPPOMM_FLASH_BTHD=1: every ImageBind
      block through K3, every vision block through K4, the rest through K1/K2;
      features agree with phase 4 and the transcript token ids are equal
+  6. query  — core/ask_question over the store phases 4 and 5 wrote, with
+     detailed recall forced (fast_path_confidence 2.0) and the search route
+     left as a user's call finds it (no HIPPOMM_TOPK_ROUTE): a VIDEO, an
+     AUDIO "sound" and a SUMMARY question and an 8-question batch, then the
+     VIDEO question under the fused flags; exact launch counts (K2, or K3,
+     24 per text forward; K5 one per single-query search round, every round
+     on the device; K1/K2 only for the Whisper re-transcription), every
+     search's hits against the host route's (compare_hits), per-question
+     wall and stage seconds
+  7. search — a FeatureSearchIndex of 200 000 × 1024 seeded rows (100
+     events of 2000): 64 single-query searches through K5 and one batch of
+     64, ms per query, 4 queries' hits and times on the host route
 
 Prints the card's name and power limit, a `{"kernels": [...]}` line, and as
 its last line `{"ok": true, "device": {...}}`. Writes the same numbers to
@@ -29,6 +42,7 @@ chiprun_out/chip_smoke.json. Needs no network and no checkpoint.
 
 from __future__ import annotations
 
+import copy
 import json
 import math
 import os
@@ -36,10 +50,20 @@ import subprocess
 import sys
 import tempfile
 import time
+import weakref
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 PEAK_BYTES_S = 3.35e12  # H100 SXM HBM3
 PEAK_BF16_FLOP_S = 989e12  # H100 SXM dense bf16 tensor cores
+PEAK_FP32_FLOP_S = 67e12  # H100 SXM fp32 outside the tensor cores
+TEXT_DEPTH = 24  # ImageBind-Huge text blocks: one K2 (or K3) launch each per forward
+WHISPER_DEPTH = 32  # distil-large-v3 encoder blocks: one K1 and one K2 each per batch
+VIDEO_Q = "What color is the moving square?"
+SOUND_Q = "What sound plays in the background?"
+SUMMARY_Q = "What is the overall summary of the video?"
+BATCH_QS = [VIDEO_Q, "What objects appear on screen?", "Where is the red block?",
+            "What shape is in the corner?", "What is drawn at the top?", "Which colors are shown?",
+            "What moves across the frame?", "What is in the middle of the picture?"]
 
 
 def fail(msg: str, code: int = 1):
@@ -62,8 +86,8 @@ def cuda_ms(fn, iters: int = 10, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound(nbytes: float, flops: float):
-    t_bytes, t_ops = nbytes / PEAK_BYTES_S, flops / PEAK_BF16_FLOP_S
+def bound(nbytes: float, flops: float, peak_flop_s: float = PEAK_BF16_FLOP_S):
+    t_bytes, t_ops = nbytes / PEAK_BYTES_S, flops / peak_flop_s
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -189,6 +213,52 @@ def check_attention_bthd(fa, shape, gen):
     }
 
 
+def topk_mismatch(vals, idx, rvals, ridx, tol: float = 1e-5):
+    """None when the two top-k results agree: values within tol, indices
+    equal except where the plain version's neighbouring values are closer
+    than tol (an order the two roundings may flip); else what differs."""
+    vals, rvals = vals.double().cpu(), rvals.double().cpu()
+    idx, ridx = idx.long().cpu(), ridx.long().cpu()
+    err = (vals - rvals).abs().max().item()
+    if not err <= tol:
+        return f"values differ by {err}"
+    gaps = (rvals[1:] - rvals[:-1]).abs()
+    for j in (idx != ridx).nonzero().flatten().tolist():
+        near = ([gaps[j - 1].item()] if j > 0 else []) + ([gaps[j].item()] if j < len(gaps) else [])
+        if min(near, default=float("inf")) >= tol:
+            return f"index {j}: {idx[j].item()} != {ridx[j].item()}"
+    return None
+
+
+def check_topk(ttk, shape, gen):
+    """K5 over a store of unit rows (as the search route normalizes it once
+    at upload) and a random query."""
+    import torch
+
+    n, d, k = shape
+    dev = torch.device("cuda")
+    feats = torch.randn((n, d), generator=gen, device=dev)
+    feats /= feats.norm(dim=1, keepdim=True)
+    q = torch.randn((d,), generator=gen, device=dev)
+    vals, idx = ttk.top_k_cosine_kernel(q, feats, k)
+    torch.cuda.synchronize()
+    rvals, ridx = ttk.top_k_cosine_ref(q, feats, k)
+    bad = topk_mismatch(vals, idx, rvals, ridx)
+    if bad:
+        fail(f"top_k_cosine {shape}: {bad}")
+    qn = q / q.norm().clamp_min(1e-8)
+    # the store read once, q read and k values + k indices written once;
+    # 4 flops per element (dot and sum of squares) on the fp32 CUDA cores
+    b_ms, b_by = bound(4 * n * d + 4 * d + 8 * k, 4 * n * d, PEAK_FP32_FLOP_S)
+    return {
+        "shape": list(shape), "max_abs_err": (vals - rvals).abs().max().item(),
+        "ms": cuda_ms(lambda: ttk.top_k_cosine_kernel(q, feats, k)),
+        "plain_ms": cuda_ms(lambda: ttk.top_k_cosine_ref(q, feats, k), iters=3, warmup=1),
+        "library_ms": cuda_ms(lambda: torch.topk(feats @ qn, k)),
+        "bound_ms": b_ms, "bound_by": b_by,
+    }
+
+
 def set_fused_flags(fa, fm, on: bool) -> None:
     """HIPPOMM_FUSED_BLOCK / HIPPOMM_FLASH_BTHD as a user sets them, then the
     cached route policies re-read."""
@@ -199,6 +269,290 @@ def set_fused_flags(fa, fm, on: bool) -> None:
             os.environ.pop(flag, None)
     fa.bthd_default.cache_clear()
     fm.fused_block_default.cache_clear()
+
+
+_STORE_ROWS = weakref.WeakKeyDictionary()  # index -> {(event id, row in event): store row}
+
+
+def compare_hits(index, query, got, want, what: str):
+    """The device route's hits against the host route's over the same store:
+    as many, and at every rank the device's similarity and the cosine of the
+    row it returned there, recomputed in fp64 from the host store, both
+    within 1e-5 of the host route's similarity at that rank. The two routes
+    round each similarity differently, so rows closer than 1e-5 may swap
+    ranks or trade the last place: a different (event id, time) at a rank
+    passes only where the host's similarities there and at a neighbouring
+    rank lie within 1e-5 (or at the last rank), and the recomputed cosine
+    holds it to the host's value either way. Returns the largest gap and
+    the number of near-tie ranks."""
+    import numpy as np
+
+    from hippomm_tpu_torch.utils.device import fetch
+
+    rows = _STORE_ROWS.get(index)
+    if rows is None:
+        rows = _STORE_ROWS[index] = {(o, int(i)): r for r, (o, i) in enumerate(zip(index.owners, index.in_event_idx))}
+    q = fetch(query, np.float64).reshape(-1)
+    q = q / max(float(np.linalg.norm(q)), 1e-8)
+
+    def show():
+        return (f"device-route hits {[(h.event_id, h.time, h.similarity) for h in got]} != host-route "
+                f"{[(h.event_id, h.time, h.similarity) for h in want]}")
+
+    keys = [(h.event_id, h.index_in_event) for h in got]
+    if len(got) != len(want) or len(set(keys)) != len(keys) or not all(k in rows for k in keys):
+        fail(f"{what}: {show()}")
+    w = [h.similarity for h in want]
+    err, ties = 0.0, 0
+    for j, (g, h) in enumerate(zip(got, want)):
+        f = index._feats[rows[(g.event_id, g.index_in_event)]].astype(np.float64)
+        cos = float(f @ q) / max(float(np.linalg.norm(f)), 1e-8)
+        err = max(err, abs(g.similarity - w[j]), abs(cos - w[j]))
+        if not err <= 1e-5:
+            fail(f"{what}: rank {j}: similarity {g.similarity}, row cosine {cos}, host {w[j]}; {show()}")
+        if (g.event_id, g.time) != (h.event_id, h.time):
+            tie = (j == len(w) - 1 or abs(w[j + 1] - w[j]) < 1e-5 or (j > 0 and abs(w[j] - w[j - 1]) < 1e-5))
+            if not tie:
+                fail(f"{what}: rank {j} differs with no near tie; {show()}")
+            ties += 1
+    return err, ties
+
+
+class QuerySpies:
+    """What one question does on the card: text-tower forwards (their rows),
+    Whisper encoder batches, device top-k rounds (their k), every search with
+    its hits, and seconds per stage (each stage ends in a synchronize)."""
+
+    def __init__(self):
+        from hippomm_tpu_torch.core import ask_question as aq
+        from hippomm_tpu_torch.models import foundation
+        from hippomm_tpu_torch.models.imagebind import model as ib_model
+        from hippomm_tpu_torch.models.whisper import transcribe as wh_transcribe
+        from hippomm_tpu_torch.retrieval.search import FeatureSearchIndex
+        from hippomm_tpu_torch.utils import tokens
+
+        self._saved = []
+        self.reset()
+        self.real_search = FeatureSearchIndex.search
+        self.real_search_batch = FeatureSearchIndex.search_batch
+        self._patch(aq, "_qa_system", self._timed("setup", aq._qa_system))
+        # the first count_tokens imports `transformers` and looks for a local
+        # GPT-2 tokenizer (local files only; chars/4 when there is none)
+        self._patch(tokens, "_get_tokenizer", self._timed("token_counter", tokens._get_tokenizer))
+        self._patch(ib_model, "text_forward", self._timed(
+            "text_forward", ib_model.text_forward, lambda a, k, out: self.text_rows.append(a[1].numel())))
+        self._patch(foundation.Whisper, "transcribe_batch",
+                    self._timed("transcribe", foundation.Whisper.transcribe_batch))
+        enc = wh_transcribe.encoder_forward
+        self._patch(wh_transcribe, "encoder_forward",
+                    lambda *a, **k: self.encoder_batches.append(1) or enc(*a, **k))
+        # every search round, and the rounds that ran on the device
+        for name, seen in (("_topk", "rounds"), ("_topk_device", "device_ks"),
+                           ("_topk_batch", "batch_rounds"), ("_topk_batch_device", "device_batches")):
+            fn = getattr(FeatureSearchIndex, name)
+            self._patch(FeatureSearchIndex, name,
+                        lambda idx, q, k, fn=fn, seen=seen: getattr(self, seen).append(k) or fn(idx, q, k))
+        self._patch(FeatureSearchIndex, "search", self._timed(
+            "search", self.real_search, lambda a, k, out: self.searches.append((a, k, out))))
+        self._patch(FeatureSearchIndex, "search_batch", self._timed(
+            "search_batch", self.real_search_batch, lambda a, k, out: self.batches.append((a, k, out))))
+
+    def _patch(self, obj, name, new):
+        self._saved.append((obj, name, getattr(obj, name)))
+        setattr(obj, name, new)
+
+    def _timed(self, stage, fn, record=None):
+        import torch
+
+        def run(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            self.stages[stage] = self.stages.get(stage, 0.0) + time.perf_counter() - t0
+            if record is not None:
+                record(a, k, out)
+            return out
+
+        return run
+
+    def reset(self):
+        self.stages, self.text_rows, self.encoder_batches = {}, [], []
+        self.rounds, self.device_ks, self.searches, self.batches = [], [], [], []
+        self.batch_rounds, self.device_batches = [], []
+
+    def restore(self):
+        for obj, name, old in reversed(self._saved):
+            setattr(obj, name, old)
+
+    def host_route_agrees(self, what: str):
+        """Every search of the question, again on the host route: the largest
+        similarity gap and the near-tie ranks (compare_hits)."""
+        import numpy as np
+
+        err, ties = 0.0, 0
+        os.environ["HIPPOMM_TOPK_ROUTE"] = "host"
+        try:
+            pairs = [(a[0], a[1], hits, self.real_search(*a, **k)) for a, k, hits in self.searches]
+            for a, k, hits in self.batches:
+                pairs += [(a[0], q, got, want) for q, got, want in
+                          zip(np.atleast_2d(a[1]), hits, self.real_search_batch(*a, **k))]
+            for index, query, got, want in pairs:
+                e, t = compare_hits(index, query, got, want, what)
+                err, ties = max(err, e), ties + t
+        finally:
+            os.environ.pop("HIPPOMM_TOPK_ROUTE", None)
+        return err, ties
+
+
+def query_phase(qcfg, counters, fa, fm):
+    """Questions through core/ask_question, each building its engine from
+    the config as a user's call does; exact launch counts per question."""
+    import gc
+
+    import torch
+
+    from hippomm_tpu_torch.core.ask_question import ask_question, ask_questions
+
+    spies = QuerySpies()
+    os.environ.pop("HIPPOMM_TOPK_ROUTE", None)  # the route a user's call takes
+    runs, totals = {}, {name: 0 for name in counters}
+    try:
+        for name, fused, call, qtypes in (
+            ("video", False, lambda: [ask_question(VIDEO_Q, qcfg)], ["VIDEO"]),
+            ("sound", False, lambda: [ask_question(SOUND_Q, qcfg)], ["AUDIO"]),
+            ("summary", False, lambda: [ask_question(SUMMARY_Q, qcfg)], ["SUMMARY"]),
+            ("batch8", False, lambda: ask_questions(BATCH_QS, qcfg), ["VIDEO"] * len(BATCH_QS)),
+            ("video_fused", True, lambda: [ask_question(VIDEO_Q, qcfg)], ["VIDEO"]),
+        ):
+            set_fused_flags(fa, fm, fused)
+            gc.collect()
+            torch.cuda.empty_cache()
+            spies.reset()
+            for c in counters.values():
+                c.launches = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            results = call()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = {k: c.launches for k, c in counters.items()}
+            n_text, n_enc = len(spies.text_rows), len(spies.encoder_batches)
+            n_k5 = sum(1 for k in spies.device_ks if k <= 128)
+            expect = {
+                "flash_mha": WHISPER_DEPTH * n_enc,
+                "fused_mlp": (0 if fused else TEXT_DEPTH * n_text) + WHISPER_DEPTH * n_enc,
+                "fused_ln_mlp_residual": TEXT_DEPTH * n_text if fused else 0,
+                "flash_mha_bthd": 0,
+                "top_k_cosine": n_k5,
+            }
+            stages = dict(spies.stages)
+            stages["rest"] = wall - sum(stages.values())
+            print(f"query {name}: wall {wall:.3f} s; text rows {spies.text_rows}, encoder batches "
+                  f"{n_enc}, search rounds k {spies.rounds} (on the device {spies.device_ks}), batch "
+                  f"rounds k {spies.batch_rounds}; launches {launches}, expected {expect}", flush=True)
+            print(f"query stages {name}: " + json.dumps({k: round(v, 4) for k, v in stages.items()}),
+                  flush=True)
+            if launches != expect:
+                fail(f"query {name}: kernel launches {launches} != {expect}")
+            if spies.device_ks != spies.rounds or spies.device_batches != spies.batch_rounds:
+                fail(f"query {name}: search rounds {spies.rounds} / batches {spies.batch_rounds} did not "
+                     f"all run on the device ({spies.device_ks} / {spies.device_batches})")
+            if [r.question_type for r in results] != qtypes or not all(r.answer for r in results):
+                fail(f"query {name}: results {[(r.question_type, r.answer) for r in results]}")
+            if name == "batch8" and spies.text_rows != [77 * len(BATCH_QS)]:
+                fail(f"query batch8: text forwards of {spies.text_rows} rows, not one of 616")
+            if name in ("video", "sound", "video_fused") and (spies.text_rows != [77] or n_k5 < 1):
+                fail(f"query {name}: text rows {spies.text_rows}, {n_k5} K5 rounds")
+            if name == "sound" and n_enc < 1:
+                fail("query sound: no Whisper re-transcription ran")
+            if name == "summary" and not (results[0].used_direct_answer and sum(launches.values()) == 0):
+                fail(f"query summary: not answered on the fast path: {launches}")
+            rounds = {"search_rounds_k": list(spies.rounds), "device_topk_k": list(spies.device_ks),
+                      "batch_rounds_k": list(spies.batch_rounds)}
+            err, ties = spies.host_route_agrees(f"query {name}")
+            print(f"query {name}: {len(spies.searches)} searches and {len(spies.batches)} batches "
+                  f"agree with the host route (similarity gap {err:.3g}, {ties} near-tie ranks)",
+                  flush=True)
+            runs[name] = {"wall_s": wall, "stages_s": stages, "launches": launches,
+                          "expected_launches": expect, "text_rows": spies.text_rows,
+                          **rounds, "encoder_batches": n_enc,
+                          "host_route_max_sim_gap": err, "host_route_near_ties": ties,
+                          "results": [r.to_dict() for r in results]}
+            if not fused:
+                for k, v in launches.items():
+                    totals[k] += v
+    finally:
+        spies.restore()
+        set_fused_flags(fa, fm, False)
+    for k in ("fused_mlp", "top_k_cosine", "flash_mha"):
+        if totals[k] == 0:
+            fail(f"query path: {k} was never launched")
+    return {"runs": runs, "launches": totals}
+
+
+def search_phase(ttk):
+    """A FeatureSearchIndex of 200 000 seeded unit rows × 1024 (100 events
+    of 2000 1 fps keyframes, about 55 h): 64 single-query searches on the
+    route a user's call takes (the device: K5), one search_batch of 64, and
+    4 queries on the host route, timed and held against both."""
+    import numpy as np
+    import torch
+
+    from hippomm_tpu_torch.memory.schema import ThetaEvent
+    from hippomm_tpu_torch.retrieval.search import FeatureSearchIndex
+
+    n_events, rows, d = 100, 2000, 1024
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    feats = torch.randn((n_events * rows, d), generator=gen, device="cuda")
+    feats = (feats / feats.norm(dim=1, keepdim=True)).cpu().numpy()
+    t0 = time.perf_counter()
+    events = [ThetaEvent(video_id=f"v{e:03d}", features={"vision": feats[e * rows:(e + 1) * rows]},
+                         feature_times={"vision": [float(t) for t in range(rows)]},
+                         start_time=0.0, end_time=float(rows)) for e in range(n_events)]
+    index = FeatureSearchIndex.build(events, "vision")
+    queries = torch.randn((64, d), generator=gen, device="cuda")
+    os.environ.pop("HIPPOMM_TOPK_ROUTE", None)
+    try:
+        index.search(queries[0])  # uploads and normalizes the store once
+        torch.cuda.synchronize()
+        setup = time.perf_counter() - t0
+        ttk.top_k_cosine_kernel.launches = 0
+        per_query, hits = [], []
+        for i in range(64):
+            t1 = time.perf_counter()
+            hits.append(index.search(queries[i]))
+            per_query.append((time.perf_counter() - t1) * 1e3)
+        launches = ttk.top_k_cosine_kernel.launches
+        if launches < 64:
+            fail(f"search: {launches} K5 launches for 64 device-route searches")
+        host_q = queries.cpu().numpy()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        batch = index.search_batch(host_q)
+        batch_ms = (time.perf_counter() - t1) * 1e3
+        os.environ["HIPPOMM_TOPK_ROUTE"] = "host"
+        err, ties, host_ms = 0.0, 0, []
+        for i in range(4):
+            t1 = time.perf_counter()
+            want = index.search(host_q[i])
+            host_ms.append((time.perf_counter() - t1) * 1e3)
+            for got, what in ((hits[i], "search"), (batch[i], "search_batch")):
+                e, t = compare_hits(index, host_q[i], got, want, f"{what} query {i}")
+                err, ties = max(err, e), ties + t
+    finally:
+        os.environ.pop("HIPPOMM_TOPK_ROUTE", None)
+    out = {"rows": len(index), "events": n_events, "setup_s": setup, "single_ms": per_query,
+           "single_ms_mean": float(np.mean(per_query)), "single_ms_median": float(np.median(per_query)),
+           "batch64_ms": batch_ms, "batch_ms_per_query": batch_ms / 64, "k5_launches": launches,
+           "host_route_ms": host_ms,
+           "host_route_max_sim_gap": err, "host_route_near_ties": ties}
+    print(f"search: {len(index)} rows in {n_events} events; single query {out['single_ms_mean']:.3f} ms "
+          f"mean, {out['single_ms_median']:.3f} ms median ({launches} K5 launches for 64); batch of 64 "
+          f"{batch_ms:.3f} ms ({batch_ms / 64:.3f} ms/query); host route {host_ms} ms for 4 queries, "
+          f"whose hits the device routes' agree with (similarity gap {err:.3g}, {ties} near-tie "
+          f"ranks); set-up {setup:.1f} s", flush=True)
+    return out
 
 
 def main() -> int:
@@ -221,6 +575,7 @@ def main() -> int:
     from hippomm_tpu_torch.ops import _native
     from hippomm_tpu_torch.ops import flash_attention as fa
     from hippomm_tpu_torch.ops import fused_mlp as fm
+    from hippomm_tpu_torch.ops import topk as ttk
     from hippomm_tpu_torch.ops.resize import normalize_nchw, resize_crop_u8
 
     smi = subprocess.run(
@@ -248,16 +603,23 @@ def main() -> int:
         # ImageBind vision, audio trunk (bias_kv), Whisper encoder (4 chunks)
         "flash_mha": [check_attention(fa, s, gen) for s in (
             (32, 16, 257, 257, 80), (96, 12, 229, 230, 64), (4, 20, 1500, 1500, 64))],
+        # ... and the text tower: one question (77 rows), a batch of 8 (616)
         "fused_mlp": [check_mlp(fm, s, gen) for s in (
-            (8224, 1280, 5120), (21984, 768, 3072), (6000, 1280, 5120))],
+            (8224, 1280, 5120), (21984, 768, 3072), (6000, 1280, 5120), (77, 1024, 4096),
+            (616, 1024, 4096))],
         "fused_ln_mlp_residual": [check_ln_mlp(fm, s, gen) for s in (
-            (8224, 1280, 5120), (21984, 768, 3072))],
+            (8224, 1280, 5120), (21984, 768, 3072), (77, 1024, 4096), (616, 1024, 4096))],
         "flash_mha_bthd": [check_attention_bthd(fa, (32, 257, 16, 80), gen)],
+        # the JAX package's store scale, search's first round, and 1e6 rows
+        # at the kernel's k limit
+        "top_k_cosine": [check_topk(ttk, s, gen) for s in (
+            (200_000, 1024, 20), (200_000, 1024, 40), (1_000_000, 1024, 128))],
     }
+    torch.cuda.empty_cache()
     for name, rs in rows.items():
         for r in rs:
-            print(f"{name} {r['shape']}: err {r['max_abs_err']:.3g} kernel {r['ms']:.3f} ms "
-                  f"plain {r['plain_ms']:.3f} ms library {r['library_ms']:.3f} ms "
+            print(f"{name} {r['shape']}: err {r['max_abs_err']:.3g} kernel {r['ms']:.4f} ms "
+                  f"plain {r['plain_ms']:.4f} ms library {r['library_ms']:.4f} ms "
                   f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})", flush=True)
 
     cfg = Config()
@@ -289,24 +651,38 @@ def main() -> int:
         crops = torch.from_numpy(resize_crop_u8(clip.frames[:32], ib.cfg.image_size)).cuda()
         wt = wh._impl
         pcm = torch.from_numpy(clip.audio[: 30 * 16000].astype(np.float32)).cuda()
+        # the text tower on the 8 questions of the query phase's batch, its
+        # output divided by exp(logit_scale) back to unit rows
+        tokens = torch.from_numpy(ib.tokenizer(BATCH_QS)).cuda()
+        text_scale = math.exp(ib.params["text"]["logit_scale"].item())
         with torch.no_grad():
             x = normalize_nchw(crops)
             mel = wt.mel(pcm[None])[:, :, : 2 * wcfg.max_source_positions]
             fast = {"vision": ib_model.vision_forward(ib.params, x, ib.cfg, ib.dtype),
                     "whisper_encoder": wh_model.encoder_forward(wt.params, mel, wcfg, wt.dtype)[0]}
+            # the text tower's kernel launches: one K2 (K3 when fused) per block
+            k2 = fm.fused_mlp.launches
+            fast["text"] = ib_model.text_forward(ib.params, tokens, ib.cfg, ib.dtype) / text_scale
+            k2 = fm.fused_mlp.launches - k2
             set_fused_flags(fa, fm, True)
             fast["vision_fused"] = ib_model.vision_forward(ib.params, x, ib.cfg, ib.dtype)
+            k3 = fm.fused_ln_mlp_residual.launches
+            fast["text_fused"] = ib_model.text_forward(ib.params, tokens, ib.cfg, ib.dtype) / text_scale
+            k3 = fm.fused_ln_mlp_residual.launches - k3
             set_fused_flags(fa, fm, False)
+            if (k2, k3) != (TEXT_DEPTH, TEXT_DEPTH):
+                fail(f"text tower: {k2} K2 and {k3} K3 launches, not {TEXT_DEPTH} each")
             gates = (layers.flash_supported, layers.fused_mlp_supported)
             layers.flash_supported = layers.fused_mlp_supported = lambda *a: False
             try:
                 plain = ib_model.vision_forward(ib.params, x, ib.cfg, ib.dtype)
                 plain_enc = wh_model.encoder_forward(wt.params, mel, wcfg, wt.dtype)[0]
+                plain_text = ib_model.text_forward(ib.params, tokens, ib.cfg, ib.dtype) / text_scale
             finally:
                 layers.flash_supported, layers.fused_mlp_supported = gates
         report["towers"] = {}
         for name, got in fast.items():
-            want = plain_enc if name == "whisper_encoder" else plain
+            want = {"whisper_encoder": plain_enc, "text": plain_text, "text_fused": plain_text}.get(name, plain)
             err = (got - want).abs().max().item()
             cos_min = torch.nn.functional.cosine_similarity(got, want, dim=-1).min().item()
             # the towers' heads are unit-norm: 2e-2 abs. The encoder's output
@@ -444,24 +820,45 @@ def main() -> int:
         report["engine"] = {"paths": paths, "fused_vs_default": agree, "stages": stats["timers"],
                             "media_s": spec.duration}
 
+        # 6. the query path over the store phases 4 and 5 wrote, with the
+        # 16 kHz track persisted as the ingest CLI does (core/batch_process
+        # save_audio), which the sound pathway re-slices
+        for vid in events:
+            os.makedirs(os.path.join(mem.store.audio_dir, vid), exist_ok=True)
+            np.save(os.path.join(mem.store.audio_dir, vid, "audio.npy"), clip.audio.astype(np.float32))
+        qcfg = copy.deepcopy(cfg)
+        qcfg.processing.fast_path_confidence = 2.0  # detailed recall, not the fast path
+        del mem, ib, wh, wt
+        report["query"] = query_phase(qcfg, dict(counters, top_k_cosine=ttk.top_k_cosine_kernel), fa, fm)
+
+    # 7. search at a store of 200 000 rows
+    report["search"] = search_phase(ttk)
+
     sources = {"flash_mha": "hippomm_tpu_torch/csrc/flash_mha.cu",
                "fused_mlp": "hippomm_tpu_torch/csrc/fused_mlp.cu",
                "fused_ln_mlp_residual": "hippomm_tpu_torch/csrc/fused_mlp.cu",
-               "flash_mha_bthd": "hippomm_tpu_torch/csrc/flash_mha.cu"}
+               "flash_mha_bthd": "hippomm_tpu_torch/csrc/flash_mha.cu",
+               "top_k_cosine": "hippomm_tpu_torch/csrc/topk_cosine.cu"}
     replaces = {"flash_mha": "hippomm_tpu/ops/flash_attention.py:80",
                 "fused_mlp": "hippomm_tpu/ops/fused_mlp.py:123",
                 "fused_ln_mlp_residual": "hippomm_tpu/ops/fused_mlp.py:153",
-                "flash_mha_bthd": "hippomm_tpu/ops/flash_attention.py:319"}
-    # each kernel's own path: K1/K2 the default configuration, K3/K4 the fused one
-    own_path = {"flash_mha": "default", "fused_mlp": "default",
-                "fused_ln_mlp_residual": "fused", "flash_mha_bthd": "fused"}
+                "flash_mha_bthd": "hippomm_tpu/ops/flash_attention.py:319",
+                "top_k_cosine": "hippomm_tpu/ops/pallas_topk.py:46"}
+    # launches per path, each read from counts set to 0 just before it
+    by_path = {f"ingest_{ph}": paths[ph]["launches"] for ph in paths}
+    by_path["query"] = report["query"]["launches"]  # the default-configuration questions
+    by_path["query_fused"] = report["query"]["runs"]["video_fused"]["launches"]
+    # each kernel's own path: K1/K2 the default ingest, K3/K4 the fused one, K5 the query path
+    own_path = {"flash_mha": "ingest_default", "fused_mlp": "ingest_default",
+                "fused_ln_mlp_residual": "ingest_fused", "flash_mha_bthd": "ingest_fused",
+                "top_k_cosine": "query"}
     kernels = []
     for name, rs in rows.items():
-        head = rs[0]  # the vision-tower shape, the largest launch count
+        head = rs[0]  # the first shape: vision tower (K1-K4), the JAX store scale (K5)
         kernels.append({
             "name": name, "route": "cuda", "source": sources[name], "replaces": replaces[name],
-            "launches": paths[own_path[name]]["launches"][name],
-            "launches_by_path": {ph: paths[ph]["launches"][name] for ph in paths},
+            "launches": by_path[own_path[name]][name],
+            "launches_by_path": {ph: counts.get(name, 0) for ph, counts in by_path.items()},
             "max_abs_err": max(r["max_abs_err"] for r in rs),
             "ms": head["ms"], "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
             "bound_by": head["bound_by"], "library_ms": head["library_ms"], "shapes": rs,

@@ -8,8 +8,10 @@ module's counterpart is found under the same name:
             PyTorch versions, plus the tensor ops of the ingest path
   models/   transformer layers, ImageBind towers, foundation wrappers
   memory/   segmentation, consolidation, the HippocampalMemory engine
-  media/    synthetic clips
-  utils/    device resolution, stage timers
+  retrieval/ feature search, token budgets, dual-pathway QA
+  core/     the query CLI (ask_question)
+  media/    synthetic clips, the JPEG and thumbnail helpers of recall
+  utils/    device resolution, stage timers, token counting
 
 Entry points run on CUDA unless the caller passes device="cpu".
 """

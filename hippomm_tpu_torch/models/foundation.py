@@ -5,7 +5,9 @@ towers:
 
   * ImageBind.encode_vision / encode_audio — fixed-size chunked device
     forwards (a 128-wide bulk tier and a 32-wide tier for vision, as the JAX
-    wrapper, so both packages batch frames the same way)
+    wrapper, so both packages batch frames the same way); encode_text /
+    encode_text_device — tokenizer (CLIP BPE or the hashing fallback) and
+    the text tower, the second leaving the embedding on the device
   * Whisper.transcribe / transcribe_batch / transcribe_async — the Whisper
     transcriber (models/whisper) from a checkpoint, from random weights
     (`random_init`, or variant "tiny"), or the deterministic stub
@@ -24,7 +26,7 @@ import torch
 from hippomm_tpu_torch.config import Config
 from hippomm_tpu_torch.models.clients import ChatClient, make_client
 from hippomm_tpu_torch.models.imagebind import model as ib_model
-from hippomm_tpu_torch.models.imagebind.preprocess import preprocess_audio
+from hippomm_tpu_torch.models.imagebind.preprocess import load_tokenizer, preprocess_audio
 from hippomm_tpu_torch.models.whisper import model as wh_model
 from hippomm_tpu_torch.models.whisper.transcribe import Segment, WhisperTranscriber
 from hippomm_tpu_torch.ops.resize import normalize_nchw, resize_crop_u8
@@ -80,6 +82,13 @@ class ImageBind:
                     model_path,
                 )
             self.params = ib_model.init_imagebind(self.cfg, self.device, dtype, seed)
+        # model_path may be the checkpoint file: the BPE vocab sits next to it
+        tok_dir = model_path
+        if tok_dir and os.path.isfile(tok_dir):
+            tok_dir = os.path.dirname(tok_dir)
+        self.tokenizer = load_tokenizer(
+            tok_dir, vocab_size=self.cfg.vocab_size, context_length=self.cfg.context_length
+        )
 
     @torch.no_grad()
     def _vision_chunk(self, crops_u8: np.ndarray) -> torch.Tensor:
@@ -123,6 +132,20 @@ class ImageBind:
         )
         return fetch(ib_model.audio_forward(self.params, mel, self.cfg, self.dtype), dtype=np.float32)
 
+    def encode_text(self, texts: Sequence[str]) -> np.ndarray:
+        """list[str] -> (N, 1024) fp32 on the host."""
+        if not texts:
+            return np.zeros((0, self.cfg.embed_dim), np.float32)
+        return fetch(self.encode_text_device(texts), dtype=np.float32)
+
+    @torch.no_grad()
+    def encode_text_device(self, texts: Sequence[str]) -> torch.Tensor:
+        """list[str] -> (N, 1024) fp32 tensor left on the device: retrieval
+        feeds it straight into the top-k, so a query reads back only the
+        top-k result."""
+        tokens = torch.from_numpy(self.tokenizer(list(texts))).to(self.device)
+        return ib_model.text_forward(self.params, tokens, self.cfg, self.dtype)
+
     def extract_features(self, inputs: Dict[str, object]) -> Dict[str, np.ndarray]:
         out: Dict[str, np.ndarray] = {}
         if "vision" in inputs:
@@ -130,7 +153,7 @@ class ImageBind:
         if "audio" in inputs:
             out["audio"] = self.encode_audio(np.asarray(inputs["audio"]))
         if "text" in inputs:
-            raise NotImplementedError("the text tower is a later slice of the PyTorch port")
+            out["text"] = self.encode_text(inputs["text"])
         return out
 
 

@@ -1,4 +1,4 @@
-"""ImageBind joint-embedding model in PyTorch (vision / audio towers).
+"""ImageBind joint-embedding model in PyTorch (vision / audio / text towers).
 
 Counterpart of hippomm_tpu/models/imagebind/model.py, same architecture and
 parameter tree (blocks as a per-layer list instead of depth-stacked leaves):
@@ -8,7 +8,9 @@ parameter tree (blocks as a per-layer list instead of depth-stacked leaves):
     pre-LN blocks, CLS pooling, LN+Linear head → 1024
   * audio:  mel(128×204) → Conv2d k16 s10 patchify, ViT-B (768/12/12) with
     bias_kv attention, CLS pooling, LN+Linear head → 1024, logit scale 20
-  * text:   initialised so the tree is whole; its forward is a later slice
+  * text:   CLIP-style causal transformer, width 1024, depth 24, heads 16,
+    context 77, EOS pooling, Linear head → 1024 × exp(logit_scale); its
+    masked attention takes the plain route, its MLP K2 (K3 when fused)
 
 Each patchify convolution is an unfold plus one matmul that returns fp32
 from compute-dtype operands (JAX's preferred_element_type=float32).
@@ -219,3 +221,22 @@ def audio_forward(params: Dict, mel: torch.Tensor, cfg: ImageBindConfig, dtype=t
     if multi_clip:
         x = x.reshape(b_, c_, -1).mean(dim=1)
     return x
+
+
+def text_forward(params: Dict, tokens: torch.Tensor, cfg: ImageBindConfig, dtype=torch.bfloat16) -> torch.Tensor:
+    """tokens: (B, context) int, 0-padded after EOS -> (B, 1024) L2-normalized
+    × exp(logit_scale).
+
+    EOS pooling follows CLIP: the position of each row's largest token id
+    (EOS has the largest id of the vocabulary)."""
+    p = params["text"]
+    tokens = tokens.long()
+    b, t = tokens.shape
+    x = p["token_embedding"][tokens].float() + p["pos_embed"][:, :t].float()
+    causal = torch.triu(torch.full((t, t), float("-inf"), device=x.device), diagonal=1)
+    x = L.stacked_blocks(p["blocks"], x, cfg.text.heads, mask=causal, eps=cfg.text.eps, dtype=dtype)
+    x = L.layer_norm(p["final_ln"], x, cfg.text.eps)
+    eos = torch.argmax(tokens, dim=-1)
+    x = x[torch.arange(b, device=x.device), eos]
+    x = L.matmul_f32(x.to(dtype), p["head_proj"]["weight"].to(dtype))
+    return _l2norm(x) * torch.exp(p["logit_scale"].float())

@@ -26,7 +26,7 @@ from typing import List, Optional
 
 _CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_CSRC), "_build")
-KERNEL_SOURCES = ("flash_mha.cu", "fused_mlp.cu")
+KERNEL_SOURCES = ("flash_mha.cu", "fused_mlp.cu", "topk_cosine.cu")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -111,6 +111,10 @@ def kernels() -> ctypes.CDLL:
         lib.hmm_fused_ln_mlp_residual_bf16.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp,
                                                        i32, i32, i32, f32, vp]
         lib.hmm_fused_ln_mlp_residual_bf16.restype = i32
+        lib.hmm_topk_tile_rows.argtypes = []
+        lib.hmm_topk_tile_rows.restype = i32
+        lib.hmm_topk_cosine_f32.argtypes = [vp, vp, i32, i32, i32, vp, vp, vp, vp, vp]
+        lib.hmm_topk_cosine_f32.restype = i32
         _kernels = lib
         return lib
 

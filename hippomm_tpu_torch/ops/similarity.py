@@ -1,10 +1,14 @@
-"""Cosine similarity + greedy key-frame dedup.
+"""Cosine similarity, top-k search and greedy key-frame dedup.
 
-Counterpart of hippomm_tpu/ops/similarity.py `select_keyframes_mask` and
-`select_keyframes` (the top-k search functions come with the query slice).
-Up to 256 rows the dedup runs on host numpy — a device round trip costs more
-than the N²·D sim matrix; above that, on the device, over a shape-bucketed
-padded stack.
+Counterpart of hippomm_tpu/ops/similarity.py:
+  * `top_k_cosine_prenorm` — normalize + matmul + top-k in plain torch ops
+    (XLA ran it with no hand kernel): the batched search route of
+    retrieval/search.FeatureSearchIndex and its route for k > 128. Its tie
+    order is torch.topk's, which does not promise lax.top_k's lower index
+    first; the single-query route's K5 (ops/topk) does.
+  * `select_keyframes_mask` / `select_keyframes` — up to 256 rows the dedup
+    runs on host numpy (a device round trip costs more than the N²·D sim
+    matrix); above that, on the device, over a shape-bucketed padded stack.
 """
 
 from __future__ import annotations
@@ -28,6 +32,16 @@ def cosine_sim_matrix(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     a = l2_normalize(a.float())
     b = l2_normalize(b.float())
     return a @ b.t()
+
+
+def top_k_cosine_prenorm(query: torch.Tensor, feats_unit: torch.Tensor, k: int):
+    """normalize the query + matmul + top-k over a store whose rows are
+    already unit-norm (normalized once at upload,
+    FeatureSearchIndex._device_feats). query (D,) or (Q, D); feats_unit
+    (N, D). Returns (values, indices), each (..., k), sorted descending."""
+    q = l2_normalize(torch.atleast_2d(query.float()))
+    vals, idx = torch.topk(q @ feats_unit.t(), k, dim=-1)
+    return (vals[0], idx[0]) if query.dim() == 1 else (vals, idx)
 
 
 def select_keyframes_mask(features: torch.Tensor, threshold: float = 0.9, n=None) -> torch.Tensor:

@@ -41,3 +41,4 @@ def fetch(x, dtype=None) -> np.ndarray:
         return x if dtype is None else np.asarray(x, dtype)
     out = x.detach().float().cpu().numpy()
     return out if dtype is None else out.astype(dtype, copy=False)
+

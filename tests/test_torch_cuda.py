@@ -11,6 +11,7 @@ import torch
 
 from hippomm_tpu_torch.ops import flash_attention as tfa
 from hippomm_tpu_torch.ops import fused_mlp as tfm
+from hippomm_tpu_torch.ops import topk as ttk
 
 
 @pytest.fixture
@@ -150,3 +151,85 @@ def test_k3_k4_raise_for_what_they_do_not_take(cuda_device):
     q = torch.zeros((1, 17, 2, 64), device=cuda_device)
     with pytest.raises(NotImplementedError, match="bfloat16"):
         tfa.flash_mha_bthd(q, q, q, 0.125)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,d,f", [(77, 1024, 4096), (616, 1024, 4096)])
+def test_mlp_kernels_at_the_text_tower_shape(cuda_device, n, d, f):
+    """K2 and K3 at D 1024 and the text tower's row counts (77 per question:
+    three 32-row tiles, the last one partial)."""
+    x, gamma, beta, w1, b1, w2, b2 = _mlp_operands(cuda_device, n, d, f, 4)
+    before = (tfm.fused_mlp.launches, tfm.fused_ln_mlp_residual.launches)
+    out2 = tfm.fused_mlp(x, w1, b1, w2, b2)
+    out3 = tfm.fused_ln_mlp_residual(x, gamma, beta, w1, b1, w2, b2, 1e-6)
+    torch.cuda.synchronize()
+    assert (tfm.fused_mlp.launches, tfm.fused_ln_mlp_residual.launches) == (before[0] + 1, before[1] + 1)
+    for out, ref in ((out2, tfm.fused_mlp_ref(x, w1, b1, w2, b2)),
+                     (out3, tfm.fused_ln_mlp_residual_ref(x, gamma, beta, w1, b1, w2, b2, 1e-6))):
+        assert out.shape == (n, d)
+        err = (out.float() - ref.float()).abs().max().item()
+        assert err <= 2e-2 * ref.float().abs().max().item()
+
+
+def _topk_agree(vals, idx, rvals, ridx, tol=1e-5):
+    """Values within tol; indices equal except where the plain version's
+    neighbouring values are closer than tol (an order the two roundings may
+    flip)."""
+    vals, rvals = vals.cpu().double(), rvals.cpu().double()
+    idx, ridx = idx.cpu().long(), ridx.cpu().long()
+    assert (vals - rvals).abs().max().item() <= tol
+    gaps = (rvals[1:] - rvals[:-1]).abs()
+    for j in torch.nonzero(idx != ridx).flatten().tolist():
+        near = [gaps[j - 1].item()] if j > 0 else []
+        near += [gaps[j].item()] if j < len(gaps) else []
+        assert min(near, default=float("inf")) < tol, f"index {j}: {idx[j]} != {ridx[j]}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,k", [(5000, 1), (5000, 40), (5000, 128), (100_003, 128), (700, 128),
+                                 (1074, 128)])
+def test_topk_kernel_matches_plain_on_cuda(cuda_device, n, k):
+    """K5 against its plain version: N not a multiple of the 1024-row tile,
+    k at its ends, a store of one partial tile, and a last tile with fewer
+    rows than k."""
+    g = torch.Generator(device=cuda_device).manual_seed(5)
+    feats = torch.randn((n, 1024), generator=g, device=cuda_device)
+    q = torch.randn((1024,), generator=g, device=cuda_device)
+    before = ttk.top_k_cosine_kernel.launches
+    vals, idx = ttk.top_k_cosine_kernel(q, feats, k)
+    torch.cuda.synchronize()
+    assert ttk.top_k_cosine_kernel.launches == before + 1
+    assert vals.shape == idx.shape == (k,) and idx.dtype == torch.int32
+    _topk_agree(vals, idx, *ttk.top_k_cosine_ref(q, feats, k))
+
+
+@pytest.mark.cuda
+def test_topk_kernel_tie_order_on_cuda(cuda_device):
+    """Equal values: the lower row first, lax.top_k's order. Every row equal
+    makes every candidate a survivor, so the merge's buffer fills and is
+    sorted down more than once; ten distinct rows repeated give ties inside
+    and across tiles."""
+    row = torch.randn((1, 256), device=cuda_device)
+    vals, idx = ttk.top_k_cosine_kernel(row[0], row.expand(20_000, 256).contiguous(), 128)
+    assert torch.equal(idx.cpu(), torch.arange(128, dtype=torch.int32))
+    assert (vals == vals[0]).all()
+    g = torch.Generator(device=cuda_device).manual_seed(6)
+    base = torch.randn((10, 256), generator=g, device=cuda_device)
+    feats = base.repeat(300, 1)
+    q = torch.randn((256,), generator=g, device=cuda_device)
+    vals, idx = ttk.top_k_cosine_kernel(q, feats, 100)
+    rvals, ridx = ttk.top_k_cosine_ref(q, feats, 100)
+    assert torch.equal(idx.cpu(), ridx.cpu())
+    assert (vals - rvals).abs().max().item() <= 1e-5
+
+
+@pytest.mark.cuda
+def test_topk_kernel_contract_on_cuda(cuda_device):
+    feats = torch.zeros((300, 64), device=cuda_device)
+    with pytest.raises(ValueError, match="exceeds kernel contract"):
+        ttk.top_k_cosine_kernel(feats[0], feats, 129)
+    with pytest.raises(ValueError, match="must be in"):
+        ttk.top_k_cosine_kernel(feats[0], feats[:10], 11)
+    with pytest.raises(NotImplementedError, match="D % 4"):
+        odd = torch.zeros((300, 66), device=cuda_device)
+        ttk.top_k_cosine_kernel(odd[0], odd, 5)

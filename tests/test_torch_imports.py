@@ -31,8 +31,15 @@ _MODULES = [
     "hippomm_tpu_torch.ops.silence",
     "hippomm_tpu_torch.ops.mel",
     "hippomm_tpu_torch.ops.similarity",
+    "hippomm_tpu_torch.ops.topk",
     "hippomm_tpu_torch.media.synth",
+    "hippomm_tpu_torch.media.io",
+    "hippomm_tpu_torch.retrieval.budget",
+    "hippomm_tpu_torch.retrieval.search",
+    "hippomm_tpu_torch.retrieval.qa",
+    "hippomm_tpu_torch.core.ask_question",
     "hippomm_tpu_torch.utils.timers",
+    "hippomm_tpu_torch.utils.tokens",
 ]
 
 _PROBE = """
@@ -55,13 +62,14 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
-@pytest.mark.parametrize("entry", ["engine", "imagebind", "whisper"])
+@pytest.mark.parametrize("entry", ["engine", "imagebind", "whisper", "search_index"])
 def test_entry_point_without_device_raises_without_cuda(entry, monkeypatch, tmp_path):
     import torch
 
     from hippomm_tpu_torch.config import Config
     from hippomm_tpu_torch.memory.engine import HippocampalMemory
     from hippomm_tpu_torch.models.foundation import ImageBind, Whisper
+    from hippomm_tpu_torch.retrieval.search import FeatureSearchIndex
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = Config()
@@ -69,7 +77,8 @@ def test_entry_point_without_device_raises_without_cuda(entry, monkeypatch, tmp_
     cfg.models.imagebind_variant = "tiny"
     cfg.storage.base_dir = str(tmp_path)
     make = {"engine": lambda: HippocampalMemory(cfg), "imagebind": lambda: ImageBind(variant="tiny"),
-            "whisper": lambda: Whisper(variant="tiny")}[entry]
+            "whisper": lambda: Whisper(variant="tiny"),
+            "search_index": lambda: FeatureSearchIndex.build([], "vision")}[entry]
     with pytest.raises(RuntimeError, match="no CUDA device"):
         make()
 
