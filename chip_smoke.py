@@ -9,6 +9,12 @@ Phases (any failure exits non-zero and prints no result line):
      PyTorch versions at every shape the ingest and query paths give them,
      in bf16, and K5 (cosine top-k) in fp32 at stores of 2e5 and 1e6 rows;
      kernel, plain and library-call times (CUDA events) beside each bound
+     and its share of it; K2/K3 and their library calls timed over rotating
+     weight sets that overflow the L2 (as each encoder block finds its
+     weights cold), the median of 5 such timings, with their tile plan,
+     CUDA kernels per call, device µs per kernel (torch.profiler), host µs
+     to enqueue a call, and ptxas's registers, spills and shared memory for
+     every kernel of csrc/fused_mlp.cu
   3. towers — the ImageBind-Huge vision and text towers through the
      kernels, in the default and in the fused-block configuration, and the
      Whisper distil-large-v3 encoder through the kernels, each against the
@@ -56,6 +62,7 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 PEAK_BYTES_S = 3.35e12  # H100 SXM HBM3
 PEAK_BF16_FLOP_S = 989e12  # H100 SXM dense bf16 tensor cores
 PEAK_FP32_FLOP_S = 67e12  # H100 SXM fp32 outside the tensor cores
+L2_BYTES = 50e6  # H100 L2 cache
 TEXT_DEPTH = 24  # ImageBind-Huge text blocks: one K2 (or K3) launch each per forward
 WHISPER_DEPTH = 32  # distil-large-v3 encoder blocks: one K1 and one K2 each per batch
 VIDEO_Q = "What color is the moving square?"
@@ -71,19 +78,40 @@ def fail(msg: str, code: int = 1):
     sys.exit(code)
 
 
-def cuda_ms(fn, iters: int = 10, warmup: int = 2) -> float:
+def cuda_ms(fn, iters: int = 10, warmup: int = 2, repeats: int = 1) -> float:
+    """Mean ms per launch over `iters` launches after `warmup`, CUDA events;
+    with `repeats` > 1, the median of that many such means (a call whose
+    time is the host's, as at the text tower's rows, then reads past the
+    host's passing stalls). `fn` may be a list of closures over distinct
+    operand sets, called in turn (iters and warmup rounded up to whole
+    turns)."""
+    import statistics
+
     import torch
 
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+    fns = fn if isinstance(fn, list) else [fn]
+    turns = -(-iters // len(fns))
+    for i in range(max(warmup, len(fns))):
+        fns[i % len(fns)]()
+    means = []
+    for _ in range(repeats):
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(turns):
+            for f in fns:
+                f()
+        end.record()
+        torch.cuda.synchronize()
+        means.append(start.elapsed_time(end) / (turns * len(fns)))
+    return statistics.median(means)
+
+
+def operand_sets(make, weight_bytes: float):
+    """Enough operand sets from `make()` that a turn of one launch per set
+    reads 1.3× the 50 MB L2 in weights: each launch finds its weights cold,
+    as each encoder block of a tower does (its own weights)."""
+    return [make() for _ in range(max(1, math.ceil(1.3 * L2_BYTES / weight_bytes)))]
 
 
 def bound(nbytes: float, flops: float, peak_flop_s: float = PEAK_BF16_FLOP_S):
@@ -117,71 +145,108 @@ def check_attention(fa, shape, gen):
     }
 
 
-def check_mlp(fm, shape, gen):
+def mlp_operands(shape, gen, ln: bool):
+    """x, (gamma, beta,) w1, b1, w2, b2 of one K2 (ln False) or K3 call."""
     import torch
-    import torch.nn.functional as F
 
     n, d, f = shape
     dev = torch.device("cuda")
     x = torch.randn((n, d), generator=gen, device=dev).to(torch.bfloat16)
+    norm = (1.0 + 0.1 * torch.randn((d,), generator=gen, device=dev),
+            0.1 * torch.randn((d,), generator=gen, device=dev)) if ln else ()
     w1 = (torch.randn((f, d), generator=gen, device=dev) / math.sqrt(d)).to(torch.bfloat16)
     b1 = 0.1 * torch.randn((f,), generator=gen, device=dev)
     w2 = (torch.randn((d, f), generator=gen, device=dev) / math.sqrt(f)).to(torch.bfloat16)
     b2 = 0.1 * torch.randn((d,), generator=gen, device=dev)
-    out = fm.fused_mlp(x, w1, b1, w2, b2)
-    torch.cuda.synchronize()
-    ref = fm.fused_mlp_ref(x, w1, b1, w2, b2)
-    err = (out.float() - ref.float()).abs().max().item()
-    rel = err / max(ref.float().abs().max().item(), 1e-30)
-    if not math.isfinite(rel) or rel > 2e-2:
-        fail(f"fused_mlp {shape}: max abs err {err} is {rel:.3g} of max|out| > 2e-2")
-    b1h, b2h = b1.to(torch.bfloat16), b2.to(torch.bfloat16)
-    b_ms, b_by = bound(2 * (2 * n * d + 2 * d * f) + 4 * (f + d), 4 * n * d * f)
-    return {
-        "shape": list(shape), "max_abs_err": err, "rel_err": rel,
-        "ms": cuda_ms(lambda: fm.fused_mlp(x, w1, b1, w2, b2)),
-        "plain_ms": cuda_ms(lambda: fm.fused_mlp_ref(x, w1, b1, w2, b2), iters=3, warmup=1),
-        "library_ms": cuda_ms(lambda: F.linear(F.gelu(F.linear(x, w1, b1h)), w2, b2h)),
-        "bound_ms": b_ms, "bound_by": b_by,
-    }
+    return (x, *norm, w1, b1, w2, b2)
 
 
-def check_ln_mlp(fm, shape, gen):
+def check_mlp_kernel(fm, shape, gen, ln: bool):
+    """K2 (ln False) or K3 against its plain version on one operand set,
+    then kernel, plain and library times cycling through weight sets that
+    overflow the L2 (each launch finds its weights cold, as on the path)."""
     import torch
     import torch.nn.functional as F
 
     n, d, f = shape
-    dev = torch.device("cuda")
-    x = torch.randn((n, d), generator=gen, device=dev).to(torch.bfloat16)
-    gamma = 1.0 + 0.1 * torch.randn((d,), generator=gen, device=dev)
-    beta = 0.1 * torch.randn((d,), generator=gen, device=dev)
-    w1 = (torch.randn((f, d), generator=gen, device=dev) / math.sqrt(d)).to(torch.bfloat16)
-    b1 = 0.1 * torch.randn((f,), generator=gen, device=dev)
-    w2 = (torch.randn((d, f), generator=gen, device=dev) / math.sqrt(f)).to(torch.bfloat16)
-    b2 = 0.1 * torch.randn((d,), generator=gen, device=dev)
-    args = (x, gamma, beta, w1, b1, w2, b2, 1e-6)
-    out = fm.fused_ln_mlp_residual(*args)
+    name = "fused_ln_mlp_residual" if ln else "fused_mlp"
+    kernel = fm.fused_ln_mlp_residual if ln else fm.fused_mlp
+    plain = fm.fused_ln_mlp_residual_ref if ln else fm.fused_mlp_ref
+    tail = (1e-6,) if ln else ()
+    sets = operand_sets(lambda: mlp_operands(shape, gen, ln), 4 * d * f)
+    out = kernel(*sets[0], *tail)
     torch.cuda.synchronize()
-    ref = fm.fused_ln_mlp_residual_ref(*args)
+    ref = plain(*sets[0], *tail)
     err = (out.float() - ref.float()).abs().max().item()
     rel = err / max(ref.float().abs().max().item(), 1e-30)
     if not math.isfinite(rel) or rel > 2e-2:
-        fail(f"fused_ln_mlp_residual {shape}: max abs err {err} is {rel:.3g} of max|out| > 2e-2")
-    g16, bt16, b1h, b2h = (t.to(torch.bfloat16) for t in (gamma, beta, b1, b2))
+        fail(f"{name} {shape}: max abs err {err} is {rel:.3g} of max|out| > 2e-2")
 
-    def library():
-        h = F.layer_norm(x, (d,), g16, bt16, 1e-6)
-        return x + F.linear(F.gelu(F.linear(h, w1, b1h)), w2, b2h)
+    def library(x, *rest):
+        # the cuBLAS chain in bf16 (biases and the LN affine cast to bf16)
+        g16, bt16, w1, b1h, w2, b2h = rest if ln else (None, None, *rest)
+        h = F.layer_norm(x, (d,), g16, bt16, 1e-6) if ln else x
+        y = F.linear(F.gelu(F.linear(h, w1, b1h)), w2, b2h)
+        return x + y if ln else y
 
+    lib_args = [tuple(t.to(torch.bfloat16) if t.dtype == torch.float32 else t for t in s) for s in sets]
     # x read and out written once, W1 and W2 once, the (D,)/(F,) vectors once
-    b_ms, b_by = bound(2 * (2 * n * d + 2 * d * f) + 4 * (f + 3 * d), 4 * n * d * f)
-    return {
-        "shape": list(shape), "max_abs_err": err, "rel_err": rel,
-        "ms": cuda_ms(lambda: fm.fused_ln_mlp_residual(*args)),
-        "plain_ms": cuda_ms(lambda: fm.fused_ln_mlp_residual_ref(*args), iters=3, warmup=1),
-        "library_ms": cuda_ms(library),
+    b_ms, b_by = bound(2 * (2 * n * d + 2 * d * f) + 4 * (f + (3 if ln else 1) * d), 4 * n * d * f)
+    plan = fm._plan(n, d, f)
+    row = {
+        "shape": list(shape), "max_abs_err": err, "rel_err": rel, "operand_sets": len(sets),
+        "plan": plan._asdict(), "kernels_per_call": fm.kernels_per_call(plan, ln),
+        "ms": cuda_ms([lambda s=s: kernel(*s, *tail) for s in sets], repeats=5),
+        "plain_ms": cuda_ms([lambda s=s: plain(*s, *tail) for s in sets], iters=3, warmup=1),
+        "library_ms": cuda_ms([lambda a=a: library(*a) for a in lib_args], repeats=5),
         "bound_ms": b_ms, "bound_by": b_by,
     }
+    row["pct_of_bound"] = 100.0 * b_ms / row["ms"]
+    row["device_us"] = device_us([lambda s=s: kernel(*s, *tail) for s in sets])
+    row["host_us"] = host_us([lambda s=s: kernel(*s, *tail) for s in sets])
+    return row
+
+
+def host_us(fns, turns: int = 10) -> float:
+    """Mean host µs to enqueue one call (no synchronize inside the turns):
+    the wrapper's Python, ctypes and launches. Where it exceeds the device
+    µs, the event-timed ms is the host's."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(turns):
+        for f in fns:
+            f()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) * 1e6 / (turns * len(fns))
+
+
+def device_us(fns, turns: int = 3):
+    """Mean device µs per call of each CUDA kernel the calls launch (short
+    names), from torch.profiler over `turns` turns of `fns`; their sum beside
+    the event-timed ms shows the host's share. None if the profiler records
+    no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for f in fns:
+        f()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(turns):
+            for f in fns:
+                f()
+        torch.cuda.synchronize()
+    calls, out = turns * len(fns), {}
+    for e in prof.key_averages():
+        us = getattr(e, "device_time_total", 0.0)
+        if us > 0 and "(" in e.key:
+            name = e.key.replace("(anonymous namespace)::", "").replace("void ", "").split("(")[0]
+            name = name.split("::")[-1]
+            out[name] = out.get(name, 0.0) + us / calls
+    return out or None
 
 
 def check_attention_bthd(fa, shape, gen):
@@ -257,6 +322,36 @@ def check_topk(ttk, shape, gen):
         "library_ms": cuda_ms(lambda: torch.topk(feats @ qn, k)),
         "bound_ms": b_ms, "bound_by": b_by,
     }
+
+
+_EPILOGUES = {"0": "gelu", "1": "bias", "2": "bias+residual", "3": "fp32 partial"}
+
+
+def mlp_build_report(native):
+    """Registers, spills and shared memory of each kernel of csrc/fused_mlp.cu,
+    from ptxas -v in the build log; a GEMM pass's dynamic shared memory
+    from the library (its ring at that tile width)."""
+    import re
+
+    log = native.build_log.split("== fused_mlp.cu\n", 1)[-1].split("\n== ", 1)[0]
+    out = []
+    for block in log.split("Compiling entry function '")[1:]:
+        mangled = block.split("'", 1)[0]
+        gemm = re.search(r"gemm_tnILi(\d+)ELi(\d+)E", mangled)
+        kind = re.search(r"\d+(layer_norm_rows|splitk_reduce)E", mangled)
+        used = re.search(r"Used (\d+) registers", block)
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", block)
+        smem = re.search(r"(\d+) bytes smem", block)
+        out.append({
+            "kernel": (f"gemm_tn<BN {gemm.group(1)}, {_EPILOGUES[gemm.group(2)]}>" if gemm
+                       else kind.group(1) if kind else mangled),
+            "registers": int(used.group(1)) if used else None,
+            "spill_stores": int(spill.group(1)) if spill else None,
+            "spill_loads": int(spill.group(2)) if spill else None,
+            "static_smem": int(smem.group(1)) if smem else 0,
+            "dynamic_smem": native.kernels().hmm_fused_mlp_smem_bytes(int(gemm.group(1))) if gemm else 0,
+        })
+    return out
 
 
 def set_fused_flags(fa, fm, on: bool) -> None:
@@ -604,10 +699,10 @@ def main() -> int:
         "flash_mha": [check_attention(fa, s, gen) for s in (
             (32, 16, 257, 257, 80), (96, 12, 229, 230, 64), (4, 20, 1500, 1500, 64))],
         # ... and the text tower: one question (77 rows), a batch of 8 (616)
-        "fused_mlp": [check_mlp(fm, s, gen) for s in (
+        "fused_mlp": [check_mlp_kernel(fm, s, gen, False) for s in (
             (8224, 1280, 5120), (21984, 768, 3072), (6000, 1280, 5120), (77, 1024, 4096),
             (616, 1024, 4096))],
-        "fused_ln_mlp_residual": [check_ln_mlp(fm, s, gen) for s in (
+        "fused_ln_mlp_residual": [check_mlp_kernel(fm, s, gen, True) for s in (
             (8224, 1280, 5120), (21984, 768, 3072), (77, 1024, 4096), (616, 1024, 4096))],
         "flash_mha_bthd": [check_attention_bthd(fa, (32, 257, 16, 80), gen)],
         # the JAX package's store scale, search's first round, and 1e6 rows
@@ -618,9 +713,21 @@ def main() -> int:
     torch.cuda.empty_cache()
     for name, rs in rows.items():
         for r in rs:
+            r.setdefault("pct_of_bound", 100.0 * r["bound_ms"] / r["ms"])
+            extra = (f"; {r['kernels_per_call']} CUDA kernels per call, plan {r['plan']}, "
+                     f"{r['operand_sets']} rotating operand sets, device µs per call "
+                     f"{ {k: round(v, 2) for k, v in (r['device_us'] or {}).items()} }, "
+                     f"host µs per call {r['host_us']:.1f}"
+                     if "plan" in r else "")
             print(f"{name} {r['shape']}: err {r['max_abs_err']:.3g} kernel {r['ms']:.4f} ms "
                   f"plain {r['plain_ms']:.4f} ms library {r['library_ms']:.4f} ms "
-                  f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})", flush=True)
+                  f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}), {r['pct_of_bound']:.1f} % of "
+                  f"bound{extra}", flush=True)
+    report["fused_mlp_build"] = mlp_build_report(_native)
+    for k in report["fused_mlp_build"]:
+        print(f"build fused_mlp.cu {k['kernel']}: {k['registers']} registers, {k['spill_stores']} / "
+              f"{k['spill_loads']} bytes spill stores / loads, {k['static_smem']} bytes static and "
+              f"{k['dynamic_smem']} bytes dynamic shared memory", flush=True)
 
     cfg = Config()
     cfg.api.mode = "stub"
@@ -861,7 +968,8 @@ def main() -> int:
             "launches_by_path": {ph: counts.get(name, 0) for ph, counts in by_path.items()},
             "max_abs_err": max(r["max_abs_err"] for r in rs),
             "ms": head["ms"], "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
-            "bound_by": head["bound_by"], "library_ms": head["library_ms"], "shapes": rs,
+            "bound_by": head["bound_by"], "library_ms": head["library_ms"],
+            "pct_of_bound": head["pct_of_bound"], "shapes": rs,
         })
     report["kernels"] = kernels
     os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)

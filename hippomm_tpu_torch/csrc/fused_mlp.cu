@@ -4,50 +4,67 @@
 //
 // K2 replaces the Pallas TPU kernel `_mlp_kernel` in
 // hippomm_tpu/ops/fused_mlp.py (reached through `fused_mlp` /
-// `fused_mlp_vjp`). As there, the (N, F) hidden activation — the largest
-// tensor of an encoder block — never exists in device memory: each block
-// owns a 32-row tile of x and walks the hidden dim in 128-wide chunks. Per
-// chunk it computes the fc1 slice in registers, adds b1, rounds to bf16 (the
-// cast-before-GELU of models/layers.py mlp), applies the exact erf GELU
-// (CUDA has erff; the TPU kernel's Abramowitz–Stegun and polynomial erfs
-// existed only because Mosaic has none), parks the bf16 chunk in shared
-// memory, and accumulates its fc2 partial into a (32, D) fp32 accumulator
-// kept in shared memory. After the last chunk it adds b2 and writes bf16
-// once.
+// `fused_mlp_vjp`); K3 replaces `_ln_mlp_kernel` of the same file (reached
+// through `fused_ln_mlp_residual`), the encoder block's x + mlp(ln_2(x)).
 //
-// K3 replaces the half-block kernel `_ln_mlp_kernel` of the same file
-// (reached through `fused_ln_mlp_residual`): the encoder block's
-// x + mlp(ln_2(x)) as one pass, so neither the LN output nor the MLP output
-// reaches device memory. The TPU kernel keeps the LN'd tile resident in
-// VMEM; here the (32, D) fp32 accumulator already takes 160 KB of the 227 KB
-// a block may use at D 1280, and a resident (32, D) bf16 tile (80 KB) would
-// not fit. K3 therefore runs K2's schedule with two additions: a prologue
-// that computes each row's mean and rstd in fp32 (two passes over the row,
-// as the TPU kernel) into 32 × 2 floats of shared memory, and an in-place
-// normalisation of every X slice after its cp.async lands — each thread
-// normalises the 16 bytes it copied itself, so the stage's existing barrier
-// publishes them: y = (x − μ)·rstd·γ + β in fp32, rounded to bf16 (the TPU
-// kernel's `t_ref[...] = y.astype(dt)`). That repeats per hidden chunk, a
-// few elementwise operations per element against 2·128 multiply-adds. The
-// epilogue rounds acc + b2 to bf16 and adds x, read again from device
-// memory, in bf16 — the TPU kernel's order.
+// Bound on the H100. 4·N·D·F flops against N·D·4 + D·F·4 bytes: at the
+// ingest shapes (N in the thousands) the tensor cores bound it (0.218 ms for
+// the ViT-H tower's (8224, 1280, 5120) at 989 TF/s); at the text tower's
+// 77 rows the 16.8 MB weight read bounds it (0.0051 ms at 3.35 TB/s).
 //
-// Bound on the H100: 4·N·D·F flops (216 GFLOP for the ViT-H tower at 32
-// frames) against ~N·D·4 + D·F·4 bytes — far above the ~295 flops per byte
-// where bf16 tensor cores, not memory, are the limit: compute-bound. What
-// holds this design back instead is L2: the 32-row tile is what the fp32
-// accumulator allows (32 × 1280 × 4 B = 160 KB of the 227 KB a block may
-// hold; 64 rows would not fit), so every row tile streams all of W1 and W2
-// (26 MB bf16 at ViT-H, resident in the 50 MB L2) once. The weights flow
-// through a two-stage cp.async ring of 64-wide slices while the previous
-// slice feeds mma.sync m16n8k16 (bf16 in, fp32 accumulate) via ldmatrix.
-// Splitting D across a thread-block cluster (bigger row tiles, less L2
-// traffic) is the next step.
+// Why the hidden goes through device memory. The TPU kernel kept the (N, F)
+// hidden in VMEM because its exact-erf GELU ran on the VPU in series with the
+// MXU and the hidden was hundreds of MB of HBM there. On the H100 a block
+// cannot hold a (rows, D) fp32 accumulator beside a weight ring at a row tile
+// large enough to read each weight tile once per 128 rows, and the hidden's
+// round trip is cheap beside the tensor-core work: at the vision shape the
+// (8224, 5120) bf16 hidden is 84 MB, written once and read once (168 MB,
+// 0.050 ms of HBM time), against about 0.11 ms of tensor-core work per GEMM
+// pass. So one call is two GEMM passes, each a "TN" product whose operands
+// are both K-major exactly as stored:
+//   pass 1 (fc1): H = gelu(bf16(x·W1ᵀ + b1)) in bf16   — A x (or t), B W1 (F, D)
+//   pass 2 (fc2): out = bf16(H·W2ᵀ + b2) [+ x for K3]   — A H,        B W2 (D, F)
+// with the MLP's elementwise work fused into each pass's epilogue, in
+// registers. K3 first writes t = bf16(LN(x)) with a row kernel (one warp per
+// row, fp32 mean then mean of squared deviations), and its pass 2 re-reads x
+// for the residual (2 × 21 MB at vision, about 0.013 ms).
 //
-// Requirements (checked by the wrappers): N a multiple of 32 (the wrappers
-// pad), D and F multiples of 128, D ≤ 1280, all tensors contiguous and
-// 16-byte aligned; x, W1, W2 bf16; b1, b2, γ, β fp32.
+// Each pass is one persistent, warp-specialised kernel (`gemm_tn`):
+//   * one producer thread issues TMA loads (cp.async.bulk.tensor) of
+//     128-byte-swizzled (128 × 64) A and (BN × 64) B tiles into a ring of 6
+//     (BN 128) or 8 (BN 32) stages with full/empty mbarriers; rows past N
+//     are zero-filled by TMA, so the wrapper neither pads nor slices;
+//   * two consumer warpgroups take turns (ping-pong): each owns whole
+//     128 × BN output tiles and issues wgmma.mma_async with both operands
+//     from shared memory and fp32 accumulators in registers, one k-step's
+//     group in flight while the previous stage is released; one warpgroup's
+//     epilogue (the erf-GELU of pass 1 is the heavy one) overlaps the other's
+//     products, and writes 16 bytes a lane (a 4 × 4 shuffle transpose in each
+//     quad of lanes turns the wgmma layout's 4-byte pairs into rows of 8);
+//   * setmaxnreg moves registers from the producer (40) to the consumers
+//     (232), so a 128 × 128 fp32 tile lives in one warpgroup's registers;
+//   * at most one block per SM walks the output tiles, so the producer loads
+//     the next tile while the consumers finish this one.
+// Tile plans, chosen by the wrapper (ops/fused_mlp._plan) from (N, D, F):
+//   * ingest shapes: 128 × 128 tiles in both passes (2600 and 650 at vision:
+//     19.7 and 4.9 tiles for each of 132 blocks);
+//   * small N (the text tower, 77 rows) is bytes-bound, so the weight read is
+//     spread over about one wave: pass 1 narrows BN (32 at 77 rows: 128
+//     blocks over F 4096), and pass 2 splits K over F (16 slices at 77 rows,
+//     4 at 616), each block writing an fp32 partial of its F-slice to a
+//     workspace that `splitk_reduce` sums, adding b2, rounding and adding x.
+// CUDA kernels per call: K2 2 (3 with split-K), K3 3 (4 with split-K).
+//
+// TMA descriptors are built on the host per call with cuTensorMapEncodeTiled,
+// reached through the runtime's cudaGetDriverEntryPoint (no -lcuda), and
+// passed as __grid_constant__ kernel parameters.
+//
+// Requirements (checked by the wrappers): N ≥ 8, D and F multiples of 128,
+// all tensors contiguous and 16-byte aligned; x, W1, W2 bf16; b1, b2, γ, β
+// fp32; the hidden (N, F) bf16, K3's t (N, D) bf16 and the split-K partials
+// (splits, N, D) fp32 are workspaces the wrapper allocates.
 
+#include <cuda.h>  // CUtensorMap and its enums; the encoder comes from the runtime
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -56,40 +73,172 @@
 
 namespace {
 
-constexpr int kBM = 32;       // rows per block
-constexpr int kBF = 128;      // hidden chunk
-constexpr int kSL = 64;       // slice width of every pipeline stage
-constexpr int kThreads = 256;  // 8 warps
-constexpr int kXLD = kSL + 8;  // padded rows of the fc1 stage tiles (bf16)
-constexpr int kWLD = kBF + 8;  // padded rows of the fc2 stage tile and of G (bf16)
-constexpr int kStageBytes = (kBM + kBF) * kXLD * 2;  // X slice + W1 slice ≥ W2 slice
-constexpr int kGBytes = kBM * kWLD * 2;
-constexpr int kStatBytes = kBM * 2 * 4;  // K3: mean and rstd per row
+constexpr int kBM = 128;                    // rows per tile (two m64 products)
+constexpr int kBK = 64;                     // K per stage: one 128-byte swizzle row of bf16
+constexpr int kConsumers = 2;               // consumer warpgroups
+constexpr int kThreads = 128 * (kConsumers + 1);
+constexpr int kRingBudget = 196 * 1024;     // shared memory for the ring
+constexpr int kBN2 = 128;                   // pass 2's tile width
 
-__host__ __device__ inline int acc_ld(int d) { return d + 8; }  // ≡ 8 (mod 32): no float2 conflicts
-__host__ __device__ inline int acc_bytes(int d) { return kBM * acc_ld(d) * 4; }
+enum Epilogue { kGelu, kBias, kBiasResidual, kPartial };
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+__host__ __device__ constexpr int stage_bytes(int bn) { return (kBM + bn) * kBK * 2; }
+__host__ __device__ constexpr int ring_stages(int bn) {
+  return kRingBudget / stage_bytes(bn) < 8 ? kRingBudget / stage_bytes(bn) : 8;
+}
+// ring + full/empty barriers + slack to align the ring to 1024 bytes (128B swizzle)
+__host__ __device__ constexpr int smem_bytes(int bn) {
+  return ring_stages(bn) * stage_bytes(bn) + 2 * ring_stages(bn) * 8 + 1024;
+}
+
+struct GemmArgs {
+  int m, n, k;                  // C (m, n) = A (m, k) · B (n, k)ᵀ
+  int splits;                   // K slices; > 1 only with kPartial
+  const float* bias;            // (n,) fp32
+  const __nv_bfloat16* resid;   // (m, n) bf16, kBiasResidual
+  void* out;                    // (m, n) bf16, or (splits, m, n) fp32 for kPartial
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(dst)), "l"(src));
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
 }
 
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
+__device__ __forceinline__ bool mbar_try_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
   asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+      "{\n.reg .pred p;\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(done)
+      : "r"(bar), "r"(parity)
+      : "memory");
+  return done != 0;
+}
+
+// waits for the phase of parity `parity` to complete; a phase that never
+// completes (a fault in the pipeline) traps after about 2^33 cycles (~5 s)
+// instead of hanging the card
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  if (mbar_try_wait(bar, parity)) return;
+  const long long start = clock64();
+  while (!mbar_try_wait(bar, parity)) {
+    if (clock64() - start > (1ll << 33)) __trap();
+  }
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+// 2-D TMA load of the box at (c0 = column, c1 = row) into shared memory
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, int c0, int c1,
+                                         uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3}], [%4];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(bar)
+      : "memory");
+}
+
+// wgmma descriptor of a K-major tile with 128-byte rows, 128B-swizzled as
+// TMA wrote it: start address, leading offset 16 B (unused when swizzled),
+// stride 1024 B between 8-row groups, layout type 1 (128B swizzle)
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) | ((uint64_t)(1024 >> 4) << 32) |
+         ((uint64_t)1 << 62);
+}
+
+// named barriers 1 and 2: "warpgroup 0's turn" and "warpgroup 1's turn" of
+// the ping-pong schedule, each completed by one warpgroup arriving and the
+// other syncing (256 threads)
+constexpr int kTurnBarrier = 1;
+__device__ __forceinline__ void named_barrier_sync(int id) {
+  asm volatile("bar.sync %0, 256;\n" ::"r"(id) : "memory");
+}
+__device__ __forceinline__ void named_barrier_arrive(int id) {
+  asm volatile("bar.arrive %0, 256;\n" ::"r"(id) : "memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// keeps the compiler from moving accumulator registers across the
+// asynchronous wgmma that owns them
+template <int N>
+__device__ __forceinline__ void fence_acc(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// wgmma.mma_async m64nNk16, bf16 × bf16 → fp32, both operands from shared
+// memory (K-major, no transpose), accumulating into d
+__device__ __forceinline__ void wgmma_m64n32(float (&d)[16], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_m64n128(float (&d)[64], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+template <int BN>
+__device__ __forceinline__ void wgmma_tile(float (&d)[BN / 2], uint64_t da, uint64_t db) {
+  if constexpr (BN == 128) {
+    wgmma_m64n128(d, da, db);
+  } else {
+    static_assert(BN == 32, "tile widths: 32, 128");
+    wgmma_m64n32(d, da, db);
+  }
+}
+
+// 4 × 4 transpose across the four lanes of a quad (lanes 4k .. 4k + 3): lane
+// q's v[t] becomes lane t's v[q] (two butterfly exchanges)
+__device__ __forceinline__ void quad_transpose(uint32_t (&v)[4], int q) {
+#pragma unroll
+  for (int m = 2; m >= 1; m >>= 1) {
+    uint32_t o[4];
+#pragma unroll
+    for (int t = 0; t < 4; ++t) o[t] = __shfl_xor_sync(0xffffffffu, v[t ^ m], m);
+#pragma unroll
+    for (int t = 0; t < 4; ++t) v[t] = ((t ^ q) & m) ? o[t] : v[t];
+  }
 }
 
 __device__ __forceinline__ float bf16_round(float x) {
@@ -100,249 +249,400 @@ __device__ __forceinline__ float gelu_erf(float x) {
   return 0.5f * x * (1.0f + erff(x * 0.70710678118654752f));
 }
 
+// One GEMM pass: C = A·Bᵀ over the output tiles this block takes (local
+// tile i is tile blockIdx.x + i·gridDim.x, tile t = ((split · m_tiles) + mt)
+// · n_tiles + nt), with EPI's elementwise tail. Warpgroups 0-1 consume,
+// warpgroup 2's first thread produces. Ping-pong: consumer warpgroup w takes
+// local tiles w, w + 2, ..., all 128 rows of each (two m64 products per k16
+// step), so one warpgroup's epilogue runs while the other's products keep
+// the tensor cores busy. Local tile i's k-steps take ring slots i·ksteps ..
+// i·ksteps + ksteps − 1, so both warpgroups walk one ring in the producer's
+// order, taking turns (named barriers) to start their tiles' waits on it.
+template <int BN, int EPI>
+__global__ void __launch_bounds__(kThreads, 1)
+gemm_tn(const __grid_constant__ CUtensorMap ta, const __grid_constant__ CUtensorMap tb,
+        const GemmArgs args) {
+  static_assert(BN <= 128, "a warpgroup holds its 128 × BN fp32 tile in registers");
+  constexpr int kStages = ring_stages(BN);
+  constexpr int kStageA = kBM * kBK * 2;
+  constexpr int kStage = stage_bytes(BN);
+  constexpr int kMma = kBM / 64;  // m64 products per k16 step
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t ring = (smem_u32(smem_raw) + 1023) & ~1023u;
+  const uint32_t full = ring + kStages * kStage;  // kStages × 8 bytes
+  const uint32_t empty = full + kStages * 8;
+
+  const int m_tiles = (args.m + kBM - 1) / kBM, n_tiles = args.n / BN;
+  const int tiles = m_tiles * n_tiles * args.splits;
+  const int ksteps = args.k / kBK / args.splits;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, 4);  // one arrival per warp of the consuming warpgroup
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == kConsumers) {
+    // producer: one thread keeps the ring full
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (threadIdx.x == kConsumers * 128) {
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+        const int split = tile / (m_tiles * n_tiles), rest = tile % (m_tiles * n_tiles);
+        const int row0 = (rest / n_tiles) * kBM, col0 = (rest % n_tiles) * BN;
+        const int kstep0 = split * ksteps;
+        for (int kk = 0; kk < ksteps; ++kk) {
+          mbar_wait(empty + 8 * stage, phase ^ 1);
+          mbar_expect_tx(full + 8 * stage, kStage);
+          const uint32_t a = ring + stage * kStage;
+          tma_load(a, &ta, (kstep0 + kk) * kBK, row0, full + 8 * stage);
+          tma_load(a + kStageA, &tb, (kstep0 + kk) * kBK, col0, full + 8 * stage);
+          if (++stage == kStages) {
+            stage = 0;
+            phase ^= 1;
+          }
+        }
+      }
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+    const int t = threadIdx.x % 128, warp = t / 32, lane = t % 32;
+    const bool signal = lane == 0;
+    float acc[kMma][BN / 2];
+    for (int i = wg;; i += kConsumers) {
+      const int tile = blockIdx.x + i * gridDim.x;
+      if (tile >= tiles) break;
+      const int split = tile / (m_tiles * n_tiles), rest = tile % (m_tiles * n_tiles);
+      const int row0 = (rest / n_tiles) * kBM, col0 = (rest % n_tiles) * BN;
+#pragma unroll
+      for (int mi = 0; mi < kMma; ++mi) {
+#pragma unroll
+        for (int e = 0; e < BN / 2; ++e) acc[mi][e] = 0.0f;
+      }
+      // wait for the other warpgroup to finish waiting on the ring slots of
+      // local tile i − 1, so that every full barrier this tile waits on is at
+      // most one phase behind (a parity wait cannot tell phases two apart)
+      if (i > 0) named_barrier_sync(kTurnBarrier + wg);
+      int prev = -1;
+      for (int kk = 0; kk < ksteps; ++kk) {
+        const int slot = i * ksteps + kk;
+        const int stage = slot % kStages;
+        mbar_wait(full + 8 * stage, (slot / kStages) & 1);
+        const uint32_t a = ring + stage * kStage;
+        const uint64_t db = smem_desc(a + kStageA);
+        wgmma_fence();
+#pragma unroll
+        for (int mi = 0; mi < kMma; ++mi) fence_acc(acc[mi]);
+#pragma unroll
+        for (int k16 = 0; k16 < kBK / 16; ++k16) {
+#pragma unroll
+          for (int mi = 0; mi < kMma; ++mi) {
+            const uint64_t da = smem_desc(a + mi * 64 * 128);
+            wgmma_tile<BN>(acc[mi], da + 2 * k16, db + 2 * k16);
+          }
+        }
+        wgmma_commit();
+#pragma unroll
+        for (int mi = 0; mi < kMma; ++mi) fence_acc(acc[mi]);
+        wgmma_wait<1>();  // the previous k-step's products are done: free its stage
+        if (prev >= 0 && signal) mbar_arrive(empty + 8 * prev);
+        prev = stage;
+      }
+      // the other warpgroup's next tile may start waiting on the ring
+      named_barrier_arrive(kTurnBarrier + (wg ^ 1));
+      wgmma_wait<0>();
+#pragma unroll
+      for (int mi = 0; mi < kMma; ++mi) fence_acc(acc[mi]);
+      if (signal) mbar_arrive(empty + 8 * prev);
+
+      // epilogue: acc[mi][4j + 2h + e] is row mi·64 + 16·warp + lane/4 + 8h,
+      // column 8j + 2·(lane%4) + e of the tile
+      const int q = lane % 4;
+#pragma unroll
+      for (int mi = 0; mi < kMma; ++mi) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int row = row0 + mi * 64 + warp * 16 + lane / 4 + 8 * h;
+          if constexpr (EPI == kPartial) {
+            if (row >= args.m) continue;
+            float* out = static_cast<float*>(args.out) + ((int64_t)split * args.m + row) * args.n;
+#pragma unroll
+            for (int j = 0; j < BN / 8; ++j) {
+              *reinterpret_cast<float2*>(out + col0 + 8 * j + 2 * q) =
+                  make_float2(acc[mi][4 * j + 2 * h], acc[mi][4 * j + 2 * h + 1]);
+            }
+          } else {
+#pragma unroll
+            for (int g = 0; g < BN / 32; ++g) {
+              // columns 8(4g + t) + 2q, +1 for t = 0..3, rounded to bf16 pairs
+              uint32_t v[4];
+#pragma unroll
+              for (int t = 0; t < 4; ++t) {
+                const int j = 4 * g + t;
+                const float2 bias =
+                    *reinterpret_cast<const float2*>(args.bias + col0 + 8 * j + 2 * q);
+                const float v0 = acc[mi][4 * j + 2 * h] + bias.x;
+                const float v1 = acc[mi][4 * j + 2 * h + 1] + bias.y;
+                // pass 1: + b1 → bf16 → exact GELU → bf16, the reference's casts
+                const __nv_bfloat162 y =
+                    EPI == kGelu ? __floats2bfloat162_rn(gelu_erf(bf16_round(v0)), gelu_erf(bf16_round(v1)))
+                                 : __floats2bfloat162_rn(v0, v1);
+                v[t] = *reinterpret_cast<const uint32_t*>(&y);
+              }
+              quad_transpose(v, q);  // now columns 8(4g + q) .. + 7: one 16-byte store
+              if (row >= args.m) continue;
+              const int64_t at = (int64_t)row * args.n + col0 + 8 * (4 * g + q);
+              if constexpr (EPI == kBiasResidual) {
+                // residual in bf16: cast, then add, as x + mlp(ln(x)).astype(bf16)
+                const uint4 raw = *reinterpret_cast<const uint4*>(args.resid + at);
+                const uint32_t xs[4] = {raw.x, raw.y, raw.z, raw.w};
+#pragma unroll
+                for (int t = 0; t < 4; ++t) {
+                  const __nv_bfloat162 x = *reinterpret_cast<const __nv_bfloat162*>(&xs[t]);
+                  const __nv_bfloat162 y = *reinterpret_cast<const __nv_bfloat162*>(&v[t]);
+                  const __nv_bfloat162 o = __floats2bfloat162_rn(__low2float(x) + __low2float(y),
+                                                                 __high2float(x) + __high2float(y));
+                  v[t] = *reinterpret_cast<const uint32_t*>(&o);
+                }
+              }
+              *reinterpret_cast<uint4*>(static_cast<__nv_bfloat16*>(args.out) + at) =
+                  make_uint4(v[0], v[1], v[2], v[3]);
+            }
+          }
+        }
+      }
+    }
+  }
+}
+
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
   return v;
 }
 
-// K3 prologue: mean and rstd of each of the tile's 32 rows, fp32, two passes
-// (mean, then the mean of squared deviations); warp w takes rows 4w..4w+3
-__device__ void row_stats(const __nv_bfloat16* X, int d, float eps, float* stat_s) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  for (int rr = 0; rr < kBM / 8; ++rr) {
-    const int row = warp * (kBM / 8) + rr;
-    const __nv_bfloat16* xr = X + (int64_t)row * d;
-    float s = 0.0f;
-    for (int c = lane * 8; c < d; c += 256) {
-      const uint4 raw = *reinterpret_cast<const uint4*>(xr + c);
-      const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&raw);
+// K3's first step: t = bf16(LN(x)), one warp per row, fp32 two-pass
+// statistics (mean, then the mean of squared deviations) and affine. A lane
+// holds up to kLnVec 16-byte vectors of its row in registers, so a row of up
+// to 256·kLnVec elements (D ≤ 2048) is read once; wider rows are re-read in
+// chunks for each pass.
+constexpr int kLnVec = 8;
+
+__global__ void __launch_bounds__(256)
+layer_norm_rows(const __nv_bfloat16* __restrict__ x, const float* __restrict__ gamma,
+                const float* __restrict__ beta, float eps, __nv_bfloat16* __restrict__ t, int m,
+                int d) {
+  constexpr int kChunk = 256 * kLnVec;
+  const int row = blockIdx.x * 8 + threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (row >= m) return;
+  const __nv_bfloat16* xr = x + (int64_t)row * d;
+  const bool resident = d <= kChunk;
+  uint4 v[kLnVec];
+  auto load = [&](int c0) {
 #pragma unroll
-      for (int i = 0; i < 8; ++i) s += __bfloat162float(e[i]);
+    for (int i = 0; i < kLnVec; ++i) {
+      const int c = c0 + (i * 32 + lane) * 8;
+      if (c < d) v[i] = *reinterpret_cast<const uint4*>(xr + c);
     }
-    const float mean = warp_sum(s) / d;
-    float s2 = 0.0f;
-    for (int c = lane * 8; c < d; c += 256) {
-      const uint4 raw = *reinterpret_cast<const uint4*>(xr + c);
-      const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&raw);
+  };
+  float s = 0.0f;
+  for (int c0 = 0; c0 < d; c0 += kChunk) {
+    load(c0);
 #pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        const float t = __bfloat162float(e[i]) - mean;
-        s2 += t * t;
+    for (int i = 0; i < kLnVec; ++i) {
+      if (c0 + (i * 32 + lane) * 8 >= d) continue;
+      const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&v[i]);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) s += __bfloat162float(e[j]);
+    }
+  }
+  const float mean = warp_sum(s) / d;
+  float s2 = 0.0f;
+  for (int c0 = 0; c0 < d; c0 += kChunk) {
+    if (!resident) load(c0);
+#pragma unroll
+    for (int i = 0; i < kLnVec; ++i) {
+      if (c0 + (i * 32 + lane) * 8 >= d) continue;
+      const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&v[i]);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float dev = __bfloat162float(e[j]) - mean;
+        s2 += dev * dev;
       }
     }
-    const float var = warp_sum(s2) / d;
-    if (lane == 0) {
-      stat_s[2 * row] = mean;
-      stat_s[2 * row + 1] = rsqrtf(var + eps);
+  }
+  const float rstd = rsqrtf(warp_sum(s2) / d + eps);
+  for (int c0 = 0; c0 < d; c0 += kChunk) {
+    if (!resident) load(c0);
+#pragma unroll
+    for (int i = 0; i < kLnVec; ++i) {
+      const int c = c0 + (i * 32 + lane) * 8;
+      if (c >= d) continue;
+      __nv_bfloat16* e = reinterpret_cast<__nv_bfloat16*>(&v[i]);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float y = (__bfloat162float(e[j]) - mean) * rstd;
+        e[j] = __float2bfloat16(y * gamma[c + j] + beta[c + j]);
+      }
+      *reinterpret_cast<uint4*>(t + (int64_t)row * d + c) = v[i];
     }
   }
 }
 
-// K3: LN affine of the 8 x values this thread copied into an X slice stage
-// (row tid/8, columns k0 + 8·(tid%8) ..), in place, rounded to bf16
-__device__ __forceinline__ void normalize_own(__nv_bfloat16* s, int k0, const float* stat_s,
-                                              const float* __restrict__ gamma,
-                                              const float* __restrict__ beta) {
-  const int row = threadIdx.x >> 3, c = (threadIdx.x & 7) * 8;
-  uint4* p = reinterpret_cast<uint4*>(s + row * kXLD + c);
-  uint4 raw = *p;
-  __nv_bfloat16* e = reinterpret_cast<__nv_bfloat16*>(&raw);
-  const float mean = stat_s[2 * row], rstd = stat_s[2 * row + 1];
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const float y = (__bfloat162float(e[i]) - mean) * rstd;
-    e[i] = __float2bfloat16(y * gamma[k0 + c + i] + beta[k0 + c + i]);
+// split-K's last step: out = bf16(Σ partials + b2) [then bf16(x + that)],
+// four columns a thread
+__global__ void __launch_bounds__(256)
+splitk_reduce(const float* __restrict__ partial, int splits, const float* __restrict__ bias,
+              const __nv_bfloat16* __restrict__ resid, __nv_bfloat16* __restrict__ out, int m,
+              int n) {
+  const int64_t i = ((int64_t)blockIdx.x * blockDim.x + threadIdx.x) * 4;
+  if (i >= (int64_t)m * n) return;
+  const int col = (int)(i % n);
+  float4 s = *reinterpret_cast<const float4*>(partial + i);
+  for (int p = 1; p < splits; ++p) {
+    const float4 v = *reinterpret_cast<const float4*>(partial + (int64_t)p * m * n + i);
+    s.x += v.x;
+    s.y += v.y;
+    s.z += v.z;
+    s.w += v.w;
   }
-  *p = raw;
+  const float4 b = *reinterpret_cast<const float4*>(bias + col);
+  __nv_bfloat162 lo = __floats2bfloat162_rn(s.x + b.x, s.y + b.y);
+  __nv_bfloat162 hi = __floats2bfloat162_rn(s.z + b.z, s.w + b.w);
+  if (resid != nullptr) {
+    const uint2 raw = *reinterpret_cast<const uint2*>(resid + i);
+    const __nv_bfloat162 x0 = *reinterpret_cast<const __nv_bfloat162*>(&raw.x);
+    const __nv_bfloat162 x1 = *reinterpret_cast<const __nv_bfloat162*>(&raw.y);
+    lo = __floats2bfloat162_rn(__low2float(x0) + __low2float(lo), __high2float(x0) + __high2float(lo));
+    hi = __floats2bfloat162_rn(__low2float(x1) + __low2float(hi), __high2float(x1) + __high2float(hi));
+  }
+  uint2 o;
+  o.x = *reinterpret_cast<const uint32_t*>(&lo);
+  o.y = *reinterpret_cast<const uint32_t*>(&hi);
+  *reinterpret_cast<uint2*>(out + i) = o;
 }
 
-// Stage st of the pipeline: per hidden chunk, D/64 fc1 slices (x[:, k:k+64]
-// and W1[chunk, k:k+64]) then D/64 fc2 slices (W2[d:d+64, chunk]).
-__device__ __forceinline__ void load_stage(int st, int ks, unsigned char* buf,
-                                           const __nv_bfloat16* X, const __nv_bfloat16* w1,
-                                           const __nv_bfloat16* w2, int d, int f) {
-  const int chunk = st / (2 * ks), r = st % (2 * ks);
-  const int f0 = chunk * kBF;
-  __nv_bfloat16* s = reinterpret_cast<__nv_bfloat16*>(buf);
-  if (r < ks) {
-    const int k0 = r * kSL;
-    {  // X slice: 32 rows × 8 vectors, one per thread
-      const int row = threadIdx.x >> 3, v = threadIdx.x & 7;
-      cp_async16(s + row * kXLD + v * 8, X + (int64_t)row * d + k0 + v * 8);
-    }
-    __nv_bfloat16* ws = s + kBM * kXLD;
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {  // W1 slice: 128 rows × 8 vectors
-      const int idx = threadIdx.x + i * kThreads, row = idx >> 3, v = idx & 7;
-      cp_async16(ws + row * kXLD + v * 8, w1 + (int64_t)(f0 + row) * d + k0 + v * 8);
-    }
-  } else {
-    const int d0 = (r - ks) * kSL;
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {  // W2 slice: 64 rows × 16 vectors
-      const int idx = threadIdx.x + i * kThreads, row = idx >> 4, v = idx & 15;
-      cp_async16(s + row * kWLD + v * 8, w2 + (int64_t)(d0 + row) * f + f0 + v * 8);
-    }
-  }
-  asm volatile("cp.async.commit_group;\n" ::);
+// ---------------------------------------------------------------------------
+// host side
+// ---------------------------------------------------------------------------
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                             cudaEnableDefault, &found);
+#else
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(p)
+               : nullptr;
+  }();
+  return fn;
 }
 
-// kLN = false: K2. kLN = true: K3 (gamma, beta, eps read; x added back).
-template <bool kLN>
-__global__ void __launch_bounds__(kThreads, 1)
-fused_mlp_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ w1,
-                 const float* __restrict__ b1, const __nv_bfloat16* __restrict__ w2,
-                 const float* __restrict__ b2, const float* __restrict__ gamma,
-                 const float* __restrict__ beta, float eps, __nv_bfloat16* __restrict__ out,
-                 int n, int d, int f) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int lda = acc_ld(d);
-  float* acc_s = reinterpret_cast<float*>(smem);
-  __nv_bfloat16* g_s = reinterpret_cast<__nv_bfloat16*>(smem + acc_bytes(d));
-  unsigned char* stage[2] = {smem + acc_bytes(d) + kGBytes,
-                             smem + acc_bytes(d) + kGBytes + kStageBytes};
-  float* stat_s = reinterpret_cast<float*>(smem + acc_bytes(d) + kGBytes + 2 * kStageBytes);
+// code returned when a tensor map cannot be built: 1000 + the CUresult
+// (1000 alone: the driver has no cuTensorMapEncodeTiled)
+constexpr int kMapError = 1000;
 
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t4 = lane & 3;
-  const int mt = warp & 1;            // 16-row half of the tile
-  const int nb1 = (warp >> 1) * 32;   // fc1: this warp's 32 hidden columns of the chunk
-  const int nb2 = (warp >> 1) * 16;   // fc2: this warp's 16 output columns of a slice
-  const int64_t m0 = (int64_t)blockIdx.x * kBM;
-  const __nv_bfloat16* X = x + m0 * d;
-  const int ks = d / kSL;
-  const int total = (f / kBF) * 2 * ks;
-
-  for (int i = threadIdx.x; i < kBM * lda; i += kThreads) acc_s[i] = 0.0f;
-  if (kLN) {
-    row_stats(X, d, eps, stat_s);
-    __syncthreads();  // every thread normalises rows whose stats another warp computed
-  }
-
-  float h[4][4];
-#pragma unroll
-  for (int j = 0; j < 4; ++j) h[j][0] = h[j][1] = h[j][2] = h[j][3] = 0.0f;
-  uint32_t ga[kBF / 16][4];
-
-  load_stage(0, ks, stage[0], X, w1, w2, d, f);
-  for (int st = 0; st < total; ++st) {
-    if (st + 1 < total) {
-      load_stage(st + 1, ks, stage[(st + 1) & 1], X, w1, w2, d, f);
-      asm volatile("cp.async.wait_group 1;\n" ::);
-    } else {
-      asm volatile("cp.async.wait_group 0;\n" ::);
-    }
-    const int chunk = st / (2 * ks), r = st % (2 * ks);
-    const int f0 = chunk * kBF;
-    if (kLN && r < ks) {
-      // this thread's own cp.async has landed (wait_group); the barrier
-      // below publishes the normalised values to the other warps
-      normalize_own(reinterpret_cast<__nv_bfloat16*>(stage[st & 1]), r * kSL, stat_s, gamma,
-                    beta);
-    }
-    __syncthreads();
-    const __nv_bfloat16* s = reinterpret_cast<const __nv_bfloat16*>(stage[st & 1]);
-    if (r < ks) {
-      // fc1: h (16 rows × 32 hidden) += x_slice · W1_sliceᵀ
-      const __nv_bfloat16* ws = s + kBM * kXLD;
-#pragma unroll
-      for (int kk = 0; kk < kSL / 16; ++kk) {
-        uint32_t a[4];
-        ldsm_x4(a, s + (mt * 16 + (lane & 15)) * kXLD + kk * 16 + (lane >> 4) * 8);
-#pragma unroll
-        for (int np = 0; np < 2; ++np) {
-          uint32_t b[4];
-          ldsm_x4(b, ws + (nb1 + np * 16 + (lane & 7) + (lane >> 4) * 8) * kXLD + kk * 16 +
-                         ((lane >> 3) & 1) * 8);
-          mma_bf16(h[2 * np], a, b[0], b[1]);
-          mma_bf16(h[2 * np + 1], a, b[2], b[3]);
-        }
-      }
-      if (r == ks - 1) {
-        // + b1 → bf16 → exact GELU → bf16 into G; the chunk's fc2 reads it
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int col = nb1 + j * 8 + 2 * t4;
-          const float bias0 = b1[f0 + col], bias1 = b1[f0 + col + 1];
-#pragma unroll
-          for (int hh = 0; hh < 2; ++hh) {
-            const int row = mt * 16 + g + 8 * hh;
-            const float v0 = gelu_erf(bf16_round(h[j][2 * hh] + bias0));
-            const float v1 = gelu_erf(bf16_round(h[j][2 * hh + 1] + bias1));
-            *reinterpret_cast<__nv_bfloat162*>(g_s + row * kWLD + col) =
-                __floats2bfloat162_rn(v0, v1);
-          }
-          h[j][0] = h[j][1] = h[j][2] = h[j][3] = 0.0f;
-        }
-      }
-    } else {
-      const int j = r - ks;
-      if (j == 0) {  // G was completed before this stage's barrier
-#pragma unroll
-        for (int kk = 0; kk < kBF / 16; ++kk)
-          ldsm_x4(ga[kk], g_s + (mt * 16 + (lane & 15)) * kWLD + kk * 16 + (lane >> 4) * 8);
-      }
-      // fc2: acc[:, d0 + nb2 : +16] += G · W2_sliceᵀ
-      const int d0 = j * kSL;
-      float c[2][4];
-#pragma unroll
-      for (int tt = 0; tt < 2; ++tt) {
-#pragma unroll
-        for (int hh = 0; hh < 2; ++hh) {
-          const float2 v = *reinterpret_cast<const float2*>(
-              acc_s + (mt * 16 + g + 8 * hh) * lda + d0 + nb2 + tt * 8 + 2 * t4);
-          c[tt][2 * hh] = v.x;
-          c[tt][2 * hh + 1] = v.y;
-        }
-      }
-#pragma unroll
-      for (int kk = 0; kk < kBF / 16; ++kk) {
-        uint32_t b[4];
-        ldsm_x4(b, s + (nb2 + (lane & 7) + (lane >> 4) * 8) * kWLD + kk * 16 +
-                       ((lane >> 3) & 1) * 8);
-        mma_bf16(c[0], ga[kk], b[0], b[1]);
-        mma_bf16(c[1], ga[kk], b[2], b[3]);
-      }
-#pragma unroll
-      for (int tt = 0; tt < 2; ++tt) {
-#pragma unroll
-        for (int hh = 0; hh < 2; ++hh) {
-          *reinterpret_cast<float2*>(acc_s + (mt * 16 + g + 8 * hh) * lda + d0 + nb2 + tt * 8 +
-                                     2 * t4) = make_float2(c[tt][2 * hh], c[tt][2 * hh + 1]);
-        }
-      }
-    }
-    __syncthreads();  // this stage's buffer is refilled two stages on
-  }
-
-  for (int i = threadIdx.x; i < kBM * d; i += kThreads) {
-    const int r = i / d, c = i % d;
-    if (m0 + r >= n) continue;
-    const __nv_bfloat16 y = __float2bfloat16(acc_s[r * lda + c] + b2[c]);
-    if (kLN) {  // residual in bf16: cast, then add, as x + mlp(ln(x)).astype(bf16)
-      out[(m0 + r) * d + c] = __float2bfloat16(__bfloat162float(X[(int64_t)r * d + c]) +
-                                               __bfloat162float(y));
-    } else {
-      out[(m0 + r) * d + c] = y;
-    }
-  }
+// (rows, cols) row-major bf16 → (box_rows × 64) boxes, 128B swizzle; rows
+// past the end read as zeros
+int make_map(CUtensorMap* map, const void* base, int rows, int cols, int box_rows) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return kMapError;
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols * 2};
+  const cuuint32_t box[2] = {(cuuint32_t)kBK, (cuuint32_t)box_rows};
+  const cuuint32_t elem[2] = {1, 1};
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base), dims,
+                            strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : kMapError + (int)r;
 }
 
-template <bool kLN>
-int launch(const void* x, const void* w1, const void* b1, const void* w2, const void* b2,
-           const void* gamma, const void* beta, float eps, void* out, int n, int d, int f,
-           void* stream) {
-  if (n <= 0 || n % kBM || d % 128 || f % kBF || d > 1280) return (int)cudaErrorInvalidValue;
-  const int bytes = acc_bytes(d) + kGBytes + 2 * kStageBytes + (kLN ? kStatBytes : 0);
-  cudaError_t err = cudaFuncSetAttribute(
-      fused_mlp_kernel<kLN>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (err != cudaSuccess) return (int)err;
-  fused_mlp_kernel<kLN><<<n / kBM, kThreads, bytes, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(w1),
-      static_cast<const float*>(b1), static_cast<const __nv_bfloat16*>(w2),
-      static_cast<const float*>(b2), static_cast<const float*>(gamma),
-      static_cast<const float*>(beta), eps, static_cast<__nv_bfloat16*>(out), n, d, f);
+constexpr int kMaxDevices = 64;
+
+// SMs of the current device, queried once per device
+int sm_count(int dev) {
+  static int sms[kMaxDevices] = {};
+  if (sms[dev] == 0 &&
+      cudaDeviceGetAttribute(&sms[dev], cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
+    return 0;
+  return sms[dev];
+}
+
+template <int BN, int EPI>
+int gemm(const void* a, const void* b, const GemmArgs& args, cudaStream_t stream) {
+  static bool sized[kMaxDevices] = {};  // the ring's shared memory, set once per device
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
+  const int sms = sm_count(dev);
+  if (sms <= 0) return (int)cudaErrorInvalidDevice;
+  CUtensorMap ta, tb;
+  int rc = make_map(&ta, a, args.m, args.k, kBM);
+  if (rc == 0) rc = make_map(&tb, b, args.n, args.k, BN);
+  if (rc != 0) return rc;
+  if (!sized[dev]) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        gemm_tn<BN, EPI>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes(BN));
+    if (err != cudaSuccess) return (int)err;
+    sized[dev] = true;
+  }
+  const int tiles = (args.m + kBM - 1) / kBM * (args.n / BN) * args.splits;
+  gemm_tn<BN, EPI><<<tiles < sms ? tiles : sms, kThreads, smem_bytes(BN), stream>>>(ta, tb, args);
+  return (int)cudaGetLastError();
+}
+
+// the whole MLP; gamma != nullptr makes it K3 (normed is then t's workspace)
+int mlp(const void* x, const float* gamma, const float* beta, float eps, void* normed,
+        const void* w1, const float* b1, const void* w2, const float* b2, void* out, void* hidden,
+        void* partial, int n, int d, int f, int bn1, int splits, void* stream_) {
+  if (n < 8 || d % 128 || f % 128 || (bn1 != 128 && bn1 != 32) || splits < 1 || (f / kBK) % splits ||
+      (splits > 1 && partial == nullptr))
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t stream = static_cast<cudaStream_t>(stream_);
+  const __nv_bfloat16* xb = static_cast<const __nv_bfloat16*>(x);
+  const void* a = x;
+  if (gamma != nullptr) {
+    layer_norm_rows<<<(n + 7) / 8, 256, 0, stream>>>(xb, gamma, beta, eps,
+                                                     static_cast<__nv_bfloat16*>(normed), n, d);
+    const int rc = (int)cudaGetLastError();
+    if (rc != 0) return rc;
+    a = normed;
+  }
+  // pass 1: hidden = gelu(a·W1ᵀ + b1), at one of the plans' tile widths
+  const GemmArgs args1{n, f, d, 1, b1, nullptr, hidden};
+  int rc = bn1 == 128 ? gemm<128, kGelu>(a, w1, args1, stream)
+                      : gemm<32, kGelu>(a, w1, args1, stream);
+  if (rc != 0) return rc;
+  // pass 2: out = hidden·W2ᵀ + b2 (+ x), or fp32 partials of its K slices
+  const __nv_bfloat16* resid = gamma != nullptr ? xb : nullptr;
+  if (splits == 1) {
+    const GemmArgs args2{n, d, f, 1, b2, resid, out};
+    return resid != nullptr ? gemm<kBN2, kBiasResidual>(hidden, w2, args2, stream)
+                            : gemm<kBN2, kBias>(hidden, w2, args2, stream);
+  }
+  rc = gemm<kBN2, kPartial>(hidden, w2, GemmArgs{n, d, f, splits, nullptr, nullptr, partial},
+                            stream);
+  if (rc != 0) return rc;
+  const int64_t vecs = (int64_t)n * d / 4;
+  splitk_reduce<<<(unsigned)((vecs + 255) / 256), 256, 0, stream>>>(
+      static_cast<const float*>(partial), splits, b2, resid, static_cast<__nv_bfloat16*>(out), n,
+      d);
   return (int)cudaGetLastError();
 }
 
@@ -350,19 +650,34 @@ int launch(const void* x, const void* w1, const void* b1, const void* w2, const 
 
 extern "C" {
 
-// K2. x (n, d) bf16 with n % 32 == 0; w1 (f, d) bf16; b1 (f,) fp32; w2 (d, f)
-// bf16; b2 (d,) fp32; out (n, d) bf16 — contiguous, 16-byte aligned, on the
-// current device. Launches on `stream`; returns the CUDA error code (0 = ok).
+// K2. x (n, d) bf16; w1 (f, d) bf16; b1 (f,) fp32; w2 (d, f) bf16; b2 (d,)
+// fp32; out (n, d) bf16; hidden (n, f) bf16 workspace; partial (splits, n, d)
+// fp32 workspace (null when splits is 1) — contiguous, 16-byte aligned, on
+// the current device. bn1: pass 1's tile width (128 or 32); splits: pass
+// 2's K slices over f.
+// Launches on `stream`; returns 0 or the CUDA error code (1000 + CUresult
+// when a tensor map cannot be built).
 int hmm_fused_mlp_bf16(const void* x, const void* w1, const void* b1, const void* w2,
-                       const void* b2, void* out, int n, int d, int f, void* stream) {
-  return launch<false>(x, w1, b1, w2, b2, nullptr, nullptr, 0.0f, out, n, d, f, stream);
+                       const void* b2, void* out, void* hidden, void* partial, int n, int d, int f,
+                       int bn1, int splits, void* stream) {
+  return mlp(x, nullptr, nullptr, 0.0f, nullptr, w1, static_cast<const float*>(b1), w2,
+             static_cast<const float*>(b2), out, hidden, partial, n, d, f, bn1, splits, stream);
 }
 
-// K3. As K2, plus gamma/beta (d,) fp32 and eps: out = x + K2(LN(x)).
+// K3. As K2, plus gamma/beta (d,) fp32, eps and normed (n, d) bf16, the
+// workspace of t = LN(x): out = x + K2(t).
 int hmm_fused_ln_mlp_residual_bf16(const void* x, const void* gamma, const void* beta,
                                    const void* w1, const void* b1, const void* w2, const void* b2,
-                                   void* out, int n, int d, int f, float eps, void* stream) {
-  return launch<true>(x, w1, b1, w2, b2, gamma, beta, eps, out, n, d, f, stream);
+                                   void* out, void* normed, void* hidden, void* partial, int n,
+                                   int d, int f, int bn1, int splits, float eps,
+                                   void* stream) {
+  return mlp(x, static_cast<const float*>(gamma), static_cast<const float*>(beta), eps, normed, w1,
+             static_cast<const float*>(b1), w2, static_cast<const float*>(b2), out, hidden, partial,
+             n, d, f, bn1, splits, stream);
 }
+
+// dynamic shared memory of one GEMM block at tile width bn (ring, barriers,
+// alignment slack), for reports
+int hmm_fused_mlp_smem_bytes(int bn) { return smem_bytes(bn); }
 
 }  // extern "C"

@@ -18,8 +18,7 @@ the dtype:
     HIPPOMM_FUSED_BLOCK=1 (`_mlp_halfblock`), else `mlp(cast_out=True)` → K2
     `fused_mlp` (ops/fused_mlp).
 On CPU tensors the kernel wrappers run their plain versions; on CUDA a call
-the kernels cannot take (fp32, or K2/K3 with D > 1280) raises
-NotImplementedError.
+the kernels cannot take (fp32) raises NotImplementedError.
 """
 
 from __future__ import annotations

@@ -106,11 +106,12 @@ def kernels() -> ctypes.CDLL:
         lib.hmm_flash_mha_bthd_bf16.argtypes = [vp, vp, vp, vp, i32, i32, i32, i32, i32,
                                                 *[i64] * 9, f32, vp]
         lib.hmm_flash_mha_bthd_bf16.restype = i32
-        lib.hmm_fused_mlp_bf16.argtypes = [vp, vp, vp, vp, vp, vp, i32, i32, i32, vp]
+        lib.hmm_fused_mlp_bf16.argtypes = [*[vp] * 8, *[i32] * 5, vp]
         lib.hmm_fused_mlp_bf16.restype = i32
-        lib.hmm_fused_ln_mlp_residual_bf16.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp,
-                                                       i32, i32, i32, f32, vp]
+        lib.hmm_fused_ln_mlp_residual_bf16.argtypes = [*[vp] * 11, *[i32] * 5, f32, vp]
         lib.hmm_fused_ln_mlp_residual_bf16.restype = i32
+        lib.hmm_fused_mlp_smem_bytes.argtypes = [i32]
+        lib.hmm_fused_mlp_smem_bytes.restype = i32
         lib.hmm_topk_tile_rows.argtypes = []
         lib.hmm_topk_tile_rows.restype = i32
         lib.hmm_topk_cosine_f32.argtypes = [vp, vp, i32, i32, i32, vp, vp, vp, vp, vp]

@@ -10,13 +10,15 @@ Counterpart of hippomm_tpu/ops/fused_mlp.py:
     add in the stream dtype. Routed by `models/layers._mlp_halfblock` (every
     ImageBind encoder block) when HIPPOMM_FUSED_BLOCK=1 (`fused_block_default`).
 
-Both are CUDA C++ in csrc/fused_mlp.cu, one kernel template (32-row tiles,
-128-wide hidden chunks, fp32 accumulator in shared memory, weights streamed
-through a cp.async ring: the (N, F) hidden never reaches device memory; K3
-adds a row-statistics prologue, normalises each X slice in shared memory and
-adds x back in the epilogue). `fused_mlp_ref` / `fused_ln_mlp_residual_ref`
-are the same functions in plain PyTorch, in the op order of
-hippomm_tpu.ops.fused_mlp._ref_mlp / _ref_ln_mlp_residual.
+Both are CUDA C++ in csrc/fused_mlp.cu: two GEMM passes per call, each a
+persistent, warp-specialised TMA + wgmma kernel with the MLP's elementwise
+work fused into its epilogue (pass 1: x·W1ᵀ + b1 → GELU into an (N, F) bf16
+hidden workspace; pass 2: hidden·W2ᵀ + b2, and for K3 the residual). K3 first
+writes t = cast(LN(x)) with a row kernel. At small N (the text tower) pass 2
+splits K over F and a reduce kernel finishes it. `_plan` picks the tile
+widths and the split from (N, D, F). `fused_mlp_ref` /
+`fused_ln_mlp_residual_ref` are the same functions in plain PyTorch, in the
+op order of hippomm_tpu.ops.fused_mlp._ref_mlp / _ref_ln_mlp_residual.
 
 The TPU kernels' Abramowitz–Stegun and polynomial erfs existed only because
 Mosaic has no erf; CUDA has erff, so the kernels are exact-erf like the
@@ -28,17 +30,56 @@ from __future__ import annotations
 
 import functools
 import os
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
 
 _LANES = 128
-_ROWS = 32  # the kernel's row tile
-# The kernel's (32, D) fp32 accumulator lives in shared memory beside its
-# two-stage weight ring: D ≤ 1280 keeps both inside the 227 KB a Hopper
-# block may use (ViT-H and Whisper large are 1280). Wider D needs D split
-# over a thread-block cluster, which is not written yet.
-_MAX_D = 1280
+_BM = 128  # rows per GEMM tile
+_BK = 64  # K per pipeline stage
+_BN1 = (128, 32)  # pass 1's tile widths (template instances), widest first
+_BN2 = 128  # pass 2's tile width
+# a bytes-bound call spreads its weight read over about one wave of the
+# H100's 132 SMs: pass 1 narrows its tiles and pass 2 splits K until there
+# are this many tiles
+_WAVE_TILES = 128
+
+
+class Plan(NamedTuple):
+    bn1: int  # pass 1 (fc1) tile width over F
+    bn2: int  # pass 2 (fc2) tile width over D
+    splits: int  # pass 2's K slices over F; > 1 adds a reduce kernel
+
+
+def _plan(n: int, d: int, f: int) -> Plan:
+    """The kernels' tile plan for an (N, D, F) call. Ingest shapes take
+    128 × 128 tiles in both passes; when a pass has fewer than `_WAVE_TILES`
+    tiles (the text tower's 77 rows), pass 1 takes the widest tile that
+    still gives that many (else the narrowest), and pass 2 doubles its K
+    slices while that many are not reached and the slices stay whole
+    64-wide steps."""
+    bands = -(-n // _BM)
+    bn1 = next((bn for bn in _BN1 if f % bn == 0 and bands * (f // bn) >= _WAVE_TILES), _BN1[-1])
+    splits = 1
+    while bands * (d // _BN2) * splits < _WAVE_TILES and (f // _BK) % (2 * splits) == 0:
+        splits *= 2
+    return Plan(bn1, _BN2, splits)
+
+
+def _pass_tiles(m: int, cols: int, k: int, bn: int, splits: int):
+    """The output tiles of one GEMM pass in the kernel's order (tile
+    ((split · m_tiles) + mt) · n_tiles + nt): (row0, col0, k0, k1) each, rows
+    row0 .. row0 + 127 clipped at m."""
+    m_tiles, n_tiles, kslice = -(-m // _BM), cols // bn, k // splits
+    return [(mt * _BM, nt * bn, s * kslice, (s + 1) * kslice)
+            for s in range(splits) for mt in range(m_tiles) for nt in range(n_tiles)]
+
+
+def kernels_per_call(plan: Plan, ln: bool) -> int:
+    """CUDA kernels one K2 (ln False) or K3 call launches: the LN row kernel
+    (K3), two GEMM passes, and the split-K reduce."""
+    return int(ln) + 2 + int(plan.splits > 1)
 
 
 def fused_mlp_supported(n: int, d: int, f: int) -> bool:
@@ -82,46 +123,81 @@ def _check_operands(name: str, x, w1, b1, w2, b2, *norm) -> bool:
         raise NotImplementedError(f"the {name} CUDA kernel takes bfloat16 only, got {x.dtype}")
     if not fused_mlp_supported(n, d, f):
         raise ValueError(f"{name} kernel does not take n={n} d={d} f={f}")
-    if d > _MAX_D:
-        raise NotImplementedError(
-            f"the {name} CUDA kernel takes d <= {_MAX_D} (its shared-memory accumulator), got {d}"
-        )
     return True
 
 
-def _launch(entry: str, x, vectors, w1, b1, w2, b2, tail=()) -> torch.Tensor:
-    """Pad N to the kernel's row tile, launch `entry` on the current stream
-    and return the (N, D) bf16 output. `vectors` are the fp32 (D,) operands
-    that precede W1 in the C signature (K3's gamma and beta)."""
+@functools.lru_cache(maxsize=64)
+def _workspace(n: int, d: int, f: int, ln: bool):
+    """`_plan(n, d, f)`, the byte offsets in one bf16 workspace of the hidden
+    (N, F) bf16, K3's LN(x) (N, D) bf16 and the split-K partials (splits, N,
+    D) fp32 (None where the call has none), each 256-byte aligned after the
+    (N, D) bf16 output at offset 0, and the workspace's length in bf16
+    elements."""
+    plan = _plan(n, d, f)
+    offsets, at = [], -(-2 * n * d // 256) * 256
+    for nbytes in (2 * n * f, 2 * n * d if ln else 0, 4 * plan.splits * n * d if plan.splits > 1 else 0):
+        offsets.append(at if nbytes else None)
+        at += -(-nbytes // 256) * 256
+    return plan, offsets, at // 2
+
+
+def _current_stream() -> int:
+    """The current device's current CUDA stream as an int. The raw getter
+    skips building a Stream object, which costs as much as the launches of a
+    text-tower call; `torch.cuda.current_stream()` where it is missing."""
+    raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+    if raw is not None:
+        return raw(torch.cuda.current_device())
+    return torch.cuda.current_stream().cuda_stream
+
+
+def _launch(entry: str, x, vectors, w1, b1, w2, b2, eps=None) -> torch.Tensor:
+    """Allocate one workspace for `_plan`'s passes with the (N, D) bf16
+    output at its head, launch `entry` on the current stream and return the
+    output. `vectors` are the fp32 (D,) operands that precede W1 in the C
+    signature (K3's gamma and beta); K3 also takes eps and a workspace for
+    LN(x). A text-tower call is host-bound, so this path keeps its tensor
+    calls few: one allocation, the output a view of it."""
     n, d = x.shape
     f = w1.shape[0]
-    w1, w2 = w1.to(torch.bfloat16), w2.to(torch.bfloat16)
-    b1, b2 = b1.float(), b2.float()
-    vectors = [t.float() for t in vectors]
-    for t in (x, w1, b1, w2, b2, *vectors):
-        if not t.is_contiguous() or t.data_ptr() % 16:
+    bf16, f32 = torch.bfloat16, torch.float32
+    operands = [x, *(t if t.dtype == f32 else t.float() for t in vectors),
+                w1 if w1.dtype == bf16 else w1.to(bf16), b1 if b1.dtype == f32 else b1.float(),
+                w2 if w2.dtype == bf16 else w2.to(bf16), b2 if b2.dtype == f32 else b2.float()]
+    args = []
+    for t in operands:
+        ptr = t.data_ptr()
+        if ptr % 16 or not t.is_contiguous():
             raise ValueError(f"{entry} takes contiguous, 16-byte aligned operands")
-    np_ = -(-n // _ROWS) * _ROWS
-    if np_ != n:
-        x = F.pad(x, (0, 0, 0, np_ - n))
-    out = torch.empty((np_, d), dtype=x.dtype, device=x.device)
+        args.append(ptr)
+    plan, (hidden, normed, partial), length = _workspace(n, d, f, eps is not None)
+    # the output heads the workspace, which lives as long as the output does
+    ws = torch.empty((length,), dtype=bf16, device=x.device)
+    base = ws.data_ptr()
+    args.append(base)
+    if eps is not None:
+        args.append(base + normed)
+    args += [base + hidden, None if partial is None else base + partial, n, d, f, plan.bn1,
+             plan.splits]
+    if eps is not None:
+        args.append(float(eps))
     from hippomm_tpu_torch.ops import _native
 
-    lib = _native.kernels()
-    with torch.cuda.device(x.device):
-        rc = getattr(lib, entry)(
-            x.data_ptr(), *(t.data_ptr() for t in vectors), w1.data_ptr(), b1.data_ptr(),
-            w2.data_ptr(), b2.data_ptr(), out.data_ptr(), np_, d, f, *tail,
-            torch.cuda.current_stream(x.device).cuda_stream,
-        )
+    fn = getattr(_native.kernels(), entry)
+    if x.device.index == torch.cuda.current_device():
+        rc = fn(*args, _current_stream())
+    else:
+        with torch.cuda.device(x.device):
+            rc = fn(*args, _current_stream())
     if rc != 0:
-        raise RuntimeError(f"{entry} kernel launch failed: CUDA error {rc}")
-    return out if np_ == n else out[:n]
+        raise RuntimeError(f"{entry} kernel launch failed: error {rc} (CUDA error, or 1000 + the "
+                           "CUresult of a tensor map that could not be built)")
+    return ws[: n * d].view(n, d)
 
 
 def fused_mlp(x, w1, b1, w2, b2) -> torch.Tensor:
-    """Fused MLP: the CUDA kernel for CUDA tensors, the plain version for CPU
-    tensors. Counts kernel launches in `fused_mlp.launches`."""
+    """Fused MLP: the CUDA kernels for CUDA tensors, the plain version for CPU
+    tensors. Counts calls that launch the kernels in `fused_mlp.launches`."""
     if not _check_operands("fused_mlp", x, w1, b1, w2, b2):
         return fused_mlp_ref(x, w1, b1, w2, b2)
     out = _launch("hmm_fused_mlp_bf16", x, (), w1, b1, w2, b2)
@@ -165,13 +241,12 @@ def fused_ln_mlp_residual_ref(x, gamma, beta, w1, b1, w2, b2, eps: float = 1e-6)
 
 
 def fused_ln_mlp_residual(x, gamma, beta, w1, b1, w2, b2, eps: float = 1e-6) -> torch.Tensor:
-    """x + mlp(LN(x)) for x (N, D) in the stream dtype: the CUDA kernel for
-    CUDA tensors (bf16, D ≤ 1280), the plain version for CPU tensors. Counts
-    kernel launches in `fused_ln_mlp_residual.launches`."""
+    """x + mlp(LN(x)) for x (N, D) in the stream dtype: the CUDA kernels for
+    CUDA tensors (bf16), the plain version for CPU tensors. Counts calls that
+    launch the kernels in `fused_ln_mlp_residual.launches`."""
     if not _check_operands("fused_ln_mlp_residual", x, w1, b1, w2, b2, gamma, beta):
         return fused_ln_mlp_residual_ref(x, gamma, beta, w1, b1, w2, b2, eps)
-    out = _launch("hmm_fused_ln_mlp_residual_bf16", x, (gamma, beta), w1, b1, w2, b2,
-                  tail=(float(eps),))
+    out = _launch("hmm_fused_ln_mlp_residual_bf16", x, (gamma, beta), w1, b1, w2, b2, eps=eps)
     fused_ln_mlp_residual.launches += 1
     return out
 

@@ -1,0 +1,100 @@
+"""Time variants of the port's K2/K3 source (csrc/fused_mlp.cu) on one CUDA card.
+
+    python3 scripts/torch_fused_mlp_variants.py NAME=SUBS [NAME=SUBS ...]
+
+Each NAME=SUBS builds a copy of hippomm_tpu_torch/csrc/fused_mlp.cu with the
+text substitutions SUBS applied (``old|||new`` pairs joined by ``;;``; an
+empty SUBS is the source as it is) into its own library under
+hippomm_tpu_torch/_build/variants/, then runs K2 at the vision, audio and
+Whisper ingest shapes and K3 at the vision shape through each library in
+turn, twice: the max error against the plain version (relative to max |out|),
+ms per call over rotating weight sets (chip_smoke.cuda_ms) and device µs per
+kernel (chip_smoke.device_us). A variant that changes the function (an
+epilogue taken out) shows it in its error; the times say what the removed
+work cost. For example, what pass 1's erf-GELU costs:
+
+    python3 scripts/torch_fused_mlp_variants.py 'base=' \\
+        'nogelu=  return 0.5f * x * (1.0f + erff(x * 0.70710678118654752f));|||  return 0.5f * x;'
+"""
+
+from __future__ import annotations
+
+import ctypes
+import os
+import subprocess
+import sys
+
+HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+ENTRIES = ("hmm_fused_mlp_bf16", "hmm_fused_ln_mlp_residual_bf16", "hmm_fused_mlp_smem_bytes")
+SHAPES = [((8224, 1280, 5120), False), ((21984, 768, 3072), False), ((6000, 1280, 5120), False),
+          ((8224, 1280, 5120), True)]
+
+
+def build(variants: dict) -> dict:
+    """One shared library per variant, all nvcc processes started together."""
+    from hippomm_tpu_torch.ops import _native
+
+    src = open(os.path.join(HERE, "hippomm_tpu_torch", "csrc", "fused_mlp.cu")).read()
+    out_dir = os.path.join(_native.BUILD_DIR, "variants")
+    os.makedirs(out_dir, exist_ok=True)
+    flags = [f for f in _native.NVCC_FLAGS if f not in ("-Xptxas", "-v")]
+    procs = {}
+    for name, subs in variants.items():
+        text = src
+        for sub in filter(None, subs.split(";;")):
+            old, new = sub.split("|||")
+            if old not in text:
+                sys.exit(f"variant {name}: {old!r} is not in csrc/fused_mlp.cu")
+            text = text.replace(old, new)
+        cu, lib = os.path.join(out_dir, f"{name}.cu"), os.path.join(out_dir, f"lib{name}.so")
+        with open(cu, "w") as f:
+            f.write(text)
+        procs[name] = (lib, subprocess.Popen([_native._nvcc(), *flags, "-shared", "-o", lib, cu]))
+    real = _native.kernels()
+    libs = {}
+    for name, (path, proc) in procs.items():
+        if proc.wait() != 0:
+            sys.exit(f"variant {name} does not build")
+        lib = ctypes.CDLL(path)
+        for fn in ENTRIES:
+            getattr(lib, fn).argtypes = getattr(real, fn).argtypes
+            getattr(lib, fn).restype = getattr(real, fn).restype
+        libs[name] = lib
+    return libs
+
+
+def main(argv) -> int:
+    sys.path.insert(0, HERE)
+    import torch
+
+    if not torch.cuda.is_available():
+        sys.exit("needs a CUDA card")
+    import chip_smoke as cs
+    from hippomm_tpu_torch.ops import _native
+    from hippomm_tpu_torch.ops import fused_mlp as fm
+
+    libs = build(dict(a.split("=", 1) for a in argv))
+    real = _native.kernels()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    try:
+        for shape, ln in SHAPES:
+            n, d, f = shape
+            sets = cs.operand_sets(lambda: cs.mlp_operands(shape, gen, ln), 4 * d * f)
+            kernel = fm.fused_ln_mlp_residual if ln else fm.fused_mlp
+            tail = (1e-6,) if ln else ()
+            want = (fm.fused_ln_mlp_residual_ref if ln else fm.fused_mlp_ref)(*sets[0], *tail).float()
+            calls = [lambda s=s: kernel(*s, *tail) for s in sets]
+            for _ in range(2):
+                for name, lib in libs.items():
+                    _native._kernels = lib
+                    rel = ((kernel(*sets[0], *tail).float() - want).abs().max() / want.abs().max()).item()
+                    dev = {k: round(v, 1) for k, v in (cs.device_us(calls) or {}).items()}
+                    print(f"{'K3' if ln else 'K2'} {shape} {name}: rel err {rel:.4f}, "
+                          f"{cs.cuda_ms(calls, iters=24):.4f} ms, device µs {dev}", flush=True)
+    finally:
+        _native._kernels = real
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))

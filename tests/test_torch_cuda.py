@@ -43,6 +43,25 @@ def test_flash_kernel_matches_plain_on_cuda(cuda_device, shape):
     assert (out.float() - ref.float()).abs().max().item() <= 2e-2
 
 
+def _mlp_operands(device, n, d, f, seed):
+    g = torch.Generator(device=device).manual_seed(seed)
+    x = torch.randn((n, d), generator=g, device=device).to(torch.bfloat16)
+    gamma = 1.0 + 0.1 * torch.randn((d,), generator=g, device=device)
+    beta = 0.1 * torch.randn((d,), generator=g, device=device)
+    w1 = (torch.randn((f, d), generator=g, device=device) / d ** 0.5).to(torch.bfloat16)
+    b1 = 0.1 * torch.randn((f,), generator=g, device=device)
+    w2 = (torch.randn((d, f), generator=g, device=device) / f ** 0.5).to(torch.bfloat16)
+    b2 = 0.1 * torch.randn((d,), generator=g, device=device)
+    return x, gamma, beta, w1, b1, w2, b2
+
+
+def _assert_matches(out, ref):
+    """The K2/K3 gate: within 2e-2 of max |out| of the plain version."""
+    assert out.shape == ref.shape and out.dtype == torch.bfloat16
+    err = (out.float() - ref.float()).abs().max().item()
+    assert err <= 2e-2 * ref.float().abs().max().item()
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("n,d,f", [(8224, 1280, 5120), (21984, 768, 3072), (6000, 1280, 5120),
                                    (40, 128, 512)])
@@ -64,30 +83,16 @@ def test_fused_mlp_kernel_matches_plain_on_cuda(cuda_device, n, d, f):
 
 @pytest.mark.cuda
 def test_kernels_raise_for_what_they_do_not_take(cuda_device):
-    """fp32 operands and K2 with D > 1280 raise instead of running plain."""
+    """fp32 operands raise instead of running plain; K2 at D 1408, wider
+    than any tower, runs and matches its plain version."""
     q = torch.zeros((1, 2, 17, 64), device=cuda_device)
     with pytest.raises(NotImplementedError, match="bfloat16"):
         tfa.flash_mha(q, q, q, 0.125)
-    for dt, d, f, match in ((torch.float32, 128, 512, "bfloat16"), (torch.bfloat16, 1408, 5632, "1280")):
-        x = torch.zeros((64, d), device=cuda_device, dtype=dt)
-        w1 = torch.zeros((f, d), device=cuda_device, dtype=dt)
-        w2 = torch.zeros((d, f), device=cuda_device, dtype=dt)
-        b1 = torch.zeros((f,), device=cuda_device)
-        b2 = torch.zeros((d,), device=cuda_device)
-        with pytest.raises(NotImplementedError, match=match):
-            tfm.fused_mlp(x, w1, b1, w2, b2)
-
-
-def _mlp_operands(device, n, d, f, seed):
-    g = torch.Generator(device=device).manual_seed(seed)
-    x = torch.randn((n, d), generator=g, device=device).to(torch.bfloat16)
-    gamma = 1.0 + 0.1 * torch.randn((d,), generator=g, device=device)
-    beta = 0.1 * torch.randn((d,), generator=g, device=device)
-    w1 = (torch.randn((f, d), generator=g, device=device) / d ** 0.5).to(torch.bfloat16)
-    b1 = 0.1 * torch.randn((f,), generator=g, device=device)
-    w2 = (torch.randn((d, f), generator=g, device=device) / f ** 0.5).to(torch.bfloat16)
-    b2 = 0.1 * torch.randn((d,), generator=g, device=device)
-    return x, gamma, beta, w1, b1, w2, b2
+    x, _, _, w1, b1, w2, b2 = _mlp_operands(cuda_device, 64, 128, 512, 7)
+    with pytest.raises(NotImplementedError, match="bfloat16"):
+        tfm.fused_mlp(x.float(), w1.float(), b1, w2.float(), b2)
+    x, _, _, w1, b1, w2, b2 = _mlp_operands(cuda_device, 64, 1408, 5632, 7)
+    _assert_matches(tfm.fused_mlp(x, w1, b1, w2, b2), tfm.fused_mlp_ref(x, w1, b1, w2, b2))
 
 
 @pytest.mark.cuda
@@ -138,16 +143,13 @@ def test_flash_bthd_kernel_matches_plain_on_cuda(cuda_device, b, t, h, hd, packe
 
 @pytest.mark.cuda
 def test_k3_k4_raise_for_what_they_do_not_take(cuda_device):
-    """K3 with fp32 operands or D > 1280, and K4 with fp32, raise instead of
-    running plain."""
-    for dt, d, f, match in ((torch.float32, 128, 512, "bfloat16"), (torch.bfloat16, 1408, 5632, "1280")):
-        x = torch.zeros((64, d), device=cuda_device, dtype=dt)
-        vec = torch.zeros((d,), device=cuda_device)
-        w1 = torch.zeros((f, d), device=cuda_device, dtype=dt)
-        w2 = torch.zeros((d, f), device=cuda_device, dtype=dt)
-        b1 = torch.zeros((f,), device=cuda_device)
-        with pytest.raises(NotImplementedError, match=match):
-            tfm.fused_ln_mlp_residual(x, vec, vec, w1, b1, w2, vec, 1e-6)
+    """K3 and K4 with fp32 operands raise instead of running plain; K3 at
+    D 1408 runs and matches its plain version."""
+    x, gamma, beta, w1, b1, w2, b2 = _mlp_operands(cuda_device, 64, 128, 512, 8)
+    with pytest.raises(NotImplementedError, match="bfloat16"):
+        tfm.fused_ln_mlp_residual(x.float(), gamma, beta, w1.float(), b1, w2.float(), b2, 1e-6)
+    args = (*_mlp_operands(cuda_device, 64, 1408, 5632, 8), 1e-6)
+    _assert_matches(tfm.fused_ln_mlp_residual(*args), tfm.fused_ln_mlp_residual_ref(*args))
     q = torch.zeros((1, 17, 2, 64), device=cuda_device)
     with pytest.raises(NotImplementedError, match="bfloat16"):
         tfa.flash_mha_bthd(q, q, q, 0.125)
@@ -157,7 +159,7 @@ def test_k3_k4_raise_for_what_they_do_not_take(cuda_device):
 @pytest.mark.parametrize("n,d,f", [(77, 1024, 4096), (616, 1024, 4096)])
 def test_mlp_kernels_at_the_text_tower_shape(cuda_device, n, d, f):
     """K2 and K3 at D 1024 and the text tower's row counts (77 per question:
-    three 32-row tiles, the last one partial)."""
+    one 128-row band, zero-filled past row 77; both take split-K pass 2)."""
     x, gamma, beta, w1, b1, w2, b2 = _mlp_operands(cuda_device, n, d, f, 4)
     before = (tfm.fused_mlp.launches, tfm.fused_ln_mlp_residual.launches)
     out2 = tfm.fused_mlp(x, w1, b1, w2, b2)
@@ -169,6 +171,34 @@ def test_mlp_kernels_at_the_text_tower_shape(cuda_device, n, d, f):
         assert out.shape == (n, d)
         err = (out.float() - ref.float()).abs().max().item()
         assert err <= 2e-2 * ref.float().abs().max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "n,d,f",
+    # ragged row counts through both plans (split-K pass 2 at 8, 77 and 129
+    # rows; one pass each at 8223), and D 1408 through both
+    [(8, 1024, 4096), (77, 1024, 4096), (129, 1024, 4096), (8223, 1024, 4096), (200, 1408, 5632),
+     (4100, 1408, 5632)],
+)
+def test_mlp_kernels_ragged_rows_both_plans(cuda_device, n, d, f):
+    x, gamma, beta, w1, b1, w2, b2 = _mlp_operands(cuda_device, n, d, f, 9)
+    assert (tfm._plan(n, d, f).splits > 1) == (n < 1000)
+    _assert_matches(tfm.fused_mlp(x, w1, b1, w2, b2), tfm.fused_mlp_ref(x, w1, b1, w2, b2))
+    args = (x, gamma, beta, w1, b1, w2, b2, 1e-6)
+    _assert_matches(tfm.fused_ln_mlp_residual(*args), tfm.fused_ln_mlp_residual_ref(*args))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [77, 8224])
+def test_mlp_kernels_gelu_negative_side(cuda_device, n):
+    """b1 shifted by -2 puts most pre-activations on GELU's negative side,
+    where erf's tail and the bf16 cast before GELU carry the result."""
+    x, gamma, beta, w1, b1, w2, b2 = _mlp_operands(cuda_device, n, 1280, 5120, 10)
+    b1 = b1 - 2.0
+    _assert_matches(tfm.fused_mlp(x, w1, b1, w2, b2), tfm.fused_mlp_ref(x, w1, b1, w2, b2))
+    args = (x, gamma, beta, w1, b1, w2, b2, 1e-6)
+    _assert_matches(tfm.fused_ln_mlp_residual(*args), tfm.fused_ln_mlp_residual_ref(*args))
 
 
 def _topk_agree(vals, idx, rvals, ridx, tol=1e-5):

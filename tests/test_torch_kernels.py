@@ -100,19 +100,56 @@ def test_fused_mlp_ref_matches_jax(request, impl):
 
 
 def test_fused_mlp_gate_matches_jax_within_kernel_bound():
+    """The port's gate is the JAX gate, and every shape it admits has a tile
+    plan: D 1408 (wider than any tower) included, nothing bounds D."""
     for n, d, f in [(8224, 1280, 5120), (21984, 768, 3072), (7, 128, 512), (40, 96, 512),
-                    (40, 128, 200), (40, 1024, 4096), (64, 1408, 5632)]:
+                    (40, 128, 200), (40, 1024, 4096), (64, 1408, 5632), (8, 128, 128)]:
         assert tfm.fused_mlp_supported(n, d, f) == jfm.fused_mlp_supported(n, d, f)
-    # the kernel's shared-memory accumulator bounds D: the gate admits D 1408,
-    # and the wrapper raises for it on CUDA (test_torch_cuda.py) rather than
-    # routing it around the kernel
-    assert tfm.fused_mlp_supported(64, 1408, 5632) and tfm._MAX_D == 1280
+        if tfm.fused_mlp_supported(n, d, f):
+            plan = tfm._plan(n, d, f)
+            assert f % plan.bn1 == 0 and d % plan.bn2 == 0 and (f // 64) % plan.splits == 0
+    assert not hasattr(tfm, "_MAX_D")
+
+
+@pytest.mark.parametrize("n,d,f", [(8, 128, 128), (77, 1024, 4096), (616, 1024, 4096),
+                                   (6000, 1280, 5120), (8224, 1280, 5120), (21984, 768, 3072),
+                                   (64, 1408, 5632)])
+def test_plan_tiles_cover_every_output_once(n, d, f):
+    """Each GEMM pass of `_plan`'s plan, walked in the kernel's tile order:
+    per K slice the tiles cover every output row and column exactly once;
+    the slices are whole 64-wide K steps that add up to K; the text tower's
+    shapes start at least 64 blocks in each pass."""
+    plan = tfm._plan(n, d, f)
+    passes = ((f, d, plan.bn1, 1), (d, f, plan.bn2, plan.splits))  # (cols, K, tile width, slices)
+    for cols, k, bn, splits in passes:
+        tiles = tfm._pass_tiles(n, cols, k, bn, splits)
+        assert len(tiles) == len(set(tiles))
+        slices = sorted({(k0, k1) for _, _, k0, k1 in tiles})
+        assert len(slices) == splits and slices[0][0] == 0 and slices[-1][1] == k
+        assert all(a[1] == b[0] for a, b in zip(slices, slices[1:]))
+        assert all((k1 - k0) % 64 == 0 and k1 > k0 for k0, k1 in slices)
+        for k0, k1 in slices:
+            rows = np.zeros(n, np.int32)
+            cols_seen = np.zeros(cols, np.int32)
+            corners = [(r0, c0) for r0, c0, a, b in tiles if (a, b) == (k0, k1)]
+            for r0 in sorted({r0 for r0, _ in corners}):
+                rows[r0:r0 + 128] += 1
+            for c0 in sorted({c0 for _, c0 in corners}):
+                assert c0 + bn <= cols
+                cols_seen[c0:c0 + bn] += 1
+            assert (rows == 1).all() and (cols_seen == 1).all()
+            # the corners are the full grid of row bands × column tiles
+            assert len(corners) == len({r0 for r0, _ in corners}) * len({c0 for _, c0 in corners})
+        if (d, f) == (1024, 4096):  # the text tower
+            assert min(len(tiles), 132) >= 64
+    assert tfm.kernels_per_call(plan, False) == 2 + (plan.splits > 1)
+    assert tfm.kernels_per_call(plan, True) == 3 + (plan.splits > 1)
 
 
 @pytest.mark.parametrize("d,heads", [(128, 4), (1408, 11)])
 def test_layers_route_by_the_jax_gates_only(monkeypatch, d, heads):
-    """fp32 and D > 1280 reach the kernel wrappers just as bf16 and D ≤ 1280
-    do; only the JAX shape gates decide."""
+    """fp32 and D 1408 reach the kernel wrappers just as bf16 and D 128 do;
+    only the JAX shape gates decide."""
     calls = []
     for mod, name in ((tl, "flash_mha"), (tl, "fused_mlp")):
         real = getattr(mod, name)
