@@ -13,8 +13,9 @@ Phases (any failure exits non-zero and prints no result line):
      weight sets that overflow the L2 (as each encoder block finds its
      weights cold), the median of 5 such timings, with their tile plan,
      CUDA kernels per call, device µs per kernel (torch.profiler), host µs
-     to enqueue a call, and ptxas's registers, spills and shared memory for
-     every kernel of csrc/fused_mlp.cu
+     to enqueue a call; the same readings for K1/K4 (one launch per call,
+     warm inputs, the median of 5 timings) with their tile plan; ptxas's registers, spills and shared
+     memory for every kernel of csrc/flash_mha.cu and csrc/fused_mlp.cu
   3. towers — the ImageBind-Huge vision and text towers through the
      kernels, in the default and in the fused-block configuration, and the
      Whisper distil-large-v3 encoder through the kernels, each against the
@@ -136,13 +137,31 @@ def check_attention(fa, shape, gen):
     if not math.isfinite(err) or err > 2e-2:
         fail(f"flash_mha {shape}: max abs err {err} > 2e-2")
     b_ms, b_by = bound(2 * (q.numel() + k.numel() + v.numel() + out.numel()), 4 * b * h * tq * tk * hd)
-    return {
+    return attention_row(fa, shape, err, lambda: fa.flash_mha(q, k, v, scale),
+                         lambda: fa.flash_mha_ref(q, k, v, scale),
+                         lambda: F.scaled_dot_product_attention(q, k, v, scale=scale), b_ms, b_by,
+                         (tq, tk, hd))
+
+
+def attention_row(fa, shape, err, kernel, plain, library, b_ms, b_by, plan_shape):
+    """K1/K4's phase-2 readings: kernel, plain and library ms, the bound and
+    its share, the tile plan, CUDA kernels per call, device µs per kernel
+    (torch.profiler) and host µs to enqueue a call."""
+    plan = fa._attn_plan(*plan_shape)
+    row = {
         "shape": list(shape), "max_abs_err": err,
-        "ms": cuda_ms(lambda: fa.flash_mha(q, k, v, scale)),
-        "plain_ms": cuda_ms(lambda: fa.flash_mha_ref(q, k, v, scale), iters=3, warmup=1),
-        "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, scale=scale)),
+        "ms": cuda_ms(kernel, iters=20, repeats=5),
+        "plain_ms": cuda_ms(plain, iters=3, warmup=1),
+        "library_ms": cuda_ms(library, iters=20, repeats=5),
         "bound_ms": b_ms, "bound_by": b_by,
+        "plan": {"q_tiles": len(plan.q_tiles), "key_tiles": [w for _, w in plan.key_tiles],
+                 "panels": [w for _, _, w in plan.panels]},
+        "kernels_per_call": 1,
     }
+    row["pct_of_bound"] = 100.0 * b_ms / row["ms"]
+    row["device_us"] = device_us([kernel])
+    row["host_us"] = host_us([kernel])
+    return row
 
 
 def mlp_operands(shape, gen, ln: bool):
@@ -269,13 +288,10 @@ def check_attention_bthd(fa, shape, gen):
         fail(f"flash_mha_bthd {shape}: max abs err {err} > 2e-2")
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
     b_ms, b_by = bound(2 * 4 * b * t * d, 4 * b * h * t * t * hd)
-    return {
-        "shape": list(shape), "max_abs_err": err,
-        "ms": cuda_ms(lambda: fa.flash_mha_bthd(q, k, v, scale)),
-        "plain_ms": cuda_ms(lambda: fa.flash_mha_bthd_ref(q, k, v, scale), iters=3, warmup=1),
-        "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, scale=scale)),
-        "bound_ms": b_ms, "bound_by": b_by,
-    }
+    return attention_row(fa, shape, err, lambda: fa.flash_mha_bthd(q, k, v, scale),
+                         lambda: fa.flash_mha_bthd_ref(q, k, v, scale),
+                         lambda: F.scaled_dot_product_attention(qt, kt, vt, scale=scale), b_ms, b_by,
+                         (t, t, hd))
 
 
 def topk_mismatch(vals, idx, rvals, ridx, tol: float = 1e-5):
@@ -327,30 +343,42 @@ def check_topk(ttk, shape, gen):
 _EPILOGUES = {"0": "gelu", "1": "bias", "2": "bias+residual", "3": "fp32 partial"}
 
 
-def mlp_build_report(native):
-    """Registers, spills and shared memory of each kernel of csrc/fused_mlp.cu,
-    from ptxas -v in the build log; a GEMM pass's dynamic shared memory
-    from the library (its ring at that tile width)."""
+def build_report(native):
+    """Registers, spills and shared memory of each kernel of csrc/flash_mha.cu
+    and csrc/fused_mlp.cu, from ptxas -v in the build log; the dynamic shared
+    memory of an attention block (at its hd) and of a GEMM pass (its ring at
+    that tile width) from the library."""
     import re
 
-    log = native.build_log.split("== fused_mlp.cu\n", 1)[-1].split("\n== ", 1)[0]
     out = []
-    for block in log.split("Compiling entry function '")[1:]:
-        mangled = block.split("'", 1)[0]
-        gemm = re.search(r"gemm_tnILi(\d+)ELi(\d+)E", mangled)
-        kind = re.search(r"\d+(layer_norm_rows|splitk_reduce)E", mangled)
-        used = re.search(r"Used (\d+) registers", block)
-        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", block)
-        smem = re.search(r"(\d+) bytes smem", block)
-        out.append({
-            "kernel": (f"gemm_tn<BN {gemm.group(1)}, {_EPILOGUES[gemm.group(2)]}>" if gemm
-                       else kind.group(1) if kind else mangled),
-            "registers": int(used.group(1)) if used else None,
-            "spill_stores": int(spill.group(1)) if spill else None,
-            "spill_loads": int(spill.group(2)) if spill else None,
-            "static_smem": int(smem.group(1)) if smem else 0,
-            "dynamic_smem": native.kernels().hmm_fused_mlp_smem_bytes(int(gemm.group(1))) if gemm else 0,
-        })
+    for source in ("flash_mha.cu", "fused_mlp.cu"):
+        log = native.build_log.split(f"== {source}\n", 1)[-1].split("\n== ", 1)[0]
+        for block in log.split("Compiling entry function '")[1:]:
+            mangled = block.split("'", 1)[0]
+            attn = re.search(r"flash_mha_kernelILi(\d+)E", mangled)
+            gemm = re.search(r"gemm_tnILi(\d+)ELi(\d+)E", mangled)
+            kind = re.search(r"\d+(layer_norm_rows|splitk_reduce)E", mangled)
+            used = re.search(r"Used (\d+) registers", block)
+            spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", block)
+            smem = re.search(r"(\d+) bytes smem", block)
+            if attn:
+                name, dyn = f"flash_mha_kernel<hd {attn.group(1)}>", native.kernels().hmm_flash_mha_smem_bytes(
+                    int(attn.group(1)))
+            elif gemm:
+                name = f"gemm_tn<BN {gemm.group(1)}, {_EPILOGUES[gemm.group(2)]}>"
+                dyn = native.kernels().hmm_fused_mlp_smem_bytes(int(gemm.group(1)))
+            else:
+                name, dyn = (kind.group(1) if kind else mangled), 0
+            out.append({
+                "source": source, "kernel": name,
+                "registers": int(used.group(1)) if used else None,
+                "spill_stores": int(spill.group(1)) if spill else None,
+                "spill_loads": int(spill.group(2)) if spill else None,
+                "static_smem": int(smem.group(1)) if smem else 0,
+                "dynamic_smem": dyn,
+                # ptxas's C7515: wgmma serialized (accumulators written between issue and wait)
+                "wgmma_serialized_notes": sum(1 for ln in log.splitlines() if "C7515" in ln and mangled in ln),
+            })
     return out
 
 
@@ -714,8 +742,9 @@ def main() -> int:
     for name, rs in rows.items():
         for r in rs:
             r.setdefault("pct_of_bound", 100.0 * r["bound_ms"] / r["ms"])
+            sets = f"{r['operand_sets']} rotating operand sets, " if "operand_sets" in r else ""
             extra = (f"; {r['kernels_per_call']} CUDA kernels per call, plan {r['plan']}, "
-                     f"{r['operand_sets']} rotating operand sets, device µs per call "
+                     f"{sets}device µs per call "
                      f"{ {k: round(v, 2) for k, v in (r['device_us'] or {}).items()} }, "
                      f"host µs per call {r['host_us']:.1f}"
                      if "plan" in r else "")
@@ -723,11 +752,12 @@ def main() -> int:
                   f"plain {r['plain_ms']:.4f} ms library {r['library_ms']:.4f} ms "
                   f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}), {r['pct_of_bound']:.1f} % of "
                   f"bound{extra}", flush=True)
-    report["fused_mlp_build"] = mlp_build_report(_native)
-    for k in report["fused_mlp_build"]:
-        print(f"build fused_mlp.cu {k['kernel']}: {k['registers']} registers, {k['spill_stores']} / "
+    report["kernel_build"] = build_report(_native)
+    for k in report["kernel_build"]:
+        print(f"build {k['source']} {k['kernel']}: {k['registers']} registers, {k['spill_stores']} / "
               f"{k['spill_loads']} bytes spill stores / loads, {k['static_smem']} bytes static and "
-              f"{k['dynamic_smem']} bytes dynamic shared memory", flush=True)
+              f"{k['dynamic_smem']} bytes dynamic shared memory, {k['wgmma_serialized_notes']} ptxas "
+              f"notes of serialized wgmma", flush=True)
 
     cfg = Config()
     cfg.api.mode = "stub"

@@ -64,12 +64,10 @@
 // fp32; the hidden (N, F) bf16, K3's t (N, D) bf16 and the split-K partials
 // (splits, N, D) fp32 are workspaces the wrapper allocates.
 
-#include <cuda.h>  // CUtensorMap and its enums; the encoder comes from the runtime
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-
 #include <cmath>
 #include <cstdint>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -98,135 +96,6 @@ struct GemmArgs {
   const __nv_bfloat16* resid;   // (m, n) bf16, kBiasResidual
   void* out;                    // (m, n) bf16, or (splits, m, n) fp32 for kPartial
 };
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ bool mbar_try_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-      "selp.u32 %0, 1, 0, p;\n}\n"
-      : "=r"(done)
-      : "r"(bar), "r"(parity)
-      : "memory");
-  return done != 0;
-}
-
-// waits for the phase of parity `parity` to complete; a phase that never
-// completes (a fault in the pipeline) traps after about 2^33 cycles (~5 s)
-// instead of hanging the card
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  if (mbar_try_wait(bar, parity)) return;
-  const long long start = clock64();
-  while (!mbar_try_wait(bar, parity)) {
-    if (clock64() - start > (1ll << 33)) __trap();
-  }
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
-               : "memory");
-}
-
-// 2-D TMA load of the box at (c0 = column, c1 = row) into shared memory
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, int c0, int c1,
-                                         uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%2, %3}], [%4];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(bar)
-      : "memory");
-}
-
-// wgmma descriptor of a K-major tile with 128-byte rows, 128B-swizzled as
-// TMA wrote it: start address, leading offset 16 B (unused when swizzled),
-// stride 1024 B between 8-row groups, layout type 1 (128B swizzle)
-__device__ __forceinline__ uint64_t smem_desc(uint32_t addr) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) | ((uint64_t)(1024 >> 4) << 32) |
-         ((uint64_t)1 << 62);
-}
-
-// named barriers 1 and 2: "warpgroup 0's turn" and "warpgroup 1's turn" of
-// the ping-pong schedule, each completed by one warpgroup arriving and the
-// other syncing (256 threads)
-constexpr int kTurnBarrier = 1;
-__device__ __forceinline__ void named_barrier_sync(int id) {
-  asm volatile("bar.sync %0, 256;\n" ::"r"(id) : "memory");
-}
-__device__ __forceinline__ void named_barrier_arrive(int id) {
-  asm volatile("bar.arrive %0, 256;\n" ::"r"(id) : "memory");
-}
-
-__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-
-// keeps the compiler from moving accumulator registers across the
-// asynchronous wgmma that owns them
-template <int N>
-__device__ __forceinline__ void fence_acc(float (&d)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-// wgmma.mma_async m64nNk16, bf16 × bf16 → fp32, both operands from shared
-// memory (K-major, no transpose), accumulating into d
-__device__ __forceinline__ void wgmma_m64n32(float (&d)[16], uint64_t da, uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
-      "%16, %17, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-      : "l"(da), "l"(db), "r"(1));
-}
-
-__device__ __forceinline__ void wgmma_m64n128(float (&d)[64], uint64_t da, uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "%64, %65, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(1));
-}
-
-template <int BN>
-__device__ __forceinline__ void wgmma_tile(float (&d)[BN / 2], uint64_t da, uint64_t db) {
-  if constexpr (BN == 128) {
-    wgmma_m64n128(d, da, db);
-  } else {
-    static_assert(BN == 32, "tile widths: 32, 128");
-    wgmma_m64n32(d, da, db);
-  }
-}
 
 // 4 × 4 transpose across the four lanes of a quad (lanes 4k .. 4k + 3): lane
 // q's v[t] becomes lane t's v[q] (two butterfly exchanges)
@@ -262,7 +131,8 @@ template <int BN, int EPI>
 __global__ void __launch_bounds__(kThreads, 1)
 gemm_tn(const __grid_constant__ CUtensorMap ta, const __grid_constant__ CUtensorMap tb,
         const GemmArgs args) {
-  static_assert(BN <= 128, "a warpgroup holds its 128 × BN fp32 tile in registers");
+  // a warpgroup holds its 128 × BN fp32 tile in registers
+  static_assert(BN == 32 || BN == 128, "tile widths: 32, 128");
   constexpr int kStages = ring_stages(BN);
   constexpr int kStageA = kBM * kBK * 2;
   constexpr int kStage = stage_bytes(BN);
@@ -334,7 +204,7 @@ gemm_tn(const __grid_constant__ CUtensorMap ta, const __grid_constant__ CUtensor
         const int stage = slot % kStages;
         mbar_wait(full + 8 * stage, (slot / kStages) & 1);
         const uint32_t a = ring + stage * kStage;
-        const uint64_t db = smem_desc(a + kStageA);
+        const uint64_t db = desc_k<128>(a + kStageA);
         wgmma_fence();
 #pragma unroll
         for (int mi = 0; mi < kMma; ++mi) fence_acc(acc[mi]);
@@ -342,8 +212,8 @@ gemm_tn(const __grid_constant__ CUtensorMap ta, const __grid_constant__ CUtensor
         for (int k16 = 0; k16 < kBK / 16; ++k16) {
 #pragma unroll
           for (int mi = 0; mi < kMma; ++mi) {
-            const uint64_t da = smem_desc(a + mi * 64 * 128);
-            wgmma_tile<BN>(acc[mi], da + 2 * k16, db + 2 * k16);
+            const uint64_t da = desc_k<128>(a + mi * 64 * 128);
+            wgmma_ss<BN>(acc[mi], da + 2 * k16, db + 2 * k16, 1);
           }
         }
         wgmma_commit();
@@ -531,33 +401,6 @@ splitk_reduce(const float* __restrict__ partial, int splits, const float* __rest
 // host side
 // ---------------------------------------------------------------------------
 
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                                             cudaEnableDefault, &found);
-#else
-    const cudaError_t err =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
-               ? reinterpret_cast<EncodeTiled>(p)
-               : nullptr;
-  }();
-  return fn;
-}
-
-// code returned when a tensor map cannot be built: 1000 + the CUresult
-// (1000 alone: the driver has no cuTensorMapEncodeTiled)
-constexpr int kMapError = 1000;
-
 // (rows, cols) row-major bf16 → (box_rows × 64) boxes, 128B swizzle; rows
 // past the end read as zeros
 int make_map(CUtensorMap* map, const void* base, int rows, int cols, int box_rows) {
@@ -572,17 +415,6 @@ int make_map(CUtensorMap* map, const void* base, int rows, int cols, int box_row
                             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : kMapError + (int)r;
-}
-
-constexpr int kMaxDevices = 64;
-
-// SMs of the current device, queried once per device
-int sm_count(int dev) {
-  static int sms[kMaxDevices] = {};
-  if (sms[dev] == 0 &&
-      cudaDeviceGetAttribute(&sms[dev], cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
-    return 0;
-  return sms[dev];
 }
 
 template <int BN, int EPI>

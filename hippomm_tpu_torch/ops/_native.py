@@ -11,7 +11,8 @@ Two shared libraries with plain C interfaces, loaded with ctypes:
     then resamples with PIL, as the JAX package does without its shim.
 
 Outputs go to `_build/` inside the package (listed in .gitignore), named by
-a hash of sources and flags, so an edited source never loads a stale build.
+a hash of sources, headers and flags, so an edited source or header never
+loads a stale build.
 """
 
 from __future__ import annotations
@@ -27,6 +28,7 @@ from typing import List, Optional
 _CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_CSRC), "_build")
 KERNEL_SOURCES = ("flash_mha.cu", "fused_mlp.cu", "topk_cosine.cu")
+KERNEL_HEADERS = ("hopper.cuh",)
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -95,17 +97,20 @@ def kernels() -> ctypes.CDLL:
     with _lock:
         if _kernels is not None:
             return _kernels
-        srcs = [os.path.join(_CSRC, s) for s in KERNEL_SOURCES]
+        # the shared headers too: an edited header must not load a stale build
+        srcs = [os.path.join(_CSRC, s) for s in (*KERNEL_SOURCES, *KERNEL_HEADERS)]
         lib_path = os.path.join(BUILD_DIR, f"libhippomm_kernels_{_digest(srcs, NVCC_FLAGS)}.so")
         if not os.path.exists(lib_path):
             _build_kernels(lib_path)
         lib = ctypes.CDLL(lib_path)
         vp, i32, i64, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
-        lib.hmm_flash_mha_bf16.argtypes = [vp, vp, vp, vp, i32, i32, i32, i32, f32, vp]
+        lib.hmm_flash_mha_bf16.argtypes = [vp, vp, vp, vp, *[i32] * 7, f32, vp]
         lib.hmm_flash_mha_bf16.restype = i32
         lib.hmm_flash_mha_bthd_bf16.argtypes = [vp, vp, vp, vp, i32, i32, i32, i32, i32,
-                                                *[i64] * 9, f32, vp]
+                                                *[i64] * 9, i32, i32, f32, vp]
         lib.hmm_flash_mha_bthd_bf16.restype = i32
+        lib.hmm_flash_mha_smem_bytes.argtypes = [i32]
+        lib.hmm_flash_mha_smem_bytes.restype = i32
         lib.hmm_fused_mlp_bf16.argtypes = [*[vp] * 8, *[i32] * 5, vp]
         lib.hmm_fused_mlp_bf16.restype = i32
         lib.hmm_fused_ln_mlp_residual_bf16.argtypes = [*[vp] * 11, *[i32] * 5, f32, vp]

@@ -10,11 +10,13 @@ Counterpart of hippomm_tpu/ops/flash_attention.py:
     admits the shape (H = 16, the ImageBind vision tower; H = 12 and H = 20
     keep K1).
 
-Both are one CUDA C++ kernel over element strides, csrc/flash_mha.cu (one
-block per 64 query rows of one head, K/V streamed through shared memory with
-an online softmax); K4 reads strided views, such as the q slice of a packed
-(B, T, 3D) projection, without a copy. `flash_mha_ref` / `flash_mha_bthd_ref`
-are the same functions in plain PyTorch, in the JAX op order:
+Both are one CUDA C++ kernel over element strides, csrc/flash_mha.cu: TMA
+loads into a shared-memory ring, wgmma for q·kᵀ and for p·v (p from
+registers), a producer warp and two consumer warpgroups whose softmax runs
+under each other's products. `_attn_plan` chooses its tiles from the shape.
+K4 reads strided views, such as the q slice of a packed (B, T, 3D)
+projection, without a copy. `flash_mha_ref` / `flash_mha_bthd_ref` are the
+same functions in plain PyTorch, in the JAX op order:
 
     softmax(q·kᵀ·scale) in fp32 → cast to q.dtype → ·v, fp32 accumulation
     → q.dtype
@@ -29,6 +31,7 @@ from __future__ import annotations
 
 import functools
 import os
+from typing import NamedTuple, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -43,6 +46,46 @@ _LANES = 128
 
 def _round_up(x: int, m: int) -> int:
     return ((x + m - 1) // m) * m
+
+
+# The kernel's tiles (csrc/flash_mha.cu): a work tile is 128 query rows of
+# one head (two consumer warpgroups of 64); keys come in tiles of 128, and a
+# last remainder of at most 16 keys in one 16-key tile; hd is stored in
+# panels of 64 columns and one of the rest (16, 32, or 48 stored 64 wide).
+_Q_ROWS = 128
+_KEY_TILE = 128
+_KEY_TAIL = 16
+
+
+class AttnPlan(NamedTuple):
+    """Tiles of one kernel call: (start, length) of each query tile and key
+    tile (the last may run past the end; those rows and keys are zero-filled
+    and masked), and (start, columns, stored width) of each hd panel of the
+    padded head dim `hd_padded`. `n_full` 128-key tiles, then a 16-key one
+    if `tail` is 1 — what the C entry points take."""
+
+    q_tiles: Tuple[Tuple[int, int], ...]
+    key_tiles: Tuple[Tuple[int, int], ...]
+    panels: Tuple[Tuple[int, int, int], ...]
+    hd_padded: int
+    n_full: int
+    tail: int
+
+
+def _attn_plan(tq: int, tk: int, hd: int) -> AttnPlan:
+    """The kernel's tile plan for q (.., tq, hd) against k/v (.., tk, hd)."""
+    if tq < 1 or tk < 1 or not 1 <= hd <= _MAX_HD:
+        raise ValueError(f"no attention plan for tq={tq} tk={tk} hd={hd}")
+    n_full, rem = divmod(tk, _KEY_TILE)
+    tail = 1 if 0 < rem <= _KEY_TAIL else 0
+    if rem > _KEY_TAIL:
+        n_full += 1  # one more 128-key tile, its keys past tk masked
+    keys = tuple((j * _KEY_TILE, _KEY_TILE) for j in range(n_full)) + (
+        ((n_full * _KEY_TILE, _KEY_TAIL),) if tail else ())
+    hdp = _round_up(hd, 16)
+    panels = tuple((c, min(64, hdp - c), 64 if hdp - c >= 48 else hdp - c) for c in range(0, hdp, 64))
+    q_tiles = tuple((r, _Q_ROWS) for r in range(0, tq, _Q_ROWS))
+    return AttnPlan(q_tiles, keys, panels, hdp, n_full, tail)
 
 
 def flash_supported(tq: int, tk: int, hd: int) -> bool:
@@ -82,7 +125,8 @@ def flash_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float) -
         raise ValueError(f"flash_mha kernel does not take tq={tq} tk={tk} hd={hd}")
     if any(not t.is_contiguous() or t.data_ptr() % 16 for t in (q, k, v)):
         raise ValueError("flash_mha kernel takes contiguous, 16-byte aligned q, k, v")
-    hdp = -(-hd // 16) * 16
+    plan = _attn_plan(tq, tk, hd)
+    hdp = plan.hd_padded
     if hdp != hd:
         # zero columns add 0 to q·k and give zero output columns (sliced off)
         q, k, v = (F.pad(t, (0, hdp - hd)) for t in (q, k, v))
@@ -93,7 +137,7 @@ def flash_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float) -
     with torch.cuda.device(q.device):
         rc = lib.hmm_flash_mha_bf16(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            b * h, tq, tk, hdp, float(scale),
+            b, h, tq, tk, hdp, plan.n_full, plan.tail, float(scale),
             torch.cuda.current_stream(q.device).cuda_stream,
         )
     if rc != 0:
@@ -177,7 +221,8 @@ def flash_mha_bthd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: flo
         raise NotImplementedError(f"the flash_mha_bthd CUDA kernel takes bfloat16 only, got {q.dtype}")
     if hd > _MAX_HD:
         raise ValueError(f"flash_mha_bthd kernel takes hd <= {_MAX_HD}, got {hd}")
-    hdp = -(-hd // 16) * 16
+    plan = _attn_plan(tq, tk, hd)
+    hdp = plan.hd_padded
     if hdp != hd:
         # the padding copies, as the JAX wrapper's pad does; zero columns add
         # 0 to q·k and give zero output columns (sliced off)
@@ -195,7 +240,7 @@ def flash_mha_bthd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: flo
     with torch.cuda.device(q.device):
         rc = lib.hmm_flash_mha_bthd_bf16(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, h, tq, tk, hdp,
-            *_bht_strides(q), *_bht_strides(k), *_bht_strides(v), float(scale),
+            *_bht_strides(q), *_bht_strides(k), *_bht_strides(v), plan.n_full, plan.tail, float(scale),
             torch.cuda.current_stream(q.device).cuda_stream,
         )
     if rc != 0:

@@ -7,7 +7,8 @@ text substitutions SUBS applied (``old|||new`` pairs joined by ``;;``; an
 empty SUBS is the source as it is) into its own library under
 hippomm_tpu_torch/_build/variants/, then runs K2 at the vision, audio and
 Whisper ingest shapes and K3 at the vision shape through each library in
-turn, twice: the max error against the plain version (relative to max |out|),
+turn, twice (after each variant's ptxas registers, spills and notes of
+serialized wgmma): the max error against the plain version (relative to max |out|),
 ms per call over rotating weight sets (chip_smoke.cuda_ms) and device µs per
 kernel (chip_smoke.device_us). A variant that changes the function (an
 epilogue taken out) shows it in its error; the times say what the removed
@@ -21,6 +22,7 @@ from __future__ import annotations
 
 import ctypes
 import os
+import re
 import subprocess
 import sys
 
@@ -30,33 +32,41 @@ SHAPES = [((8224, 1280, 5120), False), ((21984, 768, 3072), False), ((6000, 1280
           ((8224, 1280, 5120), True)]
 
 
-def build(variants: dict) -> dict:
-    """One shared library per variant, all nvcc processes started together."""
+def build(variants: dict, source: str = "fused_mlp.cu", entries=ENTRIES) -> dict:
+    """One shared library per variant of csrc/`source`, all nvcc processes
+    started together; each binds `entries` as the kernel library does."""
     from hippomm_tpu_torch.ops import _native
 
-    src = open(os.path.join(HERE, "hippomm_tpu_torch", "csrc", "fused_mlp.cu")).read()
+    src = open(os.path.join(_native._CSRC, source)).read()
     out_dir = os.path.join(_native.BUILD_DIR, "variants")
     os.makedirs(out_dir, exist_ok=True)
-    flags = [f for f in _native.NVCC_FLAGS if f not in ("-Xptxas", "-v")]
+    flags = _native.NVCC_FLAGS
     procs = {}
     for name, subs in variants.items():
         text = src
         for sub in filter(None, subs.split(";;")):
             old, new = sub.split("|||")
             if old not in text:
-                sys.exit(f"variant {name}: {old!r} is not in csrc/fused_mlp.cu")
+                sys.exit(f"variant {name}: {old!r} is not in csrc/{source}")
             text = text.replace(old, new)
         cu, lib = os.path.join(out_dir, f"{name}.cu"), os.path.join(out_dir, f"lib{name}.so")
         with open(cu, "w") as f:
             f.write(text)
-        procs[name] = (lib, subprocess.Popen([_native._nvcc(), *flags, "-shared", "-o", lib, cu]))
+        procs[name] = (lib, subprocess.Popen(
+            [_native._nvcc(), *flags, "-I", _native._CSRC, "-shared", "-o", lib, cu],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     real = _native.kernels()
     libs = {}
     for name, (path, proc) in procs.items():
-        if proc.wait() != 0:
-            sys.exit(f"variant {name} does not build")
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            sys.exit(f"variant {name} does not build:\n{log}")
+        regs = sorted({int(r) for r in re.findall(r"Used (\d+) registers", log)})
+        spills = sorted({int(r) for r in re.findall(r"(\d+) bytes spill stores", log)})
+        print(f"variant {name}: registers {regs}, spill stores {spills}, "
+              f"{log.count('C7515')} ptxas notes of serialized wgmma", flush=True)
         lib = ctypes.CDLL(path)
-        for fn in ENTRIES:
+        for fn in entries:
             getattr(lib, fn).argtypes = getattr(real, fn).argtypes
             getattr(lib, fn).restype = getattr(real, fn).restype
         libs[name] = lib

@@ -1,0 +1,41 @@
+"""The K1/K4 kernel's tile plan (ops/flash_attention._attn_plan), checked on
+the CPU at the path shapes and the routing gate's edges: the kernel takes
+its tiles from this plan, so a plan that leaves a key, a query row or an hd
+column out would show only on the card."""
+
+import pytest
+
+from hippomm_tpu_torch.ops import flash_attention as tfa
+
+
+def _cover(tiles, n):
+    """The tiles' [start, start + length) clipped to [0, n): each index once."""
+    seen = [0] * n
+    for start, length in tiles:
+        for i in range(start, min(start + length, n)):
+            seen[i] += 1
+    return seen == [1] * n and all(start < n for start, _ in tiles)
+
+
+@pytest.mark.parametrize(
+    "b,h,tq,tk,hd",
+    # vision, audio, the Whisper encoder; a short ragged one and hd 40
+    # (padded to 48); the smallest shape and the gate's largest
+    [(32, 16, 257, 257, 80), (96, 12, 229, 230, 64), (4, 20, 1500, 1500, 64), (2, 3, 33, 40, 48),
+     (2, 3, 33, 40, 40), (1, 1, 1, 1, 16), (1, 1, 2048, 2048, 128)],
+)
+def test_attn_plan_covers_the_shape(b, h, tq, tk, hd):
+    assert tfa.flash_supported(tq, tk, hd)
+    plan = tfa._attn_plan(tq, tk, hd)
+    assert _cover(plan.key_tiles, tk)
+    assert all(w % 16 == 0 and 16 <= w <= 256 for _, w in plan.key_tiles)
+    # the C entry points' form: n_full tiles of 128, then one of 16 if tail
+    assert [w for _, w in plan.key_tiles] == [128] * plan.n_full + [16] * plan.tail
+    assert [s for s, _ in plan.key_tiles] == [128 * j for j in range(len(plan.key_tiles))]
+    assert _cover(plan.q_tiles, tq)
+    # hd panels: 64-column panels, then the rest; each stored at a swizzle
+    # width (16, 32 or 64 columns) that holds its columns
+    assert plan.hd_padded % 16 == 0 and hd <= plan.hd_padded < hd + 16
+    assert _cover([(c, n) for c, n, _ in plan.panels], plan.hd_padded)
+    assert all(n <= w and w in (16, 32, 64) for _, n, w in plan.panels)
+    assert all(n == 64 for _, n, _ in plan.panels[:-1])

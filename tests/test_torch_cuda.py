@@ -25,9 +25,13 @@ def cuda_device():
 @pytest.mark.parametrize(
     "shape",
     # the two ImageBind ingest shapes, the Whisper encoder's, a short ragged
-    # one, and hd 40, which the wrapper pads to a multiple of 16
+    # one, and hd 40, which the wrapper pads to a multiple of 16; then the key
+    # tiles' edges (Tk 1 and 16: one 16-key tile; 17: one masked 128-key
+    # tile; 255, 256; 2048, the gate's limit), Tq 1, and hd 16 and 128
     [(32, 16, 257, 257, 80), (96, 12, 229, 230, 64), (4, 20, 1500, 1500, 64), (2, 3, 33, 40, 48),
-     (2, 3, 33, 40, 40)],
+     (2, 3, 33, 40, 40), (1, 2, 1, 1, 64), (2, 2, 1, 16, 80), (2, 2, 17, 17, 64),
+     (2, 2, 255, 255, 80), (2, 2, 256, 256, 64), (1, 2, 1, 2048, 64), (1, 2, 300, 2048, 128),
+     (2, 3, 70, 144, 16), (2, 2, 130, 140, 128), (1, 1, 1, 1, 16)],
 )
 def test_flash_kernel_matches_plain_on_cuda(cuda_device, shape):
     b, h, tq, tk, hd = shape
@@ -39,6 +43,28 @@ def test_flash_kernel_matches_plain_on_cuda(cuda_device, shape):
     out = tfa.flash_mha(q, k, v, hd ** -0.5)
     torch.cuda.synchronize()
     assert tfa.flash_mha.launches == before + 1
+    ref = tfa.flash_mha_ref(q, k, v, hd ** -0.5)
+    assert (out.float() - ref.float()).abs().max().item() <= 2e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tk,hd", [(1500, 64), (257, 80)])
+def test_flash_kernel_sharp_softmax_on_cuda(cuda_device, tk, hd):
+    """Inputs ×4 and keys sorted by their dot with the queries' common
+    direction, so each key tile raises the row max and the online rescale
+    carries the result. v is scaled by 1/4 so that outputs stay below 1 and
+    the 2e-2 gate keeps its margin of bf16 ulps."""
+    b, h, tq = 1, 2, 64
+    g = torch.Generator(device=cuda_device).manual_seed(11)
+    base = torch.randn((b, h, 1, hd), generator=g, device=cuda_device)
+    q = 4 * (base + 0.1 * torch.randn((b, h, tq, hd), generator=g, device=cuda_device))
+    k = 4 * torch.randn((b, h, tk, hd), generator=g, device=cuda_device)
+    order = torch.argsort((k * base).sum(-1), dim=-1)  # ascending logits along the keys
+    k = torch.gather(k, 2, order[..., None].expand(-1, -1, -1, hd))
+    v = 0.25 * torch.randn((b, h, tk, hd), generator=g, device=cuda_device)
+    q, k, v = (x.to(torch.bfloat16) for x in (q, k, v))
+    out = tfa.flash_mha(q, k, v, hd ** -0.5)
+    torch.cuda.synchronize()
     ref = tfa.flash_mha_ref(q, k, v, hd ** -0.5)
     assert (out.float() - ref.float()).abs().max().item() <= 2e-2
 
@@ -117,9 +143,10 @@ def test_fused_ln_mlp_residual_kernel_matches_plain_on_cuda(cuda_device, n, d, f
 @pytest.mark.parametrize(
     "b,t,h,hd,packed",
     # the vision tower's shape as (B, T, D) reshapes and as slices of a packed
-    # (B, T, 3D) projection (row stride 3D); a ragged one; hd 40 (padded)
+    # (B, T, 3D) projection (row stride 3D); a ragged one; hd 40 (padded);
+    # a packed one at Whisper's long Tk
     [(32, 257, 16, 80, False), (32, 257, 16, 80, True), (2, 33, 8, 64, True),
-     (2, 33, 4, 40, False)],
+     (2, 33, 4, 40, False), (2, 1500, 8, 64, True)],
 )
 def test_flash_bthd_kernel_matches_plain_on_cuda(cuda_device, b, t, h, hd, packed):
     d = h * hd
