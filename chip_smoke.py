@@ -7,15 +7,17 @@ Phases (any failure exits non-zero and prints no result line):
   2. kernels — K1 (flash attention), K2 (fused MLP), K3 (LN+MLP+residual)
      and K4 (attention in the (B, T, H, hd) layout) against their plain
      PyTorch versions at every shape the ingest and query paths give them,
-     in bf16, and K5 (cosine top-k) in fp32 at stores of 2e5 and 1e6 rows;
+     in bf16, and K5 (cosine top-k) in fp32 at stores of 2e5 and 1e6 rows
+     and an ascending-sorted 2e5 store;
      kernel, plain and library-call times (CUDA events) beside each bound
      and its share of it; K2/K3 and their library calls timed over rotating
      weight sets that overflow the L2 (as each encoder block finds its
      weights cold), the median of 5 such timings, with their tile plan,
      CUDA kernels per call, device µs per kernel (torch.profiler), host µs
      to enqueue a call; the same readings for K1/K4 (one launch per call,
-     warm inputs, the median of 5 timings) with their tile plan; ptxas's registers, spills and shared
-     memory for every kernel of csrc/flash_mha.cu and csrc/fused_mlp.cu
+     warm inputs, the median of 5 timings) and K5 (its plan, kernels per
+     call from the profiler: never more than one) with their plans; ptxas's registers, spills
+     and shared memory for every kernel of csrc/*.cu
   3. towers — the ImageBind-Huge vision and text towers through the
      kernels, in the default and in the fused-block configuration, and the
      Whisper distil-large-v3 encoder through the kernels, each against the
@@ -247,6 +249,12 @@ def device_us(fns, turns: int = 3):
     names), from torch.profiler over `turns` turns of `fns`; their sum beside
     the event-timed ms shows the host's share. None if the profiler records
     no device time."""
+    return profile_kernels(fns, turns)[0]
+
+
+def profile_kernels(fns, turns: int = 3):
+    """device_us, and the CUDA kernels launched per call (None without
+    device time)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -258,14 +266,15 @@ def device_us(fns, turns: int = 3):
             for f in fns:
                 f()
         torch.cuda.synchronize()
-    calls, out = turns * len(fns), {}
+    calls, out, launched = turns * len(fns), {}, 0
     for e in prof.key_averages():
         us = getattr(e, "device_time_total", 0.0)
         if us > 0 and "(" in e.key:
             name = e.key.replace("(anonymous namespace)::", "").replace("void ", "").split("(")[0]
             name = name.split("::")[-1]
             out[name] = out.get(name, 0.0) + us / calls
-    return out or None
+            launched += e.count
+    return out or None, (launched / calls if out else None)
 
 
 def check_attention_bthd(fa, shape, gen):
@@ -311,9 +320,13 @@ def topk_mismatch(vals, idx, rvals, ridx, tol: float = 1e-5):
     return None
 
 
-def check_topk(ttk, shape, gen):
+def check_topk(ttk, shape, gen, ascending: bool = False):
     """K5 over a store of unit rows (as the search route normalizes it once
-    at upload) and a random query."""
+    at upload) and a random query; with `ascending`, the rows sorted by
+    their similarity to it, lowest first (every row beats each block's
+    running threshold: the filter's worst case). Kernel, plain and library
+    ms, its plan, CUDA kernels per call, device µs per kernel
+    (torch.profiler) and host µs to enqueue a call."""
     import torch
 
     n, d, k = shape
@@ -321,37 +334,48 @@ def check_topk(ttk, shape, gen):
     feats = torch.randn((n, d), generator=gen, device=dev)
     feats /= feats.norm(dim=1, keepdim=True)
     q = torch.randn((d,), generator=gen, device=dev)
+    qn = q / q.norm().clamp_min(1e-8)
+    if ascending:
+        feats = feats[torch.argsort(feats @ qn)].contiguous()
     vals, idx = ttk.top_k_cosine_kernel(q, feats, k)
     torch.cuda.synchronize()
     rvals, ridx = ttk.top_k_cosine_ref(q, feats, k)
     bad = topk_mismatch(vals, idx, rvals, ridx)
     if bad:
-        fail(f"top_k_cosine {shape}: {bad}")
-    qn = q / q.norm().clamp_min(1e-8)
+        fail(f"top_k_cosine {shape}{' ascending' if ascending else ''}: {bad}")
     # the store read once, q read and k values + k indices written once;
     # 4 flops per element (dot and sum of squares) on the fp32 CUDA cores
     b_ms, b_by = bound(4 * n * d + 4 * d + 8 * k, 4 * n * d, PEAK_FP32_FLOP_S)
-    return {
-        "shape": list(shape), "max_abs_err": (vals - rvals).abs().max().item(),
-        "ms": cuda_ms(lambda: ttk.top_k_cosine_kernel(q, feats, k)),
+    kernel = lambda: ttk.top_k_cosine_kernel(q, feats, k)  # noqa: E731
+    us, per_call = profile_kernels([kernel])
+    row = {
+        "shape": list(shape), "ascending": ascending, "max_abs_err": (vals - rvals).abs().max().item(),
+        "ms": cuda_ms(kernel, iters=20, repeats=5),
         "plain_ms": cuda_ms(lambda: ttk.top_k_cosine_ref(q, feats, k), iters=3, warmup=1),
-        "library_ms": cuda_ms(lambda: torch.topk(feats @ qn, k)),
+        "library_ms": cuda_ms(lambda: torch.topk(feats @ qn, k), iters=20, repeats=5),
         "bound_ms": b_ms, "bound_by": b_by,
+        "plan": ttk._topk_plan(n, d, k, torch.cuda.get_device_properties(0).multi_processor_count)._asdict(),
+        "kernels_per_call": per_call, "device_us": us, "host_us": host_us([kernel]),
     }
+    # the trace may drop an event (a reading under one is the profiler's);
+    # more than one kernel a call would be the wrapper's
+    if per_call is not None and per_call > 1:
+        fail(f"top_k_cosine {shape}: {per_call} CUDA kernels per call, not one")
+    return row
 
 
 _EPILOGUES = {"0": "gelu", "1": "bias", "2": "bias+residual", "3": "fp32 partial"}
 
 
-def build_report(native):
-    """Registers, spills and shared memory of each kernel of csrc/flash_mha.cu
-    and csrc/fused_mlp.cu, from ptxas -v in the build log; the dynamic shared
-    memory of an attention block (at its hd) and of a GEMM pass (its ring at
-    that tile width) from the library."""
+def build_report(native, topk_plan):
+    """Registers, spills and shared memory of each kernel of csrc/*.cu, from
+    ptxas -v in the build log; the dynamic shared memory of an attention
+    block (at its hd) and of a GEMM pass (its ring at that tile width) from
+    the library, and of a K5 block from `topk_plan` (the 2e5-row store's)."""
     import re
 
     out = []
-    for source in ("flash_mha.cu", "fused_mlp.cu"):
+    for source in ("flash_mha.cu", "fused_mlp.cu", "topk_cosine.cu"):
         log = native.build_log.split(f"== {source}\n", 1)[-1].split("\n== ", 1)[0]
         for block in log.split("Compiling entry function '")[1:]:
             mangled = block.split("'", 1)[0]
@@ -367,6 +391,8 @@ def build_report(native):
             elif gemm:
                 name = f"gemm_tn<BN {gemm.group(1)}, {_EPILOGUES[gemm.group(2)]}>"
                 dyn = native.kernels().hmm_fused_mlp_smem_bytes(int(gemm.group(1)))
+            elif "topk_cosine" in mangled:
+                name, dyn = "topk_cosine", topk_plan["smem_bytes"]
             else:
                 name, dyn = (kind.group(1) if kind else mangled), 0
             out.append({
@@ -390,8 +416,8 @@ def set_fused_flags(fa, fm, on: bool) -> None:
             os.environ[flag] = "1"
         else:
             os.environ.pop(flag, None)
-    fa.bthd_default.cache_clear()
-    fm.fused_block_default.cache_clear()
+    for policy in (fa.flash_default, fa.bthd_default, fm.fused_mlp_default, fm.fused_block_default):
+        policy.cache_clear()
 
 
 _STORE_ROWS = weakref.WeakKeyDictionary()  # index -> {(event id, row in event): store row}
@@ -734,9 +760,11 @@ def main() -> int:
             (8224, 1280, 5120), (21984, 768, 3072), (77, 1024, 4096), (616, 1024, 4096))],
         "flash_mha_bthd": [check_attention_bthd(fa, (32, 257, 16, 80), gen)],
         # the JAX package's store scale, search's first round, and 1e6 rows
-        # at the kernel's k limit
+        # at the kernel's k limit; then an ascending-sorted 2e5 store
+        # (reported: the filter's worst case)
         "top_k_cosine": [check_topk(ttk, s, gen) for s in (
-            (200_000, 1024, 20), (200_000, 1024, 40), (1_000_000, 1024, 128))],
+            (200_000, 1024, 20), (200_000, 1024, 40), (1_000_000, 1024, 128))]
+        + [check_topk(ttk, (200_000, 1024, 20), gen, ascending=True)],
     }
     torch.cuda.empty_cache()
     for name, rs in rows.items():
@@ -748,11 +776,12 @@ def main() -> int:
                      f"{ {k: round(v, 2) for k, v in (r['device_us'] or {}).items()} }, "
                      f"host µs per call {r['host_us']:.1f}"
                      if "plan" in r else "")
-            print(f"{name} {r['shape']}: err {r['max_abs_err']:.3g} kernel {r['ms']:.4f} ms "
+            print(f"{name} {r['shape']}{' ascending' if r.get('ascending') else ''}: "
+                  f"err {r['max_abs_err']:.3g} kernel {r['ms']:.4f} ms "
                   f"plain {r['plain_ms']:.4f} ms library {r['library_ms']:.4f} ms "
                   f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}), {r['pct_of_bound']:.1f} % of "
                   f"bound{extra}", flush=True)
-    report["kernel_build"] = build_report(_native)
+    report["kernel_build"] = build_report(_native, rows["top_k_cosine"][0]["plan"])
     for k in report["kernel_build"]:
         print(f"build {k['source']} {k['kernel']}: {k['registers']} registers, {k['spill_stores']} / "
               f"{k['spill_loads']} bytes spill stores / loads, {k['static_smem']} bytes static and "

@@ -1,7 +1,8 @@
 // Hopper (sm_90a) building blocks shared by the port's kernels (flash_mha.cu,
-// fused_mlp.cu): mbarriers, TMA loads, wgmma shared-memory descriptors and
-// instructions, the ping-pong named barriers, and the host-side tensor-map
-// encoder. Each including source gets its own copy (anonymous namespace).
+// fused_mlp.cu, topk_cosine.cu): mbarriers, TMA and 1-D bulk loads, wgmma
+// shared-memory descriptors and instructions, the ping-pong named barriers,
+// and the host-side tensor-map encoder. Each including source gets its own
+// copy (anonymous namespace).
 
 #pragma once
 
@@ -51,6 +52,17 @@ __device__ __forceinline__ void mbar_arrive(uint32_t bar) {
 __device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
   asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
                : "memory");
+}
+
+// 1-D bulk copy of `bytes` contiguous bytes from global to shared memory,
+// completing on `bar` (its expect_tx counts them): both addresses 16-byte
+// aligned, `bytes` a multiple of 16. No tensor map: the copy engine walks a
+// flat range (K5's row chunks).
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(bar)
+      : "memory");
 }
 
 // 2-D TMA load of the box at (c0 = column, c1 = row) into shared memory

@@ -13,12 +13,15 @@ the dtype:
   * mask-free attention → K4 `flash_mha_bthd` on the native (B, T, H, hd)
     views when HIPPOMM_FLASH_BTHD=1 and `bthd_supported` admits the shape
     (ImageBind vision, H = 16), else K1 `flash_mha` on head-split copies
-    (ops/flash_attention);
+    (ops/flash_attention); both only under `flash_default()`
+    (HIPPOMM_FLASH_ATTN=0 takes the plain torch ops);
   * the encoder block's x + mlp(ln_2(x)) → K3 `fused_ln_mlp_residual` when
     HIPPOMM_FUSED_BLOCK=1 (`_mlp_halfblock`), else `mlp(cast_out=True)` → K2
-    `fused_mlp` (ops/fused_mlp).
+    `fused_mlp` (ops/fused_mlp) under `fused_mlp_default()`
+    (HIPPOMM_FUSED_MLP=0 takes the plain torch ops).
 On CPU tensors the kernel wrappers run their plain versions; on CUDA a call
-the kernels cannot take (fp32) raises NotImplementedError.
+the kernels cannot take (fp32) raises NotImplementedError. A flag at 0 is
+the user's choice of the plain ops, not a fallback.
 """
 
 from __future__ import annotations
@@ -132,7 +135,7 @@ def attention(
             mask = F.pad(mask, (0, 1))
 
     scale = 1.0 / math.sqrt(hd)
-    if mask is None and fa.bthd_default():
+    if mask is None and fa.flash_default() and fa.bthd_default():
         # transpose-free route (JAX layers.attention): K4 reads q/k/v in the
         # (B, T, H, hd) layout their reshape gives for free, and writes the
         # output in it, which out_proj reads with a free reshape
@@ -152,7 +155,7 @@ def attention(
 
     q, k, v = split(q), split(k), split(v)
     b_, _, t_, _ = q.shape
-    if mask is None and flash_supported(q.shape[2], k.shape[2], hd):
+    if mask is None and fa.flash_default() and flash_supported(q.shape[2], k.shape[2], hd):
         out = flash_mha(q, k, v, scale)
     else:
         logits = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
@@ -171,7 +174,7 @@ def mlp(p: Params, x: torch.Tensor, dtype=torch.bfloat16, cast_out: bool = False
     if cast_out and p["fc1"].get("bias") is not None and p["fc2"].get("bias") is not None:
         f, d = p["fc1"]["weight"].shape
         n = math.prod(x.shape[:-1])
-        if fused_mlp_supported(n, d, f):
+        if fm.fused_mlp_default() and fused_mlp_supported(n, d, f):
             y = fused_mlp(
                 x.reshape(n, d).to(dtype),
                 p["fc1"]["weight"], p["fc1"]["bias"], p["fc2"]["weight"], p["fc2"]["bias"],

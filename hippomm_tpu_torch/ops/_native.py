@@ -117,9 +117,7 @@ def kernels() -> ctypes.CDLL:
         lib.hmm_fused_ln_mlp_residual_bf16.restype = i32
         lib.hmm_fused_mlp_smem_bytes.argtypes = [i32]
         lib.hmm_fused_mlp_smem_bytes.restype = i32
-        lib.hmm_topk_tile_rows.argtypes = []
-        lib.hmm_topk_tile_rows.restype = i32
-        lib.hmm_topk_cosine_f32.argtypes = [vp, vp, i32, i32, i32, vp, vp, vp, vp, vp]
+        lib.hmm_topk_cosine_f32.argtypes = [vp, vp, *[i32] * 7, vp, vp, vp]
         lib.hmm_topk_cosine_f32.restype = i32
         _kernels = lib
         return lib

@@ -155,6 +155,15 @@ flash_mha.launches = 0
 
 
 @functools.lru_cache(maxsize=1)
+def flash_default() -> bool:
+    """Route policy for K1 and K4, as the JAX package's: HIPPOMM_FLASH_ATTN=0
+    (or false/off) sends mask-free attention to the plain torch ops, 1/true/on
+    forces the kernels; "auto" (the default) is on — on CUDA the kernels, on
+    the CPU the wrappers' plain versions."""
+    return os.environ.get("HIPPOMM_FLASH_ATTN", "auto").lower() not in ("0", "false", "off")
+
+
+@functools.lru_cache(maxsize=1)
 def bthd_default() -> bool:
     """Route policy for the transpose-free layout, as the JAX package's:
     HIPPOMM_FLASH_BTHD=1 turns it on; default off."""

@@ -208,6 +208,15 @@ def fused_mlp(x, w1, b1, w2, b2) -> torch.Tensor:
 fused_mlp.launches = 0
 
 
+@functools.lru_cache(maxsize=1)
+def fused_mlp_default() -> bool:
+    """Route policy for K2, as the JAX package's: HIPPOMM_FUSED_MLP=0 (or
+    false/off) sends the MLP to the plain torch ops, 1/true/on forces the
+    kernel; "auto" (the default) is on — on CUDA the kernel, on the CPU the
+    wrapper's plain version."""
+    return os.environ.get("HIPPOMM_FUSED_MLP", "auto").lower() not in ("0", "false", "off")
+
+
 # ---------------------------------------------------------------------------
 # K3: LN → MLP → residual, one pass
 # ---------------------------------------------------------------------------

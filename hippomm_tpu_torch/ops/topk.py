@@ -7,9 +7,11 @@ best (values (k,) fp32, row indices (k,) int32) by cosine similarity, rows
 normalised by rsqrt(max(Σf², 1e-16)) and the query by max(‖q‖, 1e-8), k ≤
 128. Only the k values and k indices leave the card.
 
-The kernel is CUDA C++ in csrc/topk_cosine.cu: one block per 1024-row tile
-computes its similarities from one read of the rows and keeps its best k,
-then one block merges the tiles' candidates. `top_k_cosine_ref` is the same
+The kernel is CUDA C++ in csrc/topk_cosine.cu, one launch: a persistent,
+balanced grid (`_topk_plan`) of blocks that each stream one contiguous row
+range through a shared-memory ring filled by bulk copies, keep their running
+top-k behind a threshold filter, and hand their k candidates to the block
+that finishes last, which merges them. `top_k_cosine_ref` is the same
 function in plain PyTorch. Both order the result by value, then by lower row
 index at equal values — lax.top_k's order, which the JAX product route
 (ops/similarity.top_k_cosine) uses; the TPU kernel's own merge let a later
@@ -22,11 +24,83 @@ version for a CPU tensor; a CUDA call the kernel cannot take raises.
 
 from __future__ import annotations
 
-from typing import Tuple
+import functools
+from typing import NamedTuple, Tuple
 
 import torch
 
 MAX_K = 128  # the TPU kernel's contract (one 128-lane row of running top-k)
+
+# The kernel's fixed sizes (csrc/topk_cosine.cu): a block's list and
+# candidate buffer, its ring's bounds, and the card's shared memory.
+_LIST = 1024  # entries: the running top-k, then the candidate buffer
+_CHUNK_BYTES = 32 * 1024  # a ring slot: whole rows, about this many bytes
+_RING_BYTES = 96 * 1024  # a block's ring, about this many bytes
+_MAX_STAGES = 8
+_MAX_BLOCKS_PER_SM = 2
+_SMEM_BLOCK = 232_448  # the most a block may use (H100)
+_SMEM_SM = 233_472  # an SM's, shared by its blocks, each of which reserves 1 KB
+_SMEM_STATIC = 256  # the kernel's static shared memory (128 bytes), rounded up
+_MERGE_MIN = 4096  # entries the merge needs in the ring's shared memory
+
+
+class TopkPlan(NamedTuple):
+    """One kernel call: `blocks` blocks, block b over rows
+    [b·n // blocks, (b+1)·n // blocks) (`_block_rows`), streamed in chunks
+    of `chunk_rows` rows through a ring of `stages` slots; `smem_bytes` of
+    dynamic shared memory a block, `blocks_per_sm` of them resident on an
+    SM; `scratch_entries` (= blocks · k) candidates handed to the merge."""
+
+    blocks: int
+    rows_per_block: int
+    chunk_rows: int
+    stages: int
+    smem_bytes: int
+    blocks_per_sm: int
+    scratch_entries: int
+
+
+def _smem_bytes(d: int, chunk_rows: int, stages: int, blocks: int) -> int:
+    """The kernel's shared-memory layout (`Layout` in the source): ring
+    (128-byte aligned), q, list and buffer, a count per block, barriers."""
+    ring = -(-stages * chunk_rows * 4 * d // 128) * 128
+    return ring + 4 * d + 8 * _LIST + -(-4 * (blocks + 1) // 16) * 16 + 16 * stages
+
+
+def _pow2_at_least(x: int) -> int:
+    p = 2
+    while p < x:
+        p *= 2
+    return p
+
+
+@functools.lru_cache(maxsize=256)
+def _topk_plan(n: int, d: int, k: int, sm_count: int) -> TopkPlan:
+    """The kernel's plan for a store (n, d) and k on a card of `sm_count`
+    SMs: about 32 KB of whole rows a chunk, a ring of about 96 KB (2-8
+    chunks), as many blocks as fit on an SM up to 2, and min(chunks, SMs ×
+    blocks per SM) blocks with ranges that differ by at most one row."""
+    if n < 1 or d < 4 or d % 4 or not 1 <= k <= min(MAX_K, n) or sm_count < 1:
+        raise ValueError(f"no top-k plan for n={n} d={d} k={k} sm_count={sm_count}")
+    chunk_rows = max(1, min(_LIST - MAX_K, _CHUNK_BYTES // (4 * d)))
+    stages = max(2, min(_MAX_STAGES, _RING_BYTES // (4 * d * chunk_rows)))
+    most = _smem_bytes(d, chunk_rows, stages, _MAX_BLOCKS_PER_SM * sm_count)
+    per_sm = min(_MAX_BLOCKS_PER_SM, _SMEM_SM // (most + _SMEM_STATIC + 1024))
+    if most + _SMEM_STATIC > _SMEM_BLOCK or per_sm < 1:
+        raise ValueError(f"top-k kernel: rows of D={d} do not fit its shared memory")
+    blocks = min(-(-n // chunk_rows), sm_count * per_sm)
+    # the merge: the lists' heads (at least k of them) and a group behind k
+    # rows in the ring's shared memory
+    if (stages * chunk_rows * 4 * d < 8 * _MERGE_MIN
+            or _pow2_at_least(blocks * -(-k // blocks)) > _MERGE_MIN):
+        raise ValueError(f"no top-k plan for n={n} d={d} k={k} sm_count={sm_count}")
+    return TopkPlan(blocks, n // blocks, chunk_rows, stages,
+                    _smem_bytes(d, chunk_rows, stages, blocks), per_sm, blocks * k)
+
+
+def _block_rows(n: int, blocks: int, b: int) -> Tuple[int, int]:
+    """Block b's rows [start, stop), as the kernel computes them."""
+    return b * n // blocks, (b + 1) * n // blocks
 
 
 def _check(query: torch.Tensor, feats: torch.Tensor, k: int) -> None:
@@ -56,13 +130,37 @@ def top_k_cosine_ref(query: torch.Tensor, feats: torch.Tensor, k: int) -> Tuple[
     return vals[:k], idx[:k].to(torch.int32)
 
 
-def top_k_cosine_kernel(query: torch.Tensor, feats: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+@functools.lru_cache(maxsize=None)
+def _sm_count(device_index: int) -> int:
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
+
+
+# (device index, stream) -> int32 scratch: [ticket, -, -, -], then the
+# blocks' candidates. The ticket starts at 0 and every call leaves it at 0,
+# so the buffer is kept and never cleared; one per stream, so that calls on
+# two streams never share a ticket.
+_scratch = {}
+
+
+def _scratch_for(dev: torch.device, stream: int, entries: int) -> torch.Tensor:
+    key = (dev.index, stream)
+    buf = _scratch.get(key)
+    if buf is None or buf.numel() < 4 + 2 * entries:
+        most = 4 + 2 * _MAX_BLOCKS_PER_SM * _sm_count(dev.index) * MAX_K
+        buf = _scratch[key] = torch.zeros((max(most, 4 + 2 * entries),), dtype=torch.int32, device=dev)
+    return buf
+
+
+def top_k_cosine_kernel(query: torch.Tensor, feats: torch.Tensor, k: int, packed: bool = False):
     """(values (k,) fp32, indices (k,) int32): the CUDA kernel for CUDA
-    tensors, the plain version for CPU tensors. Counts kernel launches in
+    tensors, the plain version for CPU tensors. With `packed`, one (2, k)
+    int32 tensor instead — the values' bits, then the indices — which a
+    caller reads back to the host in one copy. Counts kernel launches in
     `top_k_cosine_kernel.launches`."""
     _check(query, feats, k)
     if feats.device.type == "cpu":
-        return top_k_cosine_ref(query, feats, k)
+        vals, idx = top_k_cosine_ref(query, feats, k)
+        return torch.stack((vals.view(torch.int32), idx)) if packed else (vals, idx)
     if feats.device.type != "cuda":
         raise ValueError(f"top_k_cosine_kernel: unsupported device {feats.device}")
     n, d = feats.shape
@@ -75,21 +173,20 @@ def top_k_cosine_kernel(query: torch.Tensor, feats: torch.Tensor, k: int) -> Tup
     from hippomm_tpu_torch.ops import _native
 
     lib = _native.kernels()
-    nb = -(-n // lib.hmm_topk_tile_rows())
     dev = feats.device
-    cand_v = torch.empty((nb * k,), dtype=torch.float32, device=dev)
-    cand_i = torch.empty((nb * k,), dtype=torch.int32, device=dev)
-    vals = torch.empty((k,), dtype=torch.float32, device=dev)
-    idx = torch.empty((k,), dtype=torch.int32, device=dev)
+    plan = _topk_plan(n, d, k, _sm_count(dev.index))
+    out = torch.empty((2, k), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        scratch = _scratch_for(dev, stream, plan.scratch_entries)
         rc = lib.hmm_topk_cosine_f32(
-            q.data_ptr(), feats.data_ptr(), n, d, k, cand_v.data_ptr(), cand_i.data_ptr(),
-            vals.data_ptr(), idx.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
+            q.data_ptr(), feats.data_ptr(), n, d, k, plan.blocks, plan.chunk_rows, plan.stages,
+            plan.smem_bytes, scratch.data_ptr(), out.data_ptr(), stream,
         )
     if rc != 0:
         raise RuntimeError(f"hmm_topk_cosine_f32 kernel launch failed: CUDA error {rc}")
     top_k_cosine_kernel.launches += 1
-    return vals, idx
+    return out if packed else (out[0].view(torch.float32), out[1])
 
 
 top_k_cosine_kernel.launches = 0

@@ -132,10 +132,13 @@ class FeatureSearchIndex:
         feats = self._device_feats()
         q = torch.as_tensor(q, dtype=torch.float32, device=self.device).reshape(-1)
         if k <= MAX_K:
-            vals, idx = top_k_cosine_kernel(q, feats, k)
+            both = top_k_cosine_kernel(q, feats, k, True)  # packed
         else:
             vals, idx = top_k_cosine_prenorm(q, feats, k)
-        return fetch(vals, np.float32), idx.cpu().numpy().astype(np.int64)
+            both = torch.stack((vals.view(torch.int32), idx.to(torch.int32)))
+        # one device→host copy (and one wait) for the values' bits and the rows
+        both = both.cpu().numpy()
+        return both[0].view(np.float32), both[1].astype(np.int64)
 
     def _topk_batch(self, queries: np.ndarray, k: int) -> Tuple[np.ndarray, np.ndarray]:
         """(Q, D) queries → ((Q, k) values, (Q, k) global indices), routed

@@ -244,11 +244,11 @@ def _topk_agree(vals, idx, rvals, ridx, tol=1e-5):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("n,k", [(5000, 1), (5000, 40), (5000, 128), (100_003, 128), (700, 128),
-                                 (1074, 128)])
+                                 (1074, 128), (130, 128), (1, 1)])
 def test_topk_kernel_matches_plain_on_cuda(cuda_device, n, k):
-    """K5 against its plain version: N not a multiple of the 1024-row tile,
-    k at its ends, a store of one partial tile, and a last tile with fewer
-    rows than k."""
+    """K5 against its plain version: N not a multiple of a chunk, k at its
+    ends, blocks with fewer rows than k, and stores smaller than the grid
+    (130 rows in 17 blocks of 7-8 at k 128; one row)."""
     g = torch.Generator(device=cuda_device).manual_seed(5)
     feats = torch.randn((n, 1024), generator=g, device=cuda_device)
     q = torch.randn((1024,), generator=g, device=cuda_device)
@@ -290,3 +290,177 @@ def test_topk_kernel_contract_on_cuda(cuda_device):
     with pytest.raises(NotImplementedError, match="D % 4"):
         odd = torch.zeros((300, 66), device=cuda_device)
         ttk.top_k_cosine_kernel(odd[0], odd, 5)
+
+
+def _topk_on_cuda(q, feats, k):
+    """K5 on the card, one launch, against its plain version."""
+    before = ttk.top_k_cosine_kernel.launches
+    vals, idx = ttk.top_k_cosine_kernel(q, feats, k)
+    torch.cuda.synchronize()
+    assert ttk.top_k_cosine_kernel.launches == before + 1
+    assert vals.shape == idx.shape == (k,) and idx.dtype == torch.int32
+    rvals, ridx = ttk.top_k_cosine_ref(q, feats, k)
+    _topk_agree(vals, idx, rvals, ridx)
+    return vals, idx, rvals, ridx
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [20, 128])
+def test_topk_kernel_ascending_store_on_cuda(cuda_device, k):
+    """Rows sorted by ascending similarity to the query: every row beats
+    each block's running threshold, the filter's worst case, so every
+    candidate buffer fills and is sorted down at every flush."""
+    g = torch.Generator(device=cuda_device).manual_seed(12)
+    feats = torch.randn((200_000, 1024), generator=g, device=cuda_device)
+    q = torch.randn((1024,), generator=g, device=cuda_device)
+    sims = (feats * torch.rsqrt((feats * feats).sum(dim=1, keepdim=True))) @ (q / q.norm())
+    feats = feats[torch.argsort(sims)].contiguous()
+    _topk_on_cuda(q, feats, k)
+
+
+@pytest.mark.cuda
+def test_topk_kernel_equal_rows_across_blocks_on_cuda(cuda_device):
+    """Every row equal at k 128 over 264 blocks: all ties, lower row first;
+    each block's list holds only ties, and the merge's prefixes overflow
+    one group of its shared memory (its slow, grouped path)."""
+    row = torch.randn((1, 1024), generator=torch.Generator(device=cuda_device).manual_seed(13),
+                      device=cuda_device)
+    feats = row.expand(200_000, 1024).contiguous()
+    vals, idx = ttk.top_k_cosine_kernel(row[0], feats, 128)
+    torch.cuda.synchronize()
+    assert torch.equal(idx.cpu(), torch.arange(128, dtype=torch.int32))
+    assert (vals == vals[0]).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,d,k", [(5000, 4, 40), (300, 4, 128), (20_000, 2048, 128), (7, 2048, 7)])
+def test_topk_kernel_narrow_and_wide_rows_on_cuda(cuda_device, n, d, k):
+    """D 4 (a float4 a row: 896-row chunks) and D 2048 (4-row chunks, one
+    block an SM)."""
+    g = torch.Generator(device=cuda_device).manual_seed(14)
+    _topk_on_cuda(torch.randn((d,), generator=g, device=cuda_device),
+                  torch.randn((n, d), generator=g, device=cuda_device), k)
+
+
+@pytest.mark.cuda
+def test_topk_kernel_store_past_2_31_elements_on_cuda(cuda_device):
+    """2 200 000 × 1024 (2.25e9 elements, 9 GB): row offsets past 2³¹
+    elements; the best rows are planted past that point and at the start."""
+    n, d = 2_200_000, 1024
+    g = torch.Generator(device=cuda_device).manual_seed(15)
+    feats = torch.empty((n, d), device=cuda_device)
+    for lo in range(0, n, 200_000):
+        feats[lo:lo + 200_000].normal_(generator=g)
+    q = torch.randn((d,), generator=g, device=cuda_device)
+    for r in (3, n - 1, n - 7, 2_097_153, 2_150_000):
+        feats[r] = q + 0.1 * torch.randn((d,), generator=g, device=cuda_device)
+    vals, idx = ttk.top_k_cosine_kernel(q, feats, 128)
+    torch.cuda.synchronize()
+    assert set(idx[:5].tolist()) == {3, n - 1, n - 7, 2_097_153, 2_150_000}
+    qn = q / q.norm()
+    for j in range(0, 128, 9):  # each value is its row's cosine
+        f = feats[int(idx[j])].double()
+        assert abs(float(f @ qn.double()) / float(f.norm()) - float(vals[j])) <= 1e-5
+    # the plain version in slices of the store: the same top 128
+    best_v, best_i = [], []
+    for lo in range(0, n, 400_000):
+        v, i = ttk.top_k_cosine_ref(q, feats[lo:lo + 400_000], 128)
+        best_v.append(v)
+        best_i.append(i.long() + lo)
+    v, i = torch.cat(best_v), torch.cat(best_i)
+    order = torch.sort(v, descending=True, stable=True).indices[:128]
+    _topk_agree(vals, idx, v[order], i[order].int())
+
+
+@pytest.mark.cuda
+def test_topk_kernel_is_one_cuda_kernel_per_call(cuda_device):
+    from torch.profiler import ProfilerActivity, profile
+
+    g = torch.Generator(device=cuda_device).manual_seed(16)
+    feats = torch.randn((200_000, 1024), generator=g, device=cuda_device)
+    q = torch.randn((1024,), generator=g, device=cuda_device)
+    ttk.top_k_cosine_kernel(q, feats, 40)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            ttk.top_k_cosine_kernel(q, feats, 40)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events() if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA
+               and "topk" in e.name]
+    others = [e.name for e in prof.events()
+              if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA and "topk" not in e.name
+              and "emcpy" not in e.name and "emset" not in e.name]
+    assert len(kernels) == 3, [e.name for e in kernels]
+    assert not others, others
+
+
+@pytest.mark.cuda
+def test_topk_kernel_calls_in_a_row_on_cuda(cuda_device):
+    """Calls back to back on one stream, without a wait between them: each
+    leaves the scratch's ticket at 0 for the next (k and N differ)."""
+    g = torch.Generator(device=cuda_device).manual_seed(17)
+    feats = torch.randn((100_000, 1024), generator=g, device=cuda_device)
+    qs = torch.randn((4, 1024), generator=g, device=cuda_device)
+    outs = [ttk.top_k_cosine_kernel(qs[0], feats, 128), ttk.top_k_cosine_kernel(qs[1], feats, 5),
+            ttk.top_k_cosine_kernel(qs[2], feats[:3000], 40), ttk.top_k_cosine_kernel(qs[3], feats, 1)]
+    torch.cuda.synchronize()
+    for (vals, idx), q, f, k in zip(outs, qs, (feats, feats, feats[:3000], feats), (128, 5, 40, 1)):
+        _topk_agree(vals, idx, *ttk.top_k_cosine_ref(q, f, k))
+
+
+def _tiny_vision_tower(cuda_device):
+    """The tiny ImageBind vision tower 128 wide (the K2 gate: D % 128 == 0),
+    4 heads of 32, random bf16 weights."""
+    import dataclasses
+
+    from hippomm_tpu_torch.models.imagebind import model as ib_model
+
+    c = ib_model.tiny_config()
+    cfg = dataclasses.replace(c, vision=dataclasses.replace(c.vision, width=128))
+    params = ib_model.init_imagebind(cfg, cuda_device, torch.bfloat16, seed=3)
+    x = torch.randn((4, 3, cfg.image_size, cfg.image_size),
+                    generator=torch.Generator(device=cuda_device).manual_seed(18), device=cuda_device)
+    return lambda: ib_model.vision_forward(params, x, cfg, torch.bfloat16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("flag", ["HIPPOMM_FLASH_ATTN", "HIPPOMM_FUSED_MLP"])
+def test_kill_switch_routes_the_kernels_out_on_cuda(cuda_device, monkeypatch, flag):
+    """With the flag at 0 the vision tower launches none of its kernels
+    (K1 and K4 even with HIPPOMM_FLASH_BTHD=1; K2) and equals the plain
+    route (the shape gates shut, as chip_smoke.py's phase 3 does); at 1 it
+    launches them."""
+    from hippomm_tpu_torch.models import layers
+
+    policies = (tfa.flash_default, tfa.bthd_default, tfm.fused_mlp_default, tfm.fused_block_default)
+    forward = _tiny_vision_tower(cuda_device)
+    counters = {"HIPPOMM_FLASH_ATTN": (tfa.flash_mha, tfa.flash_mha_bthd),
+                "HIPPOMM_FUSED_MLP": (tfm.fused_mlp,)}[flag]
+    gate = {"HIPPOMM_FLASH_ATTN": "flash_supported", "HIPPOMM_FUSED_MLP": "fused_mlp_supported"}[flag]
+    try:
+        for value in ("0", "1"):
+            monkeypatch.setenv(flag, value)
+            monkeypatch.setenv("HIPPOMM_FLASH_BTHD", "1")
+            for p in policies:
+                p.cache_clear()
+            before = [c.launches for c in counters]
+            with torch.no_grad():
+                got = forward()
+            torch.cuda.synchronize()
+            launched = sum(c.launches for c in counters) - sum(before)
+            if value == "0":
+                assert launched == 0
+                with monkeypatch.context() as m:
+                    m.setattr(layers, gate, lambda *a: False)
+                    if flag == "HIPPOMM_FLASH_ATTN":
+                        m.setattr(tfa, "bthd_supported", lambda *a: False)
+                    with torch.no_grad():
+                        want = forward()
+                assert torch.equal(got, want)
+            else:
+                assert launched > 0
+    finally:
+        monkeypatch.delenv(flag)
+        monkeypatch.delenv("HIPPOMM_FLASH_BTHD")
+        for p in policies:
+            p.cache_clear()

@@ -56,8 +56,8 @@ def _config(cls, base_dir):
 
 
 def _clear_flag_caches():
-    for f in (jfa.flash_default, jfa.bthd_default, jfm.fused_block_default,
-              tfa.bthd_default, tfm.fused_block_default):
+    for f in (jfa.flash_default, jfa.bthd_default, jfm.fused_block_default, tfa.flash_default,
+              tfa.bthd_default, tfm.fused_mlp_default, tfm.fused_block_default):
         f.cache_clear()
     jax.clear_caches()  # jitted JAX towers re-trace under the current routes
 
