@@ -31,6 +31,20 @@ Phases (any failure exits non-zero and prints no result line):
      id with HIPPOMM_FUSED_BLOCK=1 and HIPPOMM_FLASH_BTHD=1: every ImageBind
      block through K3, every vision block through K4, the rest through K1/K2;
      features agree with phase 4 and the transcript token ids are equal
+  8. cli    — (runs after phase 5, before the query phase) the ingest CLI
+     core/batch_process.main over a folder of two seeded 640×360 clips with
+     sibling 16 kHz WAVs: long.y4m (120 s at 4 fps, 120 candidates: the
+     vision stream fed key frames as their scan masks are read) and
+     short.avi (30 s, MJPEG; short.y4m where the media shim did not build:
+     every candidate encoded); main builds its own engine on the card at
+     full ImageBind-Huge and distil-large-v3 width (random weights, stub
+     clients). Exact K1/K2 launch counts (vision ceil(fed/32)·32 blocks a
+     video), each video's card key-frame mask against the CPU scan of the
+     same luma, the stream's features against a one-shot encode_vision, a
+     second run skipped, and the chunked streaming path's key frames against
+     the whole-video pass; per-video wall, realtime multiple, every stage's
+     seconds, the mask-read wait per block, and the scan alone (warm, on
+     long.y4m's luma: host ms and CUDA kernels per candidate)
   6. query  — core/ask_question over the store phases 4 and 5 wrote, with
      detailed recall forced (fast_path_confidence 2.0) and the search route
      left as a user's call finds it (no HIPPOMM_TOPK_ROUTE): a VIDEO, an
@@ -704,6 +718,303 @@ def search_phase(ttk):
     return out
 
 
+class CliSpies:
+    """What the ingest CLI does on the card: every key-frame scanner's fed
+    luma, times and mask handles, the seconds of each mask read (and how
+    many blocks it read), each video's extraction result (kept frames and
+    vision stream), the engines it builds, and per-video wall from the
+    log of process_video_folder."""
+
+    def __init__(self):
+        import logging
+
+        import numpy as np
+
+        from hippomm_tpu_torch.core import batch_process as bp
+        from hippomm_tpu_torch.memory import engine
+        from hippomm_tpu_torch.ops import keyframe as kf
+
+        self.scans, self.reads, self.extracted, self.engines, self.walls = {}, [], {}, [], {}
+        self._saved = []
+        real_feed, real_read, real_extract = kf.KeyframeScanner.feed, kf.KeyframeScanner._read, \
+            bp.extract_frames_from_video
+        real_init = engine.HippocampalMemory.__init__
+
+        def feed(sc, grays, times):
+            h = real_feed(sc, grays, times)
+            # the scanner is kept alive with its record, so no id is reused
+            self.scans.setdefault(id(sc), (sc, []))[1].append((np.array(grays), list(times), h))
+            return h
+
+        def read(sc, masks):
+            import time as _t
+
+            t0 = _t.perf_counter()
+            out = real_read(sc, masks)
+            self.reads.append((len(masks), _t.perf_counter() - t0))
+            return out
+
+        def extract(video_path, *a, **k):
+            meta = real_extract(video_path, *a, **k)
+            self.extracted[os.path.splitext(os.path.basename(video_path))[0]] = meta
+            return meta
+
+        def init(mem, *a, **k):
+            real_init(mem, *a, **k)
+            self.engines.append(mem)
+
+        for obj, name, new in ((kf.KeyframeScanner, "feed", feed), (kf.KeyframeScanner, "_read", read),
+                               (bp, "extract_frames_from_video", extract),
+                               (engine.HippocampalMemory, "__init__", init)):
+            self._saved.append((obj, name, getattr(obj, name)))
+            setattr(obj, name, new)
+        spies = self
+
+        class _Walls(logging.Handler):
+            def emit(self, record):
+                if record.getMessage().endswith("s") and " done in " in record.getMessage():
+                    vid, sec = record.getMessage().rsplit(" done in ", 1)
+                    spies.walls[vid] = float(sec[:-1])
+
+        self._handler = _Walls()
+        logging.getLogger(bp.__name__).addHandler(self._handler)
+        logging.getLogger(bp.__name__).setLevel(logging.INFO)
+
+    def restore(self):
+        import logging
+
+        from hippomm_tpu_torch.core import batch_process as bp
+
+        for obj, name, old in reversed(self._saved):
+            setattr(obj, name, old)
+        logging.getLogger(bp.__name__).removeHandler(self._handler)
+
+
+def scan_agrees_with_cpu(block, fed, what: str, thr: float = 0.3, gap: float = 1.0):
+    """The card's key-frame mask of one video against the port's CPU scan of
+    the same luma. The only difference let through is at a candidate whose
+    diff or cumulative diff lies within 1e-4 of the threshold (printed; the
+    walks part there, so the rest is not compared). Returns the number of
+    candidates and of key frames."""
+    import numpy as np
+    import torch
+
+    from hippomm_tpu_torch.ops.keyframe import select_keyframes_device
+    from hippomm_tpu_torch.ops.ssim import ssim_pairs
+
+    grays = np.concatenate([g for g, _, _ in fed])
+    times = [t for _, ts, _ in fed for t in ts]
+    card = np.concatenate([h.get() for _, _, h in fed]).astype(bool)
+    cpu = np.zeros(len(grays), bool)
+    cpu[select_keyframes_device(grays, times, thr, gap, block=block, device="cpu")] = True
+    diff_at = np.nonzero(card != cpu)[0]
+    if len(diff_at):
+        j = int(diff_at[0])
+        ref, cum, tlast = None, 0.0, -1e9
+        for i in range(j):  # the walks agree up to j: replay it for j's scores
+            if card[i]:
+                ref, cum, tlast = i, 0.0, times[i]
+            elif ref is not None and np.float32(times[i]) - np.float32(tlast) >= gap:
+                cum += 1.0 - ssim_pairs(torch.from_numpy(grays[ref][None]), torch.from_numpy(grays[i][None])).item()
+        d = 1.0 - ssim_pairs(torch.from_numpy(grays[ref][None]), torch.from_numpy(grays[j][None])).item()
+        margin = min(abs(d - thr), abs(cum + d - thr))
+        print(f"cli {what}: candidate {j} (t {times[j]} s) card {card[j]} cpu {cpu[j]}: diff {d:.6f}, "
+              f"cumulative {cum + d:.6f}, {margin:.2e} from the threshold {thr}", flush=True)
+        if margin > 1e-4:
+            fail(f"cli {what}: the card's key-frame mask differs from the CPU scan at candidate {j}")
+    return len(grays), int(card.sum())
+
+
+def cli_phase(counters, ib_depths):
+    """8. the ingest CLI on a folder of two clips (see the module doc)."""
+    import gc
+
+    import numpy as np
+    import torch
+    import yaml
+
+    from hippomm_tpu_torch.core import batch_process as bp
+    from hippomm_tpu_torch.media import io as mio
+    from hippomm_tpu_torch.media.synth import SynthSpec, write_synthetic_video
+
+    vis_depth, aud_depth = ib_depths
+    out = {}
+    with tempfile.TemporaryDirectory() as work:
+        folder, store = os.path.join(work, "videos"), os.path.join(work, "store")
+        os.makedirs(folder)
+        t0 = time.perf_counter()
+        write_synthetic_video(os.path.join(folder, "long.y4m"), SynthSpec(
+            duration=120.0, fps=4.0, width=640, height=360, scene_changes=(30.0, 70.0, 100.0),
+            silence_regions=((59.5, 60.5),), seed=21), audio_path=os.path.join(folder, "long.wav"))
+        short = "short.avi" if mio.native_available() else "short.y4m"
+        if short == "short.y4m":
+            print("cli: the media shim did not build or load on this machine (the warning above says "
+                  "why): short clip written as .y4m, JPEG through PIL", flush=True)
+        else:
+            print("cli: media shim built and loaded (libjpeg): short clip written as MJPEG .avi",
+                  flush=True)
+        write_synthetic_video(os.path.join(folder, short), SynthSpec(
+            duration=30.0, fps=4.0, width=640, height=360, scene_changes=(12.0,), seed=22),
+            audio_path=os.path.join(folder, "short.wav"))
+        out["setup_s"] = time.perf_counter() - t0
+        out["short_container"] = short
+        cfg_path = os.path.join(work, "config.yaml")
+        with open(cfg_path, "w") as f:
+            yaml.safe_dump({"api": {"mode": "stub"}, "models": {
+                "imagebind_variant": "huge", "whisper_variant": "distil-large-v3",
+                "whisper_random_init": True}}, f)
+        argv = ["--path", folder, "--memory_store", store, "--config", cfg_path]
+
+        spies = CliSpies()
+        try:
+            gc.collect()
+            torch.cuda.empty_cache()
+            for c in counters.values():
+                c.launches = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            stats = bp.main(argv)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = {k: c.launches for k, c in counters.items()}
+        finally:
+            spies.restore()
+        if (stats["processed"], stats["failed"], stats["skipped"]) != (2, 0, 0):
+            fail(f"cli: processed {stats['processed']}, failed {stats['failed']} "
+                 f"({stats['errors']}), skipped {stats['skipped']}")
+        (mem,) = spies.engines
+        ib = mem.imagebind
+        if (ib.cfg.vision.width, ib.cfg.vision.depth) != (1280, vis_depth) or mem.whisper.cfg.d_model != 1280:
+            fail("cli: main did not build ImageBind-Huge and Whisper distil-large-v3")
+
+        # exact launch counts: vision through the stream's 32-wide chunks
+        videos, expect_blocks = {}, 0
+        for vid in ("long", "short"):
+            meta = spies.extracted[vid]
+            stream = meta["vision_stream"]
+            base = getattr(stream, "_stream", stream)
+            stms = mem.store.load_checkpoint(vid)
+            n_aud = sum(1 for s in stms if "audio" in s.features)
+            pcm = np.load(os.path.join(store, "audio", vid, "audio.npy"))
+            enc_batches = math.ceil(math.ceil(len(pcm) / (30 * 16000)) / 32)
+            blocks = (math.ceil(base.frames_fed / 32) * vis_depth + math.ceil(n_aud / 32) * aud_depth
+                      + enc_batches * WHISPER_DEPTH)
+            expect_blocks += blocks
+            videos[vid] = {"route": "keyframe_feed" if base is stream else "encode_all_candidates",
+                           "fed": base.frames_fed, "keyframes": len(meta["frame_times"]),
+                           "audio_segments": n_aud, "encoder_batches": enc_batches, "blocks": blocks,
+                           "wall_s": spies.walls.get(vid)}
+        expect = {"flash_mha": expect_blocks, "fused_mlp": expect_blocks, "fused_ln_mlp_residual": 0,
+                  "flash_mha_bthd": 0}
+        print(f"cli: {stats['processed']} videos in {wall:.2f} s ({videos}); launches {launches}, "
+              f"expected {expect}", flush=True)
+        if launches != expect:
+            fail(f"cli: kernel launches {launches} != {expect}")
+        if [videos[v]["route"] for v in ("long", "short")] != ["keyframe_feed", "encode_all_candidates"]:
+            fail(f"cli: vision-stream routes {videos}")
+
+        # one event per video, well-formed features
+        events = {ev.video_id: ev for ev in mem.store.load_all_events()}
+        if sorted(events) != ["long", "short"]:
+            fail(f"cli: events {sorted(events)}")
+        for ev in events.values():
+            vis, aud = ev.features.get("vision"), ev.features.get("audio")
+            if vis is None or aud is None or vis.shape[1] != 1024 or aud.shape[1] != 1024 \
+                    or not (np.isfinite(vis).all() and np.isfinite(aud).all()) \
+                    or np.abs(np.linalg.norm(vis, axis=1) - 1.0).max() > 1e-3 \
+                    or not (0 < np.linalg.norm(aud, axis=1)).all() \
+                    or not (np.linalg.norm(aud, axis=1) <= 20.0 + 1e-3).all():
+                fail(f"cli: event {ev.video_id} features malformed")
+
+        # the card's masks against the CPU scan of the same luma
+        scans = list(spies.scans.values())
+        if len(scans) != 2:
+            fail(f"cli: {len(scans)} key-frame scans for two videos")
+        for vid, (sc, fed) in zip(("long", "short"), scans):
+            n_cand, n_key = scan_agrees_with_cpu(sc.block, fed, vid)
+            videos[vid].update(candidates=n_cand, scan_blocks=len(fed))
+            if n_key != videos[vid]["keyframes"]:
+                fail(f"cli {vid}: {n_key} key frames in the masks, {videos[vid]['keyframes']} extracted")
+        print(f"cli: card key-frame masks agree with the CPU scan "
+              f"({ {v: videos[v]['candidates'] for v in videos} } candidates)", flush=True)
+
+        # the scan alone, warm, on long.y4m's luma: host seconds a call
+        # (launches and the one mask read) and its CUDA kernels per candidate
+        from hippomm_tpu_torch.ops.keyframe import select_keyframes_device
+
+        lg = np.concatenate([g for g, _, _ in scans[0][1]])
+        lt = [t for _, ts, _ in scans[0][1] for t in ts]
+        scan = lambda: select_keyframes_device(lg, lt, 0.3, 1.0, device=mem.device)  # noqa: E731
+        scan()
+        t0 = time.perf_counter()
+        for _ in range(3):
+            scan()
+        scan_s = (time.perf_counter() - t0) / 3
+        scan_us, scan_kernels = profile_kernels([scan], turns=1)
+        per_cand = None if scan_kernels is None else scan_kernels / len(lg)
+        scan_report = {"candidates": len(lg), "host_s": scan_s, "kernels_per_candidate": per_cand,
+                       "device_us": None if scan_us is None else sum(scan_us.values())}
+        print(f"cli scan: {len(lg)} candidates in {scan_s * 1e3:.1f} ms warm ("
+              f"{scan_s * 1e6 / len(lg):.0f} µs a candidate), {per_cand} CUDA kernels a candidate, "
+              f"{scan_report['device_us']} µs on the device", flush=True)
+
+        # the stream's features against a one-shot encode of the same frames
+        agree = {}
+        for vid in ("long", "short"):
+            meta = spies.extracted[vid]
+            got = torch.from_numpy(meta["vision_stream"].result())
+            want = torch.from_numpy(ib.encode_vision(meta["frames_rgb"]))
+            err = (got - want).abs().max().item()
+            cos = torch.nn.functional.cosine_similarity(got, want, dim=-1).min().item()
+            agree[vid] = {"max_abs_err": err, "min_cosine": cos}
+            print(f"cli {vid}: stream features vs encode_vision: max abs {err:.3g}, min cosine {cos:.6f}",
+                  flush=True)
+            if not (math.isfinite(err) and err <= 2e-2 and cos >= 0.999):
+                fail(f"cli {vid}: stream features disagree with encode_vision: {err}, cos {cos}")
+        timers = stats["engine"]["timers"]
+        waits = [round(sec / n, 6) for n, sec in spies.reads]
+        del mem, ib, spies
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        again = bp.main(argv)
+        if (again["skipped"], again["processed"]) != (2, 0):
+            fail(f"cli: the second run did not skip both videos: {again}")
+
+        # the chunked streaming path on long.y4m under a new id, its own engine
+        t0 = time.perf_counter()
+        res = bp.process_single_video_streaming(
+            os.path.join(folder, "long.y4m"), store, video_id="long_streamed", chunk_seconds=60.0,
+            config=bp.load_config(cfg_path))
+        torch.cuda.synchronize()
+        stream_wall = time.perf_counter() - t0
+        with open(os.path.join(store, "frames", "long", "metadata.yaml")) as f:
+            whole = yaml.safe_load(f)["frame_times"]
+        if res["frames"]["frame_times"] != whole:
+            fail(f"cli: streaming key frames {res['frames']['frame_times']} != whole-video {whole}")
+        from hippomm_tpu_torch.memory.store import MemoryStore
+
+        if len(MemoryStore(store).events_for_video("long_streamed")) != 1:
+            fail("cli: the streaming path did not write one event")
+        print(f"cli streaming: {res['frames']['streamed_chunks']} chunks, the whole-video pass's "
+              f"{len(whole)} key frames, one event, {stream_wall:.2f} s", flush=True)
+
+    extract = {k: v for k, v in timers.items() if k.startswith("extract_")}
+    engine_stages = {k: v for k, v in timers.items() if not k.startswith("extract_")}
+    print(f"cli: per-video wall {({v: videos[v]['wall_s'] for v in videos})} s; realtime multiple "
+          f"{stats['realtime_multiple']:.3f} ({stats['media_seconds']} s of media in "
+          f"{stats['wall_seconds']:.3f} s)", flush=True)
+    print("cli extract stages: " + json.dumps(extract), flush=True)
+    print("cli engine stages: " + json.dumps(engine_stages), flush=True)
+    print(f"cli mask reads: {len(waits)}, seconds per block read {waits}", flush=True)
+    out.update(wall_s=wall, stats={k: v for k, v in stats.items() if k != "engine"}, videos=videos,
+               launches=launches, expected_launches=expect, stream_vs_encode=agree, stages=timers,
+               mask_read_s_per_block=waits, scan=scan_report, second_run=again["skipped"],
+               streaming={"chunks": res["frames"]["streamed_chunks"], "wall_s": stream_wall,
+                          "keyframes": len(whole)})
+    return out
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(HERE, "hippomm_tpu_torch")):
         fail("no hippomm_tpu_torch package beside this script (run it from a checkout)", 2)
@@ -994,7 +1305,12 @@ def main() -> int:
             np.save(os.path.join(mem.store.audio_dir, vid, "audio.npy"), clip.audio.astype(np.float32))
         qcfg = copy.deepcopy(cfg)
         qcfg.processing.fast_path_confidence = 2.0  # detailed recall, not the fast path
+        depths = (ib.cfg.vision.depth, ib.cfg.audio.depth)
         del mem, ib, wh, wt
+
+        # 8. the ingest CLI, building its own engine
+        report["cli"] = cli_phase(counters, depths)
+
         report["query"] = query_phase(qcfg, dict(counters, top_k_cosine=ttk.top_k_cosine_kernel), fa, fm)
 
     # 7. search at a store of 200 000 rows
@@ -1012,6 +1328,7 @@ def main() -> int:
                 "top_k_cosine": "hippomm_tpu/ops/pallas_topk.py:46"}
     # launches per path, each read from counts set to 0 just before it
     by_path = {f"ingest_{ph}": paths[ph]["launches"] for ph in paths}
+    by_path["cli"] = report["cli"]["launches"]
     by_path["query"] = report["query"]["launches"]  # the default-configuration questions
     by_path["query_fused"] = report["query"]["runs"]["video_fused"]["launches"]
     # each kernel's own path: K1/K2 the default ingest, K3/K4 the fused one, K5 the query path

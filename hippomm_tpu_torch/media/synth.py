@@ -1,8 +1,9 @@
 """Synthetic audiovisual content with ground truth — the hermetic test/bench
 workload generator (the reference has no fixtures at all, SURVEY.md §4).
 
-The port's copy of hippomm_tpu/media/synth.py, in-memory `generate` only:
-writing containers needs the media shim, which a later slice brings.
+The port's copy of hippomm_tpu/media/synth.py. `write_synthetic_video`
+writes .y4m and MJPEG .avi (with a sibling .wav); the libav containers wait
+for the port's libav slice and raise.
 
 Videos are scene-structured: each scene has a distinct background + a moving
 square, so frame-difference segmentation has known boundaries. Audio interleaves
@@ -12,7 +13,7 @@ tones and silences at known times, so silence detection has known regions.
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 
@@ -99,3 +100,33 @@ def generate(spec: SynthSpec) -> SynthResult:
     return SynthResult(
         frames=frames, frame_times=times, audio=render_audio(spec), spec=spec
     )
+
+
+def write_synthetic_video(
+    path: str,
+    spec: Optional[SynthSpec] = None,
+    audio_path: Optional[str] = None,
+    codec: str = "",
+) -> Optional[SynthResult]:
+    """Generate and persist a synthetic clip (container chosen by extension):
+    .y4m, or MJPEG .avi through the media shim, video-only, with the audio in
+    a sibling wav when `audio_path` is given. Returns the full SynthResult.
+    .mp4/.mov/.mkv (and .avi with a `codec`) go through libav, which the
+    port does not have yet: NotImplementedError."""
+    from hippomm_tpu_torch.media import io as mio
+
+    spec = spec or SynthSpec()
+    ext = path.rsplit(".", 1)[-1].lower()
+    if ext in ("mp4", "mov", "mkv") or (ext == "avi" and codec != ""):
+        raise NotImplementedError(mio._LIBAV_TODO.format(what=f"writing {path}"))
+    if ext not in ("avi", "y4m"):
+        # reject before rendering the whole clip into memory
+        raise ValueError(f"unsupported container: {path}")
+    result = generate(spec)
+    if ext == "avi":
+        mio.write_avi(path, result.frames, fps=spec.fps)
+    else:
+        mio.write_y4m(path, result.frames, fps=spec.fps)
+    if audio_path:
+        mio.write_wav(audio_path, result.audio, spec.sample_rate)
+    return result

@@ -101,8 +101,11 @@ class HippocampalMemory:
         self.short_term_buffer: Dict[str, List[ShortTermMemory]] = {}
         self.long_term_store: List[ThetaEvent] = []
         self.consolidated: Dict[str, Dict] = {}
+        self._frame_buffer: Dict[str, List] = {}  # video_id -> [(path, time)]
         self._full_audio: Dict[str, np.ndarray] = {}
         self._full_transcript: Dict[str, List] = {}  # video_id -> [Segment]
+        self._transcript_full_track: set = set()  # _full_transcript covers whole video
+        self._asr_futures: Dict[str, object] = {}  # video_id -> full-track ASR finisher
         # videos whose process_sequence buffered STMs but never finished its
         # checkpoint — a FAILED attempt's leftovers, discarded on retry
         self._inflight_ingests: set = set()
@@ -133,16 +136,20 @@ class HippocampalMemory:
         base_time: float = 0.0,
         frame_ssim: Optional[np.ndarray] = None,
         resume: bool = True,
+        vision_stream=None,
     ) -> List[ShortTermMemory]:
         """Segment + perceptually encode a video's frames/audio into STMs
         (reference: hippocampal_memory.py:1116-1275). Takes in-memory RGB
-        frames; `frame_paths` are recorded in the store. `base_time` offsets
-        every produced timestamp (chunked long videos)."""
+        frames, or decodes the `frame_paths` JPEGs when `frames_rgb` is None.
+        `base_time` offsets every produced timestamp (chunked long videos).
+        `vision_stream` carries tower forwards already queued during
+        extraction (one row per frames_rgb row, in order); the vision encode
+        is then a read-back."""
         with self._maybe_trace():
             return self._process_sequence_impl(
                 video_id, frame_paths, frame_times, frames_rgb, audio_data,
                 sample_rate, video_duration, auto_consolidate, base_time,
-                frame_ssim, resume,
+                frame_ssim, resume, vision_stream,
             )
 
     def _maybe_trace(self):
@@ -154,6 +161,7 @@ class HippocampalMemory:
     def _process_sequence_impl(
         self, video_id, frame_paths, frame_times, frames_rgb, audio_data,
         sample_rate, video_duration, auto_consolidate, base_time, frame_ssim, resume,
+        vision_stream=None,
     ) -> List[ShortTermMemory]:
         # checkpoint fast-path (reference :1136-1150)
         if resume and self.store.has_checkpoint(video_id):
@@ -174,6 +182,13 @@ class HippocampalMemory:
                 self.short_term_buffer[video_id] = stms
                 if audio_data is not None:
                     self._full_audio[video_id] = np.asarray(audio_data, np.float32)
+                # a full-track ASR queued for this ingest is consumed here, so
+                # replay reuses it instead of transcribing the track again
+                fut = self._asr_futures.pop(video_id, None)
+                if fut is not None:
+                    with self.timers.stage("transcribe"):
+                        self._full_transcript[video_id] = list(fut.result())
+                    self._transcript_full_track.add(video_id)
                 if auto_consolidate:
                     self.consolidate(video_id)
                     self.replay(video_id)
@@ -195,12 +210,13 @@ class HippocampalMemory:
         frame_paths = list(frame_paths) if frame_paths is not None else []
         frame_times = list(frame_times) if frame_times is not None else []
         if frames_rgb is None and frame_paths:
-            raise NotImplementedError(
-                "decoding frames from paths needs the media shim, a later slice of the "
-                "PyTorch port; pass frames_rgb"
-            )
+            from hippomm_tpu_torch.media.io import read_jpeg
+
+            frames_rgb = np.stack([read_jpeg(fp) for fp in frame_paths])
         if audio_data is not None:
             audio_data = np.asarray(audio_data, dtype=np.float32)
+            # keep the longest known track: a chunk must not replace the full
+            # track dispatch_asr registered
             prev = self._full_audio.get(video_id)
             if prev is None or len(audio_data) > len(prev):
                 self._full_audio[video_id] = audio_data
@@ -231,7 +247,7 @@ class HippocampalMemory:
 
         stms = self._encode_segments(
             video_id, segments, frames_rgb, frame_times, sample_rate,
-            base_time=base_time, call_audio=audio_data,
+            base_time=base_time, call_audio=audio_data, vision_stream=vision_stream,
         )
         self._inflight_ingests.add(video_id)
         self.short_term_buffer.setdefault(video_id, []).extend(stms)
@@ -275,6 +291,7 @@ class HippocampalMemory:
         sample_rate: int,
         base_time: float = 0.0,
         call_audio: Optional[np.ndarray] = None,
+        vision_stream=None,
     ) -> List[ShortTermMemory]:
         """Perceptual encoding, batched across segments."""
         ft = np.asarray(list(frame_times), dtype=np.float64)
@@ -304,16 +321,40 @@ class HippocampalMemory:
         # ---- call_audio ASR: queue it now, collect it at the transcribe
         # stage below. After the audio trunk's work (whose read-back must not
         # wait behind the ASR) and before any read-back, so the device runs
-        # the Whisper encoder while the host resizes and uploads frames.
+        # the Whisper encoder while the host resizes and uploads frames. Not
+        # when a full-track pass was dispatched (dispatch_asr), nor for a
+        # later chunk after one.
         has_call_audio = call_audio is not None and len(call_audio) >= sample_rate // 10
-        asr_finish = self.whisper.transcribe_async(call_audio, sample_rate) if has_call_audio else None
+        asr_finish = None
+        if (video_id not in self._asr_futures
+                and not (video_id in self._transcript_full_track and base_time)
+                and has_call_audio):
+            asr_finish = self.whisper.transcribe_async(call_audio, sample_rate)
 
         # ---- vision: one encode over the concatenation of all segments ----
         vision_feats: Optional[np.ndarray] = None
+        if (frames_rgb is None or not len(frames_rgb)) and vision_stream is not None:
+            # no vision track to index into: release what the stream queued
+            vision_stream.close()
         if frames_rgb is not None and len(frames_rgb):
             all_idx = np.concatenate(seg_frame_idx) if seg_frame_idx else np.zeros((0,), int)
-            with self.timers.stage("encode_vision"):
-                vision_feats = self.imagebind.encode_vision(np.asarray(frames_rgb)[all_idx])
+            feats_all = None
+            if vision_stream is not None:
+                # forwards queued during extraction, one row per frames_rgb
+                # row; a stream of another length is discarded, not indexed
+                with self.timers.stage("encode_vision"):
+                    feats_all = vision_stream.result()
+                if feats_all.shape[0] != len(frames_rgb):
+                    logger.warning(
+                        "%s: vision prefetch has %d rows for %d frames — re-encoding",
+                        video_id, feats_all.shape[0], len(frames_rgb),
+                    )
+                    feats_all = None
+            if feats_all is not None:
+                vision_feats = feats_all[all_idx]
+            else:
+                with self.timers.stage("encode_vision"):
+                    vision_feats = self.imagebind.encode_vision(np.asarray(frames_rgb)[all_idx])
 
         if audio_dev is not None:
             with self.timers.stage("encode_audio"):
@@ -324,7 +365,16 @@ class HippocampalMemory:
         # ---- transcription: ONE full-track ASR pass, assigned by midpoint ----
         transcripts: Dict[int, List[Dict]] = {}
         asr_segs = None
-        if has_call_audio:
+        fut = self._asr_futures.pop(video_id, None)
+        if fut is not None:  # full-track pass dispatched earlier (global times)
+            with self.timers.stage("transcribe"):
+                asr_segs = fut.result()
+            self._full_transcript[video_id] = list(asr_segs)
+            self._transcript_full_track.add(video_id)
+        elif video_id in self._transcript_full_track and base_time:
+            # chunked flow after a full-track dispatch: reuse, don't re-run
+            asr_segs = self._full_transcript[video_id]
+        elif has_call_audio:
             with self.timers.stage("transcribe"):
                 local = (asr_finish() if asr_finish is not None
                          else self.whisper.transcribe(call_audio, sample_rate))
@@ -338,6 +388,7 @@ class HippocampalMemory:
                 # a fresh pass over the video's start: reset, so a retried
                 # video's transcript does not stack on the failed attempt's
                 self._full_transcript[video_id] = list(asr_segs)
+                self._transcript_full_track.discard(video_id)
         if asr_segs is not None:
             for si, seg in enumerate(segments):
                 lo, hi = seg.start_time, seg.end_time
@@ -397,6 +448,107 @@ class HippocampalMemory:
                 )
             )
         return stms
+
+    def dispatch_asr(self, video_id: str, audio: np.ndarray, sample_rate: int = 16000):
+        """Queue the full-track ASR's device work from this thread and keep
+        its finisher; process_sequence collects it like a prefetch future.
+        None for a track under 100 ms or the stub transcriber."""
+        audio = np.asarray(audio, dtype=np.float32)
+        if len(audio) < sample_rate // 10:
+            return None
+        self._full_audio[video_id] = audio
+        finish = self.whisper.transcribe_async(audio, sample_rate)
+        if finish is None:
+            return None
+
+        class _Finisher:
+            def result(self):
+                return finish()
+
+        fut = _Finisher()
+        self._asr_futures[video_id] = fut
+        return fut
+
+    def prefetch_asr(self, video_id: str, audio: np.ndarray, sample_rate: int = 16000):
+        """Run the full-track ASR on a background thread; process_sequence
+        collects the future. Harmless if never consumed."""
+        import concurrent.futures
+
+        audio = np.asarray(audio, dtype=np.float32)
+        if len(audio) < sample_rate // 10:
+            return None
+        self._full_audio[video_id] = audio
+        ex = concurrent.futures.ThreadPoolExecutor(max_workers=1)
+        fut = ex.submit(self.whisper.transcribe, audio, sample_rate)
+        ex.shutdown(wait=False)
+        self._asr_futures[video_id] = fut
+        return fut
+
+    def add_memory(
+        self,
+        video_id: str,
+        video_frames: Optional[Sequence[str]] = None,
+        audio_data: Optional[np.ndarray] = None,
+        frame_times: Optional[Sequence[float]] = None,
+        start_time: float = 0.0,
+        end_time: float = 0.0,
+    ) -> ShortTermMemory:
+        """Encode one pre-segmented chunk directly (reference add_memory,
+        hippocampal_memory.py:451-538, with the video_id explicit)."""
+        seg = SequenceSegment(
+            start_time=start_time,
+            end_time=end_time,
+            frames=list(video_frames or []),
+            audio_data=audio_data,
+            frame_times=list(frame_times or list(np.arange(len(video_frames or [])))),
+        )
+        frames_rgb = None
+        if video_frames:
+            from hippomm_tpu_torch.media.io import read_jpeg
+
+            frames_rgb = np.stack([read_jpeg(p) for p in video_frames])
+        stm = self._encode_segments(video_id, [seg], frames_rgb, seg.frame_times, 16000)[0]
+        buf = self.short_term_buffer.setdefault(video_id, [])
+        buf.append(stm)
+        if len(buf) > self.max_short_term:
+            self.consolidate(video_id)
+        return stm
+
+    # ------------------------------------------------------- frame micro-batch
+
+    def add_single_frame(self, video_id: str, frame_path: str, frame_time: float) -> None:
+        """Streaming ingest: buffer frames, encode in frame_buffer_size batches
+        (reference: hippocampal_memory.py:1290-1365)."""
+        buf = self._frame_buffer.setdefault(video_id, [])
+        buf.append((frame_path, float(frame_time)))
+        if len(buf) >= self.frame_buffer_size:
+            self._process_frame_batch(video_id)
+
+    def flush_frame_buffer(self, video_id: str) -> None:
+        if self._frame_buffer.get(video_id):
+            self._process_frame_batch(video_id)
+
+    def _process_frame_batch(self, video_id: str) -> None:
+        batch = self._frame_buffer.pop(video_id, [])
+        if not batch:
+            return
+        paths = [p for p, _ in batch]
+        times = [t for _, t in batch]
+        feats = self.imagebind.encode_vision(paths)
+        stm = ShortTermMemory(
+            features={"vision": feats},
+            timestamp=time.time(),
+            source_time=times[0],
+            modalities=["vision"],
+            segment_info={
+                "video_id": video_id,
+                "start_time": times[0],
+                "end_time": times[-1],
+                "frames": paths,
+                "frame_times": times,
+            },
+        )
+        self.short_term_buffer.setdefault(video_id, []).append(stm)
 
     # ------------------------------------------------------------- consolidate
 
@@ -493,12 +645,17 @@ class HippocampalMemory:
         if os.path.exists(os.path.join(self.store.audio_dir, video_id, "audio.npy")):
             self._full_audio.pop(video_id, None)
         self._full_transcript.pop(video_id, None)
+        self._transcript_full_track.discard(video_id)
         return event
 
     def discard_pending(self, video_id: str) -> None:
-        """Drop everything a FAILED ingest attempt left behind."""
+        """Drop everything a FAILED ingest attempt left behind: the pending
+        full-track ASR, the cached waveform and transcript, partial STM and
+        consolidated state, and the failed-attempt marker."""
+        self._asr_futures.pop(video_id, None)
         self._full_audio.pop(video_id, None)
         self._full_transcript.pop(video_id, None)
+        self._transcript_full_track.discard(video_id)
         self.short_term_buffer.pop(video_id, None)
         self.consolidated.pop(video_id, None)
         self._inflight_ingests.discard(video_id)
@@ -529,6 +686,24 @@ class HippocampalMemory:
                 return t0.get("text", "") if isinstance(t0, dict) else str(t0)
             return ""
 
+    def update_holistic_audio_transcription(
+        self, event: ThetaEvent, audio: Optional[np.ndarray] = None
+    ) -> ThetaEvent:
+        """Whole-track transcription onto an event (reference:
+        hippocampal_memory.py:1367-1415), from the cached 16 kHz track or an
+        explicit array."""
+        if audio is None:
+            audio = self._full_audio.get(event.video_id)
+        if audio is None or len(audio) <= 1600:
+            return event
+        segs = self.whisper.transcribe(np.asarray(audio, np.float32))
+        event.holistic_audio_transcription = [
+            {"text": s.text, "start": float(s.start), "end": float(s.end)}
+            for s in segs
+            if s.text
+        ]
+        return event
+
     # ------------------------------------------------------------- persistence
 
     def save_theta_event(self, event: ThetaEvent) -> str:
@@ -556,6 +731,14 @@ class HippocampalMemory:
             return False
         self.short_term_buffer[video_id] = stms
         return True
+
+    def save_short_term_buffer(self, tag: str = "buffer") -> str:
+        return self.store.save_short_term_buffer(self.short_term_buffer, tag)
+
+    def load_short_term_buffer(self, tag: str = "buffer") -> None:
+        loaded = self.store.load_short_term_buffer(tag)
+        if loaded:
+            self.short_term_buffer.update(loaded)
 
     # ------------------------------------------------------------------- misc
 

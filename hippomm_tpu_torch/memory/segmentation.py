@@ -22,7 +22,7 @@ import torch
 from hippomm_tpu_torch.memory.schema import SequenceSegment
 from hippomm_tpu_torch.ops.resize import resize_frames
 from hippomm_tpu_torch.ops.ssim import adjacent_ssim, rgb_to_gray, ssim_pairs_host
-from hippomm_tpu_torch.utils.device import fetch
+from hippomm_tpu_torch.utils.device import fetch, resolve_device
 
 
 SSIM_DOWNSCALE_H = 90  # reference computes SSIM on small grayscale frames
@@ -57,15 +57,17 @@ def adjacent_frame_similarity(frames_rgb: np.ndarray, device="cpu") -> np.ndarra
 
 
 @torch.no_grad()
-def adjacent_similarity_gray(grays: np.ndarray, device="cpu") -> np.ndarray:
+def adjacent_similarity_gray(grays: np.ndarray, device=None) -> np.ndarray:
     """(T, h, w) uint8 scoring-resolution luma -> (T-1,) adjacent SSIM; one
-    chunk's worth (≤ 33 frames) runs on the host in fp32."""
+    chunk's worth (≤ 33 frames) runs on the host in fp32, longer inputs on
+    `device` (None: resolve_device, CUDA)."""
     grays = np.asarray(grays)
     t = grays.shape[0]
     if t < 2:
         return np.zeros((0,), np.float32)
     if t <= 33:
         return ssim_pairs_host(grays[:-1], grays[1:], dtype=np.float32).astype(np.float32)
+    device = resolve_device(device)
     outs = []
     lo = 0
     while lo < t - 1:

@@ -5,7 +5,8 @@ towers:
 
   * ImageBind.encode_vision / encode_audio — fixed-size chunked device
     forwards (a 128-wide bulk tier and a 32-wide tier for vision, as the JAX
-    wrapper, so both packages batch frames the same way); encode_text /
+    wrapper, so both packages batch frames the same way); vision_stream —
+    the same tower fed incrementally during extraction; encode_text /
     encode_text_device — tokenizer (CLIP BPE or the hashing fallback) and
     the text tower, the second leaving the embedding on the device
   * Whisper.transcribe / transcribe_batch / transcribe_async — the Whisper
@@ -96,16 +97,16 @@ class ImageBind:
         return ib_model.vision_forward(self.params, normalize_nchw(x), self.cfg, self.dtype)
 
     def encode_vision(self, frames: Union[np.ndarray, Sequence[str]]) -> np.ndarray:
-        """uint8 (N, H, W, 3) frames -> (N, 1024) fp32, in fixed-size chunks
-        (128-wide bulk tier + 32-wide remainder); frames are resized+cropped
-        on the host so only S×S uint8 crops are uploaded."""
+        """uint8 (N, H, W, 3) frames or JPEG paths -> (N, 1024) fp32, in
+        fixed-size chunks (128-wide bulk tier + 32-wide remainder); frames
+        are resized+cropped on the host so only S×S uint8 crops are
+        uploaded."""
         if len(frames) == 0:
             return np.zeros((0, self.cfg.embed_dim), np.float32)
         if isinstance(frames[0], str):
-            raise NotImplementedError(
-                "encoding frames from JPEG paths needs the media shim, a later slice of the "
-                "PyTorch port; pass decoded uint8 frames"
-            )
+            from hippomm_tpu_torch.media.io import read_jpeg
+
+            frames = np.stack([read_jpeg(p) for p in frames])
         frames = resize_crop_u8(frames, self.cfg.image_size)
         n = frames.shape[0]
         outs = []
@@ -119,6 +120,13 @@ class ImageBind:
                 chunk = np.concatenate([chunk, np.repeat(chunk[-1:], size - m, axis=0)])
             outs.append(self._vision_chunk(chunk)[:m])
         return fetch(torch.cat(outs), dtype=np.float32)
+
+    def vision_stream(self) -> "VisionEncodeStream":
+        """Incremental encode_vision for producers that discover frames over
+        time (the extractor's keyframe flushes): every full 32-frame chunk
+        is queued on the device at once, so the vision tower runs while the
+        host still decodes the rest of the video."""
+        return VisionEncodeStream(self)
 
     @torch.no_grad()
     def encode_audio(self, pcm: np.ndarray, clips_per_video: int = 3) -> np.ndarray:
@@ -155,6 +163,129 @@ class ImageBind:
         if "text" in inputs:
             out["text"] = self.encode_text(inputs["text"])
         return out
+
+
+class VisionEncodeStream:
+    """Incremental form of `ImageBind.encode_vision`.
+
+    The extractor feeds kept frames as their scan masks are read; a worker
+    thread resizes and crops them on the host and queues the tower forward
+    of every full 32-frame chunk, so the tower runs behind the decode and
+    `result()` is mostly a read-back. `finalize()` queues the (<32-frame)
+    remainder once the last frame is fed, ahead of whatever the next video
+    queues.
+
+    `result()` returns (N, 1024) fp32 in feed order. A forward is
+    row-independent and pad rows are never returned, so rows equal
+    `encode_vision` over the concatenation up to the rounding of a 32-wide
+    batch against its 128-wide bulk tier.
+
+    One worker keeps feed order. Grad mode is per thread, so the worker
+    enters `torch.no_grad()` itself; it queues on its thread's current
+    stream (the default stream)."""
+
+    def __init__(self, ib: ImageBind):
+        self._ib = ib
+        self._buf: List[np.ndarray] = []  # worker thread only (until drain)
+        self._buffered = 0  # worker thread only (until drain)
+        self._handles: List[tuple] = []  # (n_real, device tensor); worker only
+        self._val: Optional[np.ndarray] = None
+        self._n_fed = 0
+        self._pool = None
+        self._jobs: List = []
+        self._finalized = False
+
+    def feed(self, frames_u8: np.ndarray) -> None:
+        """Append uint8 (M, H, W, 3) frames; the worker thread resizes them
+        and queues every full 32-chunk."""
+        if self._val is not None or self._finalized:
+            raise RuntimeError("VisionEncodeStream.feed() after result()/finalize()/close()")
+        if frames_u8 is None or len(frames_u8) == 0:
+            return
+        frames_u8 = np.asarray(frames_u8)
+        self._n_fed += len(frames_u8)
+        if self._pool is None:
+            import concurrent.futures
+
+            self._pool = concurrent.futures.ThreadPoolExecutor(max_workers=1)
+        self._jobs.append(self._pool.submit(self._ingest, frames_u8))
+
+    def _ingest(self, frames_u8: np.ndarray) -> None:
+        if self._val is not None:
+            return  # closed while this job sat in the queue
+        with torch.no_grad():
+            self._buf.append(resize_crop_u8(frames_u8, self._ib.cfg.image_size))
+            self._buffered += len(self._buf[-1])
+            while self._buffered >= CHUNK:
+                flat = np.concatenate(self._buf) if len(self._buf) > 1 else self._buf[0]
+                self._dispatch(flat[:CHUNK])
+                rest = flat[CHUNK:]
+                self._buf = [rest] if len(rest) else []
+                self._buffered = len(rest)
+
+    def _drain_remainder(self) -> None:
+        if self._buffered:
+            flat = np.concatenate(self._buf) if len(self._buf) > 1 else self._buf[0]
+            self._dispatch(flat)
+            self._buf, self._buffered = [], 0
+
+    def finalize(self) -> None:
+        """Queue the (<32-frame) remainder now, without reading back.
+        Idempotent; further feeds raise."""
+        if self._val is not None or self._finalized:
+            return
+        self._finalized = True
+        if self._pool is None:
+            return  # nothing was ever fed
+
+        def _drain():
+            if self._val is None:  # not closed while queued
+                self._drain_remainder()
+
+        self._jobs.append(self._pool.submit(_drain))
+
+    def _dispatch(self, chunk: np.ndarray) -> None:
+        m = len(chunk)
+        if m < CHUNK:
+            chunk = np.concatenate([chunk, np.repeat(chunk[-1:], CHUNK - m, axis=0)])
+        self._handles.append((m, self._ib._vision_chunk(chunk)))
+
+    @property
+    def frames_fed(self) -> int:
+        return self._n_fed
+
+    def close(self) -> None:
+        """Abandon the stream without joining the worker (error paths):
+        buffered frames and queued outputs are dropped. Safe to call twice or
+        after result(); feed() after close raises."""
+        if self._val is None:
+            self._val = np.zeros((0, self._ib.cfg.embed_dim), np.float32)
+        self._jobs = []
+        if self._pool is not None:
+            self._pool.shutdown(wait=False)
+            self._pool = None
+        self._buf, self._buffered = [], 0
+        self._handles = []
+
+    def result(self) -> np.ndarray:
+        """Drain the worker, queue the remainder, read back, concatenate."""
+        if self._val is None:
+            for j in self._jobs:  # drain; re-raises a worker failure here
+                j.result()
+            self._jobs = []
+            if self._pool is not None:
+                self._pool.shutdown(wait=True)
+                self._pool = None
+            self._drain_remainder()
+            fed = sum(m for m, _ in self._handles)
+            assert fed == self._n_fed, (fed, self._n_fed)
+            self._val = (
+                fetch(torch.cat([h[:m] for m, h in self._handles]), dtype=np.float32)
+                if self._handles
+                else np.zeros((0, self._ib.cfg.embed_dim), np.float32)
+            )
+            self._handles = []
+        return self._val
 
 
 class StubWhisperSegments:
@@ -244,9 +375,14 @@ class Whisper:
             logger.warning("no Whisper checkpoint — using deterministic stub transcriber")
             self._impl = StubWhisperSegments()
 
-    def transcribe(self, audio: np.ndarray, sample_rate: int = 16000) -> List[Segment]:
+    def transcribe(self, audio: Union[str, np.ndarray], sample_rate: int = 16000) -> List[Segment]:
+        """PCM at `sample_rate`, or the path of a WAV file (read as 16 kHz
+        mono) -> timestamped segments."""
         if isinstance(audio, str):
-            raise NotImplementedError("reading audio files needs the media shim, a later slice")
+            from hippomm_tpu_torch.media.io import load_audio_mono16k
+
+            audio = load_audio_mono16k(audio)
+            sample_rate = 16000
         return self._impl.transcribe(np.asarray(audio, dtype=np.float32), sample_rate)
 
     def transcribe_batch(

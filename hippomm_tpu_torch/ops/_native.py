@@ -1,6 +1,6 @@
 """Build-at-first-use loader for the port's native code (csrc/).
 
-Two shared libraries with plain C interfaces, loaded with ctypes:
+Three shared libraries with plain C interfaces, loaded with ctypes:
 
   * the Hopper kernels (csrc/*.cu → one .so): every `.cu` source compiles
     with its own `nvcc` process, all started together, then one link step.
@@ -9,6 +9,11 @@ Two shared libraries with plain C interfaces, loaded with ctypes:
   * the Pillow-exact bicubic resize (csrc/media_resize.cpp, host C++), built
     with the host C++ compiler. None when no compiler is found; the caller
     then resamples with PIL, as the JAX package does without its shim.
+  * the host media shim (csrc/media_jpeg.cpp: libjpeg codec, MJPEG-AVI
+    reader and writer), built with the host C++ compiler against -ljpeg.
+    None when there is no compiler, or no jpeglib.h / libjpeg: JPEG then
+    goes through PIL and the AVI reader and writer raise, as the JAX
+    package does without its shim.
 
 Outputs go to `_build/` inside the package (listed in .gitignore), named by
 a hash of sources, headers and flags, so an edited source or header never
@@ -19,11 +24,14 @@ from __future__ import annotations
 
 import ctypes
 import hashlib
+import logging
 import os
 import shutil
 import subprocess
 import threading
 from typing import List, Optional
+
+logger = logging.getLogger(__name__)
 
 _CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_CSRC), "_build")
@@ -38,6 +46,10 @@ _lock = threading.Lock()
 _kernels: Optional[ctypes.CDLL] = None
 _resize: Optional[ctypes.CDLL] = None
 _resize_tried = False
+_media: Optional[ctypes.CDLL] = None
+_media_tried = False
+_count_lock = threading.Lock()
+_thread_state = threading.local()
 #: ptxas register / shared-memory report of the last kernel build
 build_log: str = ""
 
@@ -48,6 +60,31 @@ def _digest(paths: List[str], flags: List[str]) -> str:
         with open(p, "rb") as f:
             h.update(f.read())
     return h.hexdigest()[:16]
+
+
+def bind_thread(device) -> None:
+    """Make `device`'s primary CUDA context current in the calling thread.
+    The kernels' C entries reach the driver API (tensor-map encodes) before
+    any runtime call that would bind it, so a thread whose first CUDA work
+    is a kernel call (its tensors from the caching allocator, no runtime
+    call yet) would get CUDA_ERROR_INVALID_CONTEXT. Once per thread and
+    device; a stream query is the cheapest runtime call that binds it."""
+    bound = getattr(_thread_state, "bound", None)
+    if bound is None:
+        bound = _thread_state.bound = set()
+    if device.index not in bound:
+        import torch
+
+        torch.cuda.current_stream(device).query()
+        bound.add(device.index)
+
+
+def count_launch(fn) -> None:
+    """Add one to a kernel wrapper's `launches` count. Under a lock: the
+    ingest launches kernels from more than one thread (the vision stream's
+    worker beside the engine), and a bare `+=` can lose a count."""
+    with _count_lock:
+        fn.launches += 1
 
 
 def _nvcc() -> str:
@@ -149,4 +186,56 @@ def resize_lib() -> Optional[ctypes.CDLL]:
             ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
         ]
         _resize = lib
+        return lib
+
+
+def media_lib() -> Optional[ctypes.CDLL]:
+    """The host media shim (libjpeg codec and MJPEG-AVI container), or None
+    where no C++ compiler, jpeglib.h or libjpeg is found."""
+    global _media, _media_tried
+    with _lock:
+        if _media is not None or _media_tried:
+            return _media
+        _media_tried = True
+        cxx = shutil.which("g++") or shutil.which("c++")
+        if cxx is None:
+            return None
+        src = os.path.join(_CSRC, "media_jpeg.cpp")
+        flags = ["-O3", "-fPIC", "-shared", "-std=c++17", "-pthread"]
+        lib_path = os.path.join(BUILD_DIR, f"libhmm_media_{_digest([src], flags)}.so")
+        if not os.path.exists(lib_path):
+            os.makedirs(BUILD_DIR, exist_ok=True)
+            tmp = f"{lib_path}.tmp{os.getpid()}"
+            build = subprocess.run([cxx, *flags, "-o", tmp, src, "-ljpeg"],
+                                   capture_output=True, text=True)
+            if build.returncode != 0:
+                logger.warning("media shim did not build (%s); JPEG through PIL, no AVI",
+                               build.stderr.strip().splitlines()[-1:] or build.returncode)
+                return None
+            os.replace(tmp, lib_path)
+        try:
+            lib = ctypes.CDLL(lib_path)
+        except OSError as e:  # e.g. a build carried from a host whose libjpeg this one lacks
+            logger.warning("media shim does not load (%s); JPEG through PIL, no AVI", e)
+            return None
+        vp, i32, i64, f64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_double
+        pi32 = ctypes.POINTER(ctypes.c_int)
+        lib.hmm_jpeg_decode.restype = i32
+        lib.hmm_jpeg_decode.argtypes = [vp, ctypes.c_size_t, vp, pi32, pi32]
+        lib.hmm_jpeg_encode.restype = i32
+        lib.hmm_jpeg_encode.argtypes = [vp, i32, i32, i32, vp, ctypes.POINTER(ctypes.c_size_t)]
+        lib.hmm_jpeg_decode_batch.restype = i32
+        lib.hmm_avi_open.restype = vp
+        lib.hmm_avi_open.argtypes = [ctypes.c_char_p]
+        lib.hmm_avi_info.argtypes = [vp, pi32, pi32, ctypes.POINTER(f64), ctypes.POINTER(i64)]
+        lib.hmm_avi_read_indices.restype = i32
+        lib.hmm_avi_read_indices.argtypes = [vp, vp, i64, vp]
+        lib.hmm_avi_close.argtypes = [vp]
+        lib.hmm_avi_writer_open.restype = vp
+        lib.hmm_avi_writer_open.argtypes = [ctypes.c_char_p, i32, i32, f64, i32]
+        lib.hmm_avi_writer_write.restype = i32
+        lib.hmm_avi_writer_write.argtypes = [vp, vp]
+        lib.hmm_avi_writer_close.restype = i32
+        lib.hmm_avi_writer_close.argtypes = [vp]
+        _media = lib
         return lib

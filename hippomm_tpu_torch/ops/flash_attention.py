@@ -36,6 +36,8 @@ from typing import NamedTuple, Tuple
 import torch
 import torch.nn.functional as F
 
+from hippomm_tpu_torch.ops import _native
+
 # Per-head key length the JAX routing gate admits (its VMEM budget); the
 # CUDA kernel streams K/V and has no such limit, but the gate is kept so both
 # packages route the same shapes to the kernel.
@@ -131,9 +133,8 @@ def flash_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float) -
         # zero columns add 0 to q·k and give zero output columns (sliced off)
         q, k, v = (F.pad(t, (0, hdp - hd)) for t in (q, k, v))
     out = torch.empty_like(q)
-    from hippomm_tpu_torch.ops import _native
-
     lib = _native.kernels()
+    _native.bind_thread(q.device)
     with torch.cuda.device(q.device):
         rc = lib.hmm_flash_mha_bf16(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
@@ -142,7 +143,7 @@ def flash_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float) -
         )
     if rc != 0:
         raise RuntimeError(f"flash_mha kernel launch failed: CUDA error {rc}")
-    flash_mha.launches += 1
+    _native.count_launch(flash_mha)
     return out if hdp == hd else out[..., :hd]
 
 
@@ -243,9 +244,8 @@ def flash_mha_bthd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: flo
                 f"multiples of 8 and a 16-byte aligned start; got strides {t.stride()}"
             )
     out = torch.empty((b, tq, h, hdp), dtype=q.dtype, device=q.device)
-    from hippomm_tpu_torch.ops import _native
-
     lib = _native.kernels()
+    _native.bind_thread(q.device)
     with torch.cuda.device(q.device):
         rc = lib.hmm_flash_mha_bthd_bf16(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, h, tq, tk, hdp,
@@ -254,7 +254,7 @@ def flash_mha_bthd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: flo
         )
     if rc != 0:
         raise RuntimeError(f"flash_mha_bthd kernel launch failed: CUDA error {rc}")
-    flash_mha_bthd.launches += 1
+    _native.count_launch(flash_mha_bthd)
     return out if hdp == hd else out[..., :hd]
 
 

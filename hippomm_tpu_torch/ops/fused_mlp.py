@@ -35,6 +35,8 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
+from hippomm_tpu_torch.ops import _native
+
 _LANES = 128
 _BM = 128  # rows per GEMM tile
 _BK = 64  # K per pipeline stage
@@ -181,9 +183,8 @@ def _launch(entry: str, x, vectors, w1, b1, w2, b2, eps=None) -> torch.Tensor:
              plan.splits]
     if eps is not None:
         args.append(float(eps))
-    from hippomm_tpu_torch.ops import _native
-
     fn = getattr(_native.kernels(), entry)
+    _native.bind_thread(x.device)
     if x.device.index == torch.cuda.current_device():
         rc = fn(*args, _current_stream())
     else:
@@ -201,7 +202,7 @@ def fused_mlp(x, w1, b1, w2, b2) -> torch.Tensor:
     if not _check_operands("fused_mlp", x, w1, b1, w2, b2):
         return fused_mlp_ref(x, w1, b1, w2, b2)
     out = _launch("hmm_fused_mlp_bf16", x, (), w1, b1, w2, b2)
-    fused_mlp.launches += 1
+    _native.count_launch(fused_mlp)
     return out
 
 
@@ -256,7 +257,7 @@ def fused_ln_mlp_residual(x, gamma, beta, w1, b1, w2, b2, eps: float = 1e-6) -> 
     if not _check_operands("fused_ln_mlp_residual", x, w1, b1, w2, b2, gamma, beta):
         return fused_ln_mlp_residual_ref(x, gamma, beta, w1, b1, w2, b2, eps)
     out = _launch("hmm_fused_ln_mlp_residual_bf16", x, (gamma, beta), w1, b1, w2, b2, eps=eps)
-    fused_ln_mlp_residual.launches += 1
+    _native.count_launch(fused_ln_mlp_residual)
     return out
 
 

@@ -99,3 +99,20 @@ def detect_silence_regions(
     if start is not None:
         regions.append((start * hop / sample_rate, len(silent) * hop / sample_rate))
     return [(s, e) for (s, e) in regions if e - s >= min_duration]
+
+
+def silence_fraction(
+    pcm: np.ndarray,
+    sample_rate: int = 16000,
+    threshold_db: float = -50.0,
+    regions=None,
+) -> float:
+    """Fraction of the waveform inside silence regions (the ingest skips audio
+    more than 90 % silent). Pass `regions` when the caller already ran
+    detect_silence_regions, so the windowed RMS runs once."""
+    dur = len(pcm) / sample_rate
+    if dur <= 0:
+        return 1.0
+    if regions is None:
+        regions = detect_silence_regions(pcm, sample_rate, threshold_db)
+    return min(1.0, sum(e - s for s, e in regions) / dur)

@@ -29,6 +29,8 @@ from typing import NamedTuple, Tuple
 
 import torch
 
+from hippomm_tpu_torch.ops import _native
+
 MAX_K = 128  # the TPU kernel's contract (one 128-lane row of running top-k)
 
 # The kernel's fixed sizes (csrc/topk_cosine.cu): a block's list and
@@ -170,10 +172,9 @@ def top_k_cosine_kernel(query: torch.Tensor, feats: torch.Tensor, k: int, packed
     q = query.reshape(-1).float().contiguous()
     if feats.data_ptr() % 16:
         raise ValueError("top_k_cosine_kernel takes a 16-byte aligned store")
-    from hippomm_tpu_torch.ops import _native
-
     lib = _native.kernels()
     dev = feats.device
+    _native.bind_thread(dev)
     plan = _topk_plan(n, d, k, _sm_count(dev.index))
     out = torch.empty((2, k), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
@@ -185,7 +186,7 @@ def top_k_cosine_kernel(query: torch.Tensor, feats: torch.Tensor, k: int, packed
         )
     if rc != 0:
         raise RuntimeError(f"hmm_topk_cosine_f32 kernel launch failed: CUDA error {rc}")
-    top_k_cosine_kernel.launches += 1
+    _native.count_launch(top_k_cosine_kernel)
     return out if packed else (out[0].view(torch.float32), out[1])
 
 

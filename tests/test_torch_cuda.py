@@ -464,3 +464,103 @@ def test_kill_switch_routes_the_kernels_out_on_cuda(cuda_device, monkeypatch, fl
         monkeypatch.delenv("HIPPOMM_FLASH_BTHD")
         for p in policies:
             p.cache_clear()
+
+
+def _scan_luma(n: int, seed: int):
+    """(n, 90, 160) uint8 candidate luma with scene cuts and drift, and
+    candidate times 0.5 s apart."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    scenes = rng.integers(20, 235, size=(1 + n // 4, 90, 160)).astype(np.float32)
+    which = np.cumsum(rng.random(n) < 0.15)
+    i = np.arange(n, dtype=np.float32)[:, None, None]
+    g = scenes[which % len(scenes)] * (1.0 - 0.002 * i) + rng.normal(0, 4, (n, 90, 160))
+    return np.clip(g, 0, 255).astype(np.uint8), [0.5 * j for j in range(n)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("block", [64, 256])
+def test_keyframe_scan_on_cuda_matches_cpu(cuda_device, block):
+    """The greedy scan on the card, carry across blocks included, selects the
+    CPU scan's key frames from the same luma."""
+    from hippomm_tpu_torch.ops.keyframe import select_keyframes_device
+
+    grays, times = _scan_luma(300, seed=1)
+    got = select_keyframes_device(grays, times, 0.3, 1.0, block=block, device=cuda_device)
+    want = select_keyframes_device(grays, times, 0.3, 1.0, block=block, device="cpu")
+    assert got == want and len(want) > 5
+
+
+@pytest.mark.cuda
+def test_keyframe_mask_read_does_not_wait_on_the_default_stream(cuda_device):
+    """The scan runs on its own stream: while the default stream is busy with
+    a long chain of matmuls, a block's mask becomes ready (is_ready goes
+    false → true) and reads back, and the default stream is still busy. A
+    first block, fed before the matmuls, warms the scan stream's cached host
+    and device memory; both blocks' masks equal the CPU scan's."""
+    import time
+
+    import numpy as np
+
+    from hippomm_tpu_torch.ops.keyframe import KeyframeScanner, select_keyframes_device
+
+    grays, times = _scan_luma(128, seed=2)
+    sc = KeyframeScanner(90, 160, block=64, device=cuda_device)
+    first = sc.feed(grays[:64], times[:64]).get()
+    a = torch.randn((8192, 8192), device=cuda_device)
+    torch.cuda.synchronize()
+    for _ in range(100):  # about two seconds of work on the default stream
+        a = a @ a
+        a = a / a.norm()
+    busy = torch.cuda.Event()
+    busy.record()
+    h = sc.feed(grays[64:], times[64:])
+    seen_not_ready = not h.is_ready()
+    t0 = time.perf_counter()
+    while not h.is_ready():
+        assert time.perf_counter() - t0 < 60, "the scan did not finish"
+        time.sleep(0.001)
+    second = h.get()
+    assert not busy.query(), "the default stream finished first: the read may have waited on it"
+    assert seen_not_ready
+    torch.cuda.synchronize()
+    want = select_keyframes_device(grays, times, 0.3, 1.0, block=64, device="cpu")
+    assert np.nonzero(np.concatenate([first, second]))[0].tolist() == want
+
+
+@pytest.mark.cuda
+def test_launch_counts_are_exact_from_two_threads(cuda_device):
+    """Two threads launching K2 at once: the counter holds every launch."""
+    import threading
+
+    g = torch.Generator(device=cuda_device).manual_seed(5)
+    n, d, f = 256, 256, 1024
+
+    def operands():
+        return (torch.randn((n, d), generator=g, device=cuda_device).to(torch.bfloat16),
+                (torch.randn((f, d), generator=g, device=cuda_device) / 16).to(torch.bfloat16),
+                torch.zeros((f,), device=cuda_device),
+                (torch.randn((d, f), generator=g, device=cuda_device) / 32).to(torch.bfloat16),
+                torch.zeros((d,), device=cuda_device))
+
+    sets = [operands(), operands()]
+    calls = 2000
+    before = tfm.fused_mlp.launches
+    errors = []
+
+    def run(ops):
+        try:
+            for _ in range(calls):
+                tfm.fused_mlp(*ops)
+        except Exception as e:  # noqa: BLE001 — reported below
+            errors.append(e)
+
+    threads = [threading.Thread(target=run, args=(s,)) for s in sets]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    torch.cuda.synchronize()
+    assert not errors, errors
+    assert tfm.fused_mlp.launches - before == 2 * calls

@@ -32,12 +32,15 @@ _MODULES = [
     "hippomm_tpu_torch.ops.mel",
     "hippomm_tpu_torch.ops.similarity",
     "hippomm_tpu_torch.ops.topk",
+    "hippomm_tpu_torch.ops.keyframe",
+    "hippomm_tpu_torch.ops._native",
     "hippomm_tpu_torch.media.synth",
     "hippomm_tpu_torch.media.io",
     "hippomm_tpu_torch.retrieval.budget",
     "hippomm_tpu_torch.retrieval.search",
     "hippomm_tpu_torch.retrieval.qa",
     "hippomm_tpu_torch.core.ask_question",
+    "hippomm_tpu_torch.core.batch_process",
     "hippomm_tpu_torch.utils.timers",
     "hippomm_tpu_torch.utils.tokens",
 ]
@@ -62,12 +65,15 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
-@pytest.mark.parametrize("entry", ["engine", "imagebind", "whisper", "search_index"])
+@pytest.mark.parametrize("entry", ["engine", "imagebind", "whisper", "search_index", "keyframe_scanner",
+                                   "batch_main"])
 def test_entry_point_without_device_raises_without_cuda(entry, monkeypatch, tmp_path):
     import torch
 
     from hippomm_tpu_torch.config import Config
+    from hippomm_tpu_torch.core import batch_process
     from hippomm_tpu_torch.memory.engine import HippocampalMemory
+    from hippomm_tpu_torch.ops.keyframe import KeyframeScanner
     from hippomm_tpu_torch.models.foundation import ImageBind, Whisper
     from hippomm_tpu_torch.retrieval.search import FeatureSearchIndex
 
@@ -78,7 +84,10 @@ def test_entry_point_without_device_raises_without_cuda(entry, monkeypatch, tmp_
     cfg.storage.base_dir = str(tmp_path)
     make = {"engine": lambda: HippocampalMemory(cfg), "imagebind": lambda: ImageBind(variant="tiny"),
             "whisper": lambda: Whisper(variant="tiny"),
-            "search_index": lambda: FeatureSearchIndex.build([], "vision")}[entry]
+            "search_index": lambda: FeatureSearchIndex.build([], "vision"),
+            "keyframe_scanner": lambda: KeyframeScanner(90, 160),
+            "batch_main": lambda: batch_process.main(["--path", str(tmp_path / "none"),
+                                                      "--memory_store", str(tmp_path / "store")])}[entry]
     with pytest.raises(RuntimeError, match="no CUDA device"):
         make()
 

@@ -350,7 +350,7 @@ def test_recall_media_helpers_match_jax(tmp_path):
     assert tio.jpeg_decode(tio.jpeg_encode(frames[1])).shape == (360, 640, 3)
     with pytest.raises(OSError):
         tio.probe_video(str(tmp_path / "missing.mp4"))
-    with pytest.raises(NotImplementedError, match="media shim"):
+    with pytest.raises(ValueError, match="unsupported video container"):
         tio.open_video(p)
 
 
