@@ -54,6 +54,24 @@ Phases (any failure exits non-zero and prints no result line):
      on the device; K1/K2 only for the Whisper re-transcription), every
      search's hits against the host route's (compare_hits), per-question
      wall and stage seconds
+  9. serve  — (runs after phase 6) the QA server core/serve started from a
+     file: a seeded full-width ImageBind-Huge checkpoint written from the
+     port's manifest as fp32 .pth (4.3 GB), Whisper distil-large-v3 random
+     weights, stub clients, detailed recall forced, an empty store.
+     QAService on the card: its towers' vision and text features equal
+     (max abs 0) to towers carried from the same numpy weights; startup
+     seconds (read, convert, carry to the card) and peak RSS. Then over
+     HTTP on a server thread: /ingest of a folder of two seeded 640×360
+     clips (.mp4 with the audio embedded where the libav shim loads, else
+     .y4m with sibling .wav files) and of one more file, exact K1/K2
+     counts by phase 8's formula; /healthz and /events show 3 events; /ask
+     the VIDEO, SOUND and SUMMARY questions and /ask_batch the 8, exact K2
+     and K5 counts by phase 6's formulas, every search's hits against the
+     host route; 4 concurrent /ask, the latency histogram (ask count ≥ 7,
+     p95 ≥ p50); a corrupt .mp4 to /ingest gives 500 and leaves the engine
+     clean. Last, a restart over the 3-event store with the checkpoint's
+     pages dropped from the page cache: load (from the disk) and warmup
+     seconds
   7. search — a FeatureSearchIndex of 200 000 × 1024 seeded rows (100
      events of 2000): 64 single-query searches through K5 and one batch of
      64, ms per query, 4 queries' hits and times on the host route
@@ -61,6 +79,7 @@ Phases (any failure exits non-zero and prints no result line):
 Prints the card's name and power limit, a `{"kernels": [...]}` line, and as
 its last line `{"ok": true, "device": {...}}`. Writes the same numbers to
 chiprun_out/chip_smoke.json. Needs no network and no checkpoint.
+Phase 9 writes its own checkpoint file from a seed.
 """
 
 from __future__ import annotations
@@ -654,6 +673,389 @@ def query_phase(qcfg, counters, fa, fm):
     return {"runs": runs, "launches": totals}
 
 
+def _rss_kib():
+    """This process's resident set in KiB (VmRSS of /proc/self/status)."""
+    with open("/proc/self/status") as f:
+        for ln in f:
+            if ln.startswith("VmRSS:"):
+                return int(ln.split()[1])
+    return None
+
+
+class _PeakRss:
+    """The largest VmRSS seen by a thread sampling every 5 ms while the
+    block runs (the kernel's own peak counter is the process lifetime's)."""
+
+    def __enter__(self):
+        import threading
+
+        self.peak, self._stop = _rss_kib() or 0, threading.Event()
+
+        def sample():
+            while not self._stop.wait(0.005):
+                self.peak = max(self.peak, _rss_kib() or 0)
+
+        self._t = threading.Thread(target=sample, daemon=True)
+        self._t.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._t.join()
+        self.peak = max(self.peak, _rss_kib() or 0)
+
+
+def _http(port: int, path: str, payload=None):
+    """(status, JSON body) of one request to the local server; an HTTP error
+    status is returned, not raised."""
+    import urllib.error
+    import urllib.request
+
+    url = f"http://127.0.0.1:{port}{path}"
+    data = None if payload is None else json.dumps(payload).encode()
+    req = urllib.request.Request(url, data=data, headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=600) as r:
+            return r.status, json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read() or b"{}")
+
+
+class _Timed:
+    """Wrap module attributes to add each call's seconds to `self.s[name]`."""
+
+    def __init__(self):
+        self.s, self._saved = {}, []
+
+    def wrap(self, obj, attr, name):
+        fn = getattr(obj, attr)
+
+        def run(*a, **k):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                self.s[name] = self.s.get(name, 0.0) + time.perf_counter() - t0
+
+        self._saved.append((obj, attr, fn))
+        setattr(obj, attr, run)
+
+    def restore(self):
+        for obj, attr, fn in reversed(self._saved):
+            setattr(obj, attr, fn)
+
+
+def serve_phase(counters, ib_depths):
+    """9. the QA server (core/serve) started from an ImageBind-Huge
+    checkpoint file, driven over HTTP (see the module doc)."""
+    import gc
+    import threading
+
+    import numpy as np
+    import torch
+
+    from hippomm_tpu_torch.config import Config
+    from hippomm_tpu_torch.core import serve
+    from hippomm_tpu_torch.media import io as mio
+    from hippomm_tpu_torch.media.synth import SynthSpec, generate
+    from hippomm_tpu_torch.memory import engine
+    from hippomm_tpu_torch.models import foundation
+    from hippomm_tpu_torch.models.imagebind import convert as ib_convert
+    from hippomm_tpu_torch.models.imagebind.carry import params_from_jax
+    from hippomm_tpu_torch.models.imagebind.manifest import random_state_dict
+    from hippomm_tpu_torch.models.imagebind.model import huge_config
+    from hippomm_tpu_torch.retrieval.qa import QARecallSystem
+
+    vis_depth, aud_depth = ib_depths
+    dev = torch.device("cuda")
+    out = {}
+    with tempfile.TemporaryDirectory() as work:
+        # 1. a seeded full-width checkpoint, fp32 .pth, and towers carried
+        # from the same numpy weights to hold the loaded ones against
+        t0 = time.perf_counter()
+        sd = random_state_dict(huge_config(), seed=9)
+        out["checkpoint_gen_s"] = time.perf_counter() - t0
+        ckpt = os.path.join(work, "imagebind_huge.pth")
+        t0 = time.perf_counter()
+        torch.save({k: torch.from_numpy(v) for k, v in sd.items()}, ckpt)
+        out["checkpoint_write_s"] = time.perf_counter() - t0
+        out["checkpoint_bytes"] = os.path.getsize(ckpt)
+        out["checkpoint_params"] = int(sum(v.size for v in sd.values()))
+        ref = foundation.ImageBind(device=dev, params=params_from_jax(
+            ib_convert.convert_state_dict(sd, huge_config()), huge_config(), dev))
+        del sd
+        gc.collect()
+        print(f"serve: checkpoint of {out['checkpoint_params']} fp32 parameters, "
+              f"{out['checkpoint_bytes'] / 1e9:.3f} GB, generated in {out['checkpoint_gen_s']:.1f} s, "
+              f"written in {out['checkpoint_write_s']:.1f} s", flush=True)
+
+        store = os.path.join(work, "store")
+        cfg = Config()
+        cfg.api.mode = "stub"
+        cfg.models.imagebind_variant = "huge"
+        cfg.models.imagebind_path = ckpt
+        cfg.models.whisper_variant = "distil-large-v3"
+        cfg.models.whisper_random_init = True
+        cfg.processing.fast_path_confidence = 2.0
+        cfg.storage.base_dir = store
+
+        # 2. the server's engine on the card, from the file
+        rss_before = _rss_kib()
+        timed = _Timed()
+        timed.wrap(ib_convert, "load_state_dict", "read")
+        timed.wrap(ib_convert, "convert_state_dict", "convert")
+        timed.wrap(ib_convert, "params_from_jax", "carry")
+        timed.wrap(engine.HippocampalMemory, "__init__", "engine")
+        try:
+            with _PeakRss() as rss:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                service = serve.QAService(cfg)
+                torch.cuda.synchronize()
+                startup = time.perf_counter() - t0
+        finally:
+            timed.restore()
+        rss_after, peak = _rss_kib(), rss.peak
+        ib = service.memory.imagebind
+        if (ib.cfg.vision.width, ib.cfg.vision.depth) != (1280, vis_depth) or ib.device.type != "cuda":
+            fail("serve: the service did not build ImageBind-Huge on the card")
+        frames = generate(SynthSpec(duration=4.0, fps=1.0, width=640, height=360, seed=31)).frames
+        agree = {"vision": float(np.abs(ib.encode_vision(frames) - ref.encode_vision(frames)).max()),
+                 "text": float(np.abs(ib.encode_text(BATCH_QS[:2]) - ref.encode_text(BATCH_QS[:2])).max())}
+        del ref
+        gc.collect()
+        torch.cuda.empty_cache()
+        out["startup"] = {"total_s": startup, "read_s": timed.s.get("read"),
+                          "convert_s": timed.s.get("convert"), "carry_s": timed.s.get("carry"),
+                          "engine_s": timed.s.get("engine"), "rss_before_kib": rss_before, "rss_after_kib": rss_after,
+                          "peak_rss_kib": peak}
+        print(f"serve startup: {startup:.2f} s (engine {timed.s.get('engine', 0):.2f} s: read "
+              f"{timed.s.get('read', 0):.2f} s (memory-mapped), convert {timed.s.get('convert', 0):.2f} s, "
+              f"carry to the card {timed.s.get('carry', 0):.2f} s; no warmup: the store is empty); RSS "
+              f"{rss_before / 2**20:.2f} -> {rss_after / 2**20:.2f} GiB, peak {peak / 2**20:.2f} GiB during "
+              f"the startup (sampled every 5 ms)", flush=True)
+        print(f"serve: loaded towers vs towers carried from the same weights: max abs {agree}", flush=True)
+        if agree != {"vision": 0.0, "text": 0.0}:
+            fail(f"serve: the checkpoint's towers differ from the same weights carried directly: {agree}")
+        out["loaded_vs_carried_max_abs"] = agree
+
+        server = serve.make_server(service, port=0)
+        port = server.server_address[1]
+        thread = threading.Thread(target=server.serve_forever, daemon=True)
+        thread.start()
+        try:
+            out.update(_serve_requests(service, port, counters, work, vis_depth, aud_depth, mio))
+        finally:
+            server.shutdown()
+            server.server_close()
+            thread.join(timeout=60)
+        if thread.is_alive():
+            fail("serve: the server thread did not stop")
+
+        # a restart over the store the requests built, the checkpoint's pages
+        # first dropped from the page cache: a read from the disk, and warmup
+        del service, ib
+        gc.collect()
+        torch.cuda.empty_cache()
+        os.sync()
+        with open(ckpt, "rb") as f:
+            os.posix_fadvise(f.fileno(), 0, 0, os.POSIX_FADV_DONTNEED)
+        timed = _Timed()
+        timed.wrap(ib_convert, "load_state_dict", "read")
+        timed.wrap(ib_convert, "params_from_jax", "carry")
+        timed.wrap(engine.HippocampalMemory, "__init__", "engine")
+        timed.wrap(QARecallSystem, "answer_question", "warmup")
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            again = serve.QAService(cfg)
+            torch.cuda.synchronize()
+            restart = time.perf_counter() - t0
+        finally:
+            timed.restore()
+        n_events = len(again.memory.long_term_store)
+        del again
+        gc.collect()
+        torch.cuda.empty_cache()
+        out["restart"] = {"total_s": restart, "events": n_events, **{f"{k}_s": v for k, v in timed.s.items()}}
+        rate = out["checkpoint_bytes"] / (timed.s.get("read", 0) + timed.s.get("carry", 0)) / 1e9
+        print(f"serve restart over {n_events} events, the checkpoint's pages dropped from the page cache: "
+              f"{restart:.2f} s (engine {timed.s.get('engine', 0):.2f} s: read {timed.s.get('read', 0):.2f} s, "
+              f"carry {timed.s.get('carry', 0):.2f} s, {rate:.2f} GB/s from the file to the card; warmup "
+              f"{timed.s.get('warmup', 0):.2f} s)", flush=True)
+        if "warmup" not in timed.s:
+            fail("serve: the restart over a non-empty store ran no warmup question")
+    lat = out["latency_ms"]
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60)
+    out["card"] = smi.stdout.strip().splitlines()[0] if smi.returncode == 0 and smi.stdout.strip() else "unknown"
+    print(f"serve summary ({out['card']}): startup {out['startup']['total_s']:.2f} s, restart with warmup "
+          f"{out['restart']['total_s']:.2f} s; /ask p50 {lat['ask']['p50']} ms, p95 {lat['ask']['p95']} ms; "
+          f"/ask_batch {lat['ask_batch_per_q']['p50']} ms per question; /ingest folder "
+          f"{out['ingest']['folder']['wall_s']:.2f} s (realtime multiple "
+          f"{out['ingest']['folder']['realtime_multiple']:.1f}), single file "
+          f"{out['ingest']['single']['wall_s']:.2f} s", flush=True)
+    return out
+
+
+def _serve_requests(service, port, counters, work, vis_depth, aud_depth, mio):
+    """The HTTP requests of phase 9 against a running server."""
+    import concurrent.futures
+
+    import torch
+
+    from hippomm_tpu_torch.media.synth import SynthSpec, write_synthetic_video
+
+    mem = service.memory
+    out = {}
+    folder = os.path.join(work, "videos")
+    os.makedirs(folder)
+    ext = ".mp4" if mio.libav_available() else ".y4m"
+    if ext == ".y4m":
+        print("serve: the libav shim did not build or load on this machine (the warning above says why): "
+              "clips written as .y4m with sibling 16 kHz .wav files", flush=True)
+    else:
+        print("serve: libav shim built and loaded: clips written as .mp4 with the audio track embedded",
+              flush=True)
+    specs = {"a": SynthSpec(duration=40.0, fps=4.0, width=640, height=360, scene_changes=(15.0, 28.0),
+                            silence_regions=((19.5, 20.5),), seed=41),
+             "b": SynthSpec(duration=30.0, fps=4.0, width=640, height=360, scene_changes=(12.0,), seed=42),
+             "c": SynthSpec(duration=20.0, fps=4.0, width=640, height=360, scene_changes=(8.0,), seed=43)}
+
+    def write(vid, where):
+        path = os.path.join(where, vid + ext)
+        wav = None if ext == ".mp4" else os.path.join(where, vid + ".wav")
+        write_synthetic_video(path, specs[vid], audio_path=wav)
+        return path
+
+    for vid in ("a", "b"):
+        write(vid, folder)
+    single = write("c", work)
+    out["container"] = ext
+
+    # /ingest of the folder, then of one file: exact K1/K2 counts
+    ingests = {}
+    for name, path, vids in (("folder", folder, ("a", "b")), ("single", single, ("c",))):
+        spies = CliSpies()
+        try:
+            for c in counters.values():
+                c.launches = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            status, stats = _http(port, "/ingest", {"path": path})
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = {k: c.launches for k, c in counters.items()}
+        finally:
+            spies.restore()
+        if status != 200 or stats.get("processed") != len(vids) or stats.get("failed") != 0:
+            fail(f"serve /ingest {name}: status {status}, {stats}")
+        videos, expect = ingest_blocks(spies, mem, vids, vis_depth, aud_depth)
+        expect["top_k_cosine"] = 0
+        print(f"serve /ingest {name}: {status}, {stats.get('processed')} processed in {wall:.2f} s "
+              f"({videos}); launches {launches}, expected {expect}", flush=True)
+        if launches != expect:
+            fail(f"serve /ingest {name}: kernel launches {launches} != {expect}")
+        media = sum(specs[v].duration for v in vids)
+        ingests[name] = {"status": status, "wall_s": wall, "media_s": media, "realtime_multiple": media / wall,
+                         "stats": stats, "videos": videos, "launches": launches, "expected_launches": expect}
+    out["ingest"] = ingests
+    status, health = _http(port, "/healthz")
+    status_ev, events = _http(port, "/events")
+    if (status, status_ev, health.get("events"), len(events.get("events", []))) != (200, 200, 3, 3):
+        fail(f"serve: /healthz {status} {health}, /events {status_ev} {events}")
+    print(f"serve: /healthz {health['events']} events, {health['videos']} videos; /events "
+          f"{events['events']}", flush=True)
+
+    # /ask and /ask_batch: exact K2 / K5 counts, every search on the card
+    # and its hits against the host route
+    spies = QuerySpies()
+    os.environ.pop("HIPPOMM_TOPK_ROUTE", None)
+    asks = {}
+    try:
+        for name, path, payload, qtypes in (
+            ("video", "/ask", {"question": VIDEO_Q}, ["VIDEO"]),
+            ("sound", "/ask", {"question": SOUND_Q}, ["AUDIO"]),
+            ("summary", "/ask", {"question": SUMMARY_Q}, ["SUMMARY"]),
+            ("batch8", "/ask_batch", {"questions": BATCH_QS}, ["VIDEO"] * len(BATCH_QS)),
+        ):
+            spies.reset()
+            for c in counters.values():
+                c.launches = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            status, body = _http(port, path, payload)
+            wall = time.perf_counter() - t0
+            launches = {k: c.launches for k, c in counters.items()}
+            results = body.get("results", [body]) if status == 200 else []
+            n_text, n_enc = len(spies.text_rows), len(spies.encoder_batches)
+            n_k5 = sum(1 for k in spies.device_ks if k <= 128)
+            expect = {"flash_mha": WHISPER_DEPTH * n_enc,
+                      "fused_mlp": TEXT_DEPTH * n_text + WHISPER_DEPTH * n_enc,
+                      "fused_ln_mlp_residual": 0, "flash_mha_bthd": 0, "top_k_cosine": n_k5}
+            print(f"serve {path} {name}: {status} in {wall * 1e3:.1f} ms; text rows {spies.text_rows}, "
+                  f"encoder batches {n_enc}, search rounds k {spies.rounds} (on the device "
+                  f"{spies.device_ks}), batch rounds k {spies.batch_rounds}; launches {launches}, "
+                  f"expected {expect}", flush=True)
+            if status != 200:
+                fail(f"serve {path} {name}: status {status}: {body}")
+            if launches != expect:
+                fail(f"serve {path} {name}: kernel launches {launches} != {expect}")
+            if spies.device_ks != spies.rounds or spies.device_batches != spies.batch_rounds:
+                fail(f"serve {name}: search rounds {spies.rounds} / batches {spies.batch_rounds} did not "
+                     f"all run on the device ({spies.device_ks} / {spies.device_batches})")
+            if [r["question_type"] for r in results] != qtypes or not all(r["answer"] for r in results):
+                fail(f"serve {name}: results {[(r['question_type'], r['answer']) for r in results]}")
+            if name == "batch8" and spies.text_rows != [77 * len(BATCH_QS)]:
+                fail(f"serve batch8: text forwards of {spies.text_rows} rows, not one of 616")
+            if name in ("video", "sound") and (spies.text_rows != [77] or n_k5 < 1):
+                fail(f"serve {name}: text rows {spies.text_rows}, {n_k5} K5 rounds")
+            if name == "sound" and n_enc < 1:
+                fail("serve sound: no Whisper re-transcription ran")
+            if name == "summary" and not (results[0]["used_direct_answer"] and sum(launches.values()) == 0):
+                fail(f"serve summary: not answered on the fast path: {launches}")
+            stages = dict(spies.stages)
+            stages["rest"] = wall - sum(stages.values())  # recall, captions, HTTP
+            print(f"serve stages {name}: " + json.dumps({k: round(v, 4) for k, v in stages.items()}),
+                  flush=True)
+            err, ties = spies.host_route_agrees(f"serve {name}")
+            print(f"serve {name}: {len(spies.searches)} searches and {len(spies.batches)} batches agree "
+                  f"with the host route (similarity gap {err:.3g}, {ties} near-tie ranks)", flush=True)
+            asks[name] = {"wall_s": wall, "launches": launches, "expected_launches": expect,
+                          "text_rows": list(spies.text_rows), "search_rounds_k": list(spies.rounds),
+                          "encoder_batches": n_enc, "host_route_max_sim_gap": err,
+                          "host_route_near_ties": ties, "stages_s": stages}
+    finally:
+        spies.restore()
+    out["ask"] = asks
+
+    # 4 concurrent /ask requests, each on its own handler thread
+    with concurrent.futures.ThreadPoolExecutor(4) as pool:
+        futs = [pool.submit(_http, port, "/ask", {"question": q}) for q in BATCH_QS[:4]]
+        codes = [f.result()[0] for f in futs]
+    status, health = _http(port, "/healthz")
+    lat = health.get("latency_ms", {})
+    ask = lat.get("ask", {})
+    print(f"serve: 4 concurrent /ask {codes}; latency_ms {lat}", flush=True)
+    if codes != [200] * 4 or ask.get("count", 0) < 7 or not ask.get("p95", -1) >= ask.get("p50", 0) > 0:
+        fail(f"serve: concurrent asks {codes}, latency histogram {lat}")
+    out["latency_ms"] = lat
+
+    # a corrupt upload: 500, and nothing of it left in the engine
+    bad = os.path.join(work, "corrupt.mp4")
+    with open(bad, "wb") as f:
+        f.write(b"\x00" * 4096)
+    status, body = _http(port, "/ingest", {"path": bad})
+    residue = [name for name, d in (("_asr_futures", mem._asr_futures), ("_full_audio", mem._full_audio),
+                                    ("short_term_buffer", mem.short_term_buffer),
+                                    ("consolidated", mem.consolidated)) if "corrupt" in d]
+    print(f"serve: corrupt /ingest {status} {body}; residue {residue}", flush=True)
+    if status != 500 or residue:
+        fail(f"serve: corrupt upload gave {status} {body}, residue {residue}")
+    out["corrupt_ingest"] = {"status": status, "error": body.get("error")}
+    return out
+
+
 def search_phase(ttk):
     """A FeatureSearchIndex of 200 000 seeded unit rows × 1024 (100 events
     of 2000 1 fps keyframes, about 55 h): 64 single-query searches on the
@@ -790,6 +1192,35 @@ class CliSpies:
         logging.getLogger(bp.__name__).removeHandler(self._handler)
 
 
+def ingest_blocks(spies, mem, vids, vis_depth: int, aud_depth: int):
+    """Each ingested video's encoder blocks, from what the CLI spies saw:
+    vision through the stream's 32-wide chunks (ceil(fed / 32) batches of
+    vis_depth blocks), audio segments in 32-wide chunks of aud_depth blocks,
+    and one Whisper encoder batch of 32 blocks per 32 ASR chunks of 30 s.
+    Every block is one K1 and one K2 launch in the default configuration.
+    Returns the per-video record and the expected launch counts."""
+    import numpy as np
+
+    videos, total = {}, 0
+    for vid in vids:
+        meta = spies.extracted[vid]
+        stream = meta["vision_stream"]
+        base = getattr(stream, "_stream", stream)
+        stms = mem.store.load_checkpoint(vid)
+        n_aud = sum(1 for s in stms if "audio" in s.features)
+        npy = os.path.join(mem.store.audio_dir, vid, "audio.npy")
+        n_pcm = len(np.load(npy, mmap_mode="r")) if os.path.exists(npy) else 0
+        enc_batches = math.ceil(math.ceil(n_pcm / (30 * 16000)) / 32)
+        blocks = (math.ceil(base.frames_fed / 32) * vis_depth + math.ceil(n_aud / 32) * aud_depth
+                  + enc_batches * WHISPER_DEPTH)
+        total += blocks
+        videos[vid] = {"route": "keyframe_feed" if base is stream else "encode_all_candidates",
+                       "fed": base.frames_fed, "keyframes": len(meta["frame_times"]),
+                       "audio_segments": n_aud, "encoder_batches": enc_batches, "blocks": blocks,
+                       "wall_s": spies.walls.get(vid)}
+    return videos, {"flash_mha": total, "fused_mlp": total, "fused_ln_mlp_residual": 0, "flash_mha_bthd": 0}
+
+
 def scan_agrees_with_cpu(block, fed, what: str, thr: float = 0.3, gap: float = 1.0):
     """The card's key-frame mask of one video against the port's CPU scan of
     the same luma. The only difference let through is at a candidate whose
@@ -888,24 +1319,7 @@ def cli_phase(counters, ib_depths):
             fail("cli: main did not build ImageBind-Huge and Whisper distil-large-v3")
 
         # exact launch counts: vision through the stream's 32-wide chunks
-        videos, expect_blocks = {}, 0
-        for vid in ("long", "short"):
-            meta = spies.extracted[vid]
-            stream = meta["vision_stream"]
-            base = getattr(stream, "_stream", stream)
-            stms = mem.store.load_checkpoint(vid)
-            n_aud = sum(1 for s in stms if "audio" in s.features)
-            pcm = np.load(os.path.join(store, "audio", vid, "audio.npy"))
-            enc_batches = math.ceil(math.ceil(len(pcm) / (30 * 16000)) / 32)
-            blocks = (math.ceil(base.frames_fed / 32) * vis_depth + math.ceil(n_aud / 32) * aud_depth
-                      + enc_batches * WHISPER_DEPTH)
-            expect_blocks += blocks
-            videos[vid] = {"route": "keyframe_feed" if base is stream else "encode_all_candidates",
-                           "fed": base.frames_fed, "keyframes": len(meta["frame_times"]),
-                           "audio_segments": n_aud, "encoder_batches": enc_batches, "blocks": blocks,
-                           "wall_s": spies.walls.get(vid)}
-        expect = {"flash_mha": expect_blocks, "fused_mlp": expect_blocks, "fused_ln_mlp_residual": 0,
-                  "flash_mha_bthd": 0}
+        videos, expect = ingest_blocks(spies, mem, ("long", "short"), vis_depth, aud_depth)
         print(f"cli: {stats['processed']} videos in {wall:.2f} s ({videos}); launches {launches}, "
               f"expected {expect}", flush=True)
         if launches != expect:
@@ -1313,6 +1727,10 @@ def main() -> int:
 
         report["query"] = query_phase(qcfg, dict(counters, top_k_cosine=ttk.top_k_cosine_kernel), fa, fm)
 
+    # 9. the QA server from a checkpoint file, after the query phase (the
+    # token counter's `transformers` import is paid)
+    report["serve"] = serve_phase(dict(counters, top_k_cosine=ttk.top_k_cosine_kernel), depths)
+
     # 7. search at a store of 200 000 rows
     report["search"] = search_phase(ttk)
 
@@ -1331,6 +1749,9 @@ def main() -> int:
     by_path["cli"] = report["cli"]["launches"]
     by_path["query"] = report["query"]["launches"]  # the default-configuration questions
     by_path["query_fused"] = report["query"]["runs"]["video_fused"]["launches"]
+    # the server's requests: both /ingest calls, then the questions
+    serve_runs = list(report["serve"]["ingest"].values()) + list(report["serve"]["ask"].values())
+    by_path["serve"] = {k: sum(r["launches"].get(k, 0) for r in serve_runs) for k in rows}
     # each kernel's own path: K1/K2 the default ingest, K3/K4 the fused one, K5 the query path
     own_path = {"flash_mha": "ingest_default", "fused_mlp": "ingest_default",
                 "fused_ln_mlp_residual": "ingest_fused", "flash_mha_bthd": "ingest_fused",

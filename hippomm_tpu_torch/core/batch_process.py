@@ -3,8 +3,8 @@ hippomm_tpu/core/batch_process.py; reference: hippomm/core/batch_process.py).
 
 Same flags, store layout and stage order as the JAX CLI:
 
-  * video decode through the port's readers (media/io: .y4m, MJPEG .avi;
-    the libav containers raise until the port's libav slice)
+  * video decode through the port's readers (media/io: .y4m, MJPEG .avi,
+    and the libav containers .mp4/.mov/.mkv/.webm through the libav shim)
   * key-frame selection as a device scan over ~1 Hz candidate luma
     (ops/keyframe.KeyframeScanner, on its own CUDA stream), the kept frames
     fed to the vision tower as their masks are read (VisionEncodeStream)
@@ -464,12 +464,19 @@ def extract_audio_from_video(
     skip_silent_fraction: float = 0.9,
 ) -> Dict:
     """Audio track → 16 kHz mono + silence analysis (reference:
-    batch_process.py:257-378, an ffmpeg demux + silencedetect). The port
-    reads the sibling `<stem>.wav` (a standalone .wav is its own track);
-    container audio (libav containers, compressed audio files) waits for
-    the libav slice and raises. Writes audio/<video_id>/audio.npy +
-    metadata.yaml; idempotent."""
-    from hippomm_tpu_torch.media.io import LIBAV_EXTENSIONS, demux_audio, load_audio_mono16k
+    batch_process.py:257-378, an ffmpeg demux + silencedetect). Container
+    audio (libav containers, compressed audio files, a non-MJPEG .avi) is
+    demuxed in process by the libav shim; a track more than
+    `skip_silent_fraction` silent is skipped. A sibling `<stem>.wav` is the
+    track of a video-only container (.y4m, MJPEG .avi); a standalone .wav is
+    its own track. Writes audio/<video_id>/audio.npy + metadata.yaml;
+    idempotent."""
+    from hippomm_tpu_torch.media.io import (
+        LIBAV_EXTENSIONS,
+        demux_audio,
+        libav_available,
+        load_audio_mono16k,
+    )
     from hippomm_tpu_torch.ops.silence import detect_silence_regions, silence_fraction
 
     video_id = video_id or os.path.splitext(os.path.basename(video_path))[0]
@@ -493,8 +500,11 @@ def extract_audio_from_video(
 
     pcm = None
     ext = os.path.splitext(video_path)[1].lower()
-    if ext in LIBAV_EXTENSIONS or (ext in AUDIO_EXTENSIONS and ext != ".wav"):
-        pcm = demux_audio(video_path)  # raises: the libav slice's
+    # an MJPEG .avi (the port's writer's) carries no audio: without the libav
+    # shim its track is the sibling wav; any other .avi needs the shim to open
+    if (ext in LIBAV_EXTENSIONS or (ext in AUDIO_EXTENSIONS and ext != ".wav")
+            or (ext == ".avi" and libav_available())):
+        pcm = demux_audio(video_path)
     if pcm is None:
         wav_path = os.path.splitext(video_path)[0] + ".wav"
         if not os.path.exists(wav_path):
@@ -1022,7 +1032,7 @@ def main(argv: Optional[Sequence[str]] = None, device=None) -> Dict:
     parser = argparse.ArgumentParser(description="hippomm batch video ingest (PyTorch)")
     parser.add_argument(
         "--path", required=True,
-        help="video file or folder of videos (.y4m/.avi/.wav; .mp4/.mov/.mkv/.webm need libav)",
+        help="video file or folder of videos (.mp4/.mov/.mkv/.avi/.y4m/.webm)",
     )
     parser.add_argument("--memory_store", "--memory-store", default="memory_store")
     parser.add_argument("--config", default=None)

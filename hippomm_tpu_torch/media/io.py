@@ -1,4 +1,4 @@
-"""Host media I/O (counterpart of hippomm_tpu/media/io.py, without libav).
+"""Host media I/O (counterpart of hippomm_tpu/media/io.py).
 
   * JPEG through the port's media shim (csrc/media_jpeg.cpp, libjpeg), or
     PIL where the shim did not build, as the JAX package does without its
@@ -11,9 +11,15 @@
   * WAV (PCM16/24/32, float32, WAVE_FORMAT_EXTENSIBLE) in numpy, with channel
     downmix and low-passed linear resampling to 16 kHz mono
 
-Libav containers (.mp4/.mov/.mkv/.webm/.m4v, and AVI codecs other than
-MJPEG) and container audio demux wait for the port's libav slice: they raise
-NotImplementedError. The shim is built on first use (ops/_native.media_lib).
+  * libav containers (.mp4/.mov/.mkv/.webm/.m4v, and AVI codecs other than
+    MJPEG) through the port's libav shim (csrc/media_libav.cpp): decode by
+    frame index, the scoring luma scaled in C++, held blocks with RGB taken
+    per selected frame, container audio demuxed and resampled to 16 kHz
+    mono, and an H.264/MPEG-4 + AAC writer. Without the shim they raise
+    RuntimeError naming it, as the JAX package's readers do without theirs.
+
+Both shims are built on first use (ops/_native.media_lib and
+media_libav_lib), each on its own.
 """
 
 from __future__ import annotations
@@ -31,10 +37,6 @@ import numpy as np
 logger = logging.getLogger(__name__)
 
 LIBAV_EXTENSIONS = (".mp4", ".mov", ".mkv", ".webm", ".m4v")
-_LIBAV_TODO = (
-    "libav containers ({what}) are not read by the PyTorch port yet: they wait for the "
-    "port's libav slice (ROADMAP.md queue 1 item 2); .y4m, MJPEG .avi and .wav are read"
-)
 
 
 def _lib():
@@ -45,6 +47,26 @@ def _lib():
 
 def native_available() -> bool:
     return _lib() is not None
+
+
+def _libav():
+    from hippomm_tpu_torch.ops._native import media_libav_lib
+
+    return media_libav_lib()
+
+
+def libav_available() -> bool:
+    return _libav() is not None
+
+
+def _need_libav(what: str):
+    lib = _libav()
+    if lib is None:
+        raise RuntimeError(
+            f"{what} needs the libav shim (csrc/media_libav.cpp against libavformat, libavcodec, "
+            "libavutil, libswscale and libswresample), which did not build or load on this host"
+        )
+    return lib
 
 
 # ---------------------------------------------------------------------------
@@ -194,8 +216,20 @@ def load_audio_mono16k(path: str) -> np.ndarray:
 
 
 def demux_audio(path: str, t0: float = 0.0, t1: float = -1.0) -> Optional[np.ndarray]:
-    """Container audio track -> 16 kHz mono: the libav slice's."""
-    raise NotImplementedError(_LIBAV_TODO.format(what=f"audio demux of {path}"))
+    """Container audio track -> 16 kHz mono float32 over [t0, t1) (t1 < 0:
+    to the end), in process through the libav shim. None when the container
+    has no (decodable) audio."""
+    lib = _need_libav(f"audio demux of {path}")
+    n = ctypes.c_int64()
+    h = lib.hmm_av_audio_decode(path.encode(), float(t0), float(t1), ctypes.byref(n))
+    if not h:
+        return None
+    if n.value <= 0:
+        lib.hmm_av_audio_free(h)
+        return None
+    out = np.empty(n.value, dtype=np.float32)
+    lib.hmm_av_audio_take(h, out.ctypes.data_as(ctypes.c_void_p))
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -515,6 +549,218 @@ def write_avi(path: str, frames_rgb: np.ndarray, fps: float = 30.0, quality: int
 
 
 # ---------------------------------------------------------------------------
+# Libav containers (.mp4/.mov/.mkv/.webm, non-MJPEG .avi) via the libav shim
+# ---------------------------------------------------------------------------
+
+
+class _NativeFrameBlock:
+    """read_block facade over refcounted AVFrames the libav shim holds: RGB
+    converted only for the frames taken."""
+
+    def __init__(self, lib, handle, gray: np.ndarray, height: int, width: int, reader):
+        self._lib = lib
+        self._handle = handle
+        self.gray = gray
+        self._hw = (height, width)
+        # the C block holds a bare pointer to the reader's decoder state: keep
+        # the reader alive for the block's lifetime
+        self._reader = reader
+
+    def take_rgb(self, js) -> np.ndarray:
+        js = np.ascontiguousarray(js, dtype=np.int64)
+        out = np.empty((len(js), self._hw[0], self._hw[1], 3), dtype=np.uint8)
+        rc = self._lib.hmm_av_block_take_rgb(
+            self._handle, js.ctypes.data_as(ctypes.c_void_p), len(js),
+            out.ctypes.data_as(ctypes.c_void_p),
+        )
+        if rc != 0:
+            raise RuntimeError(f"block rgb take failed rc={rc}")
+        return out
+
+    def close(self) -> None:
+        if self._handle:
+            self._lib.hmm_av_block_free(self._handle)
+            self._handle = None
+
+    def __del__(self):
+        try:
+            self.close()
+        except Exception:  # noqa: BLE001 — interpreter teardown
+            pass
+
+
+class LibavReader:
+    """Demux and decode any container libav reads (H.264/HEVC/VP9/MPEG-4 ...).
+
+    Frames are addressed by index through presentation timestamps (near
+    constant frame rate assumed, as the reference's CAP_PROP_POS_MSEC
+    arithmetic does). The shim reads ascending indices in one forward pass;
+    any order, and duplicates, are handled here by sort + inverse
+    permutation."""
+
+    def __init__(self, path: str):
+        lib = _need_libav(f"libav decode of {path}")
+        self._lib = lib
+        self.path = path
+        self._h = lib.hmm_av_open(path.encode())
+        if not self._h:
+            raise ValueError(f"cannot open video: {path}")
+        w, hh, ha = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+        fps, dur, nf = ctypes.c_double(), ctypes.c_double(), ctypes.c_int64()
+        lib.hmm_av_info(self._h, ctypes.byref(w), ctypes.byref(hh), ctypes.byref(fps),
+                        ctypes.byref(dur), ctypes.byref(nf), ctypes.byref(ha))
+        self.width, self.height, self.fps = w.value, hh.value, fps.value
+        self.num_frames = max(1, nf.value)
+        self.duration = dur.value if dur.value > 0 else self.num_frames / max(self.fps, 1e-9)
+        self.has_audio = bool(ha.value)
+
+    @property
+    def info(self) -> VideoInfo:
+        return VideoInfo(
+            self.width, self.height, self.fps, self.num_frames, self.duration, self.has_audio
+        )
+
+    def _sorted_unique(self, indices):
+        idx = np.clip(np.asarray(indices, dtype=np.int64), 0, self.num_frames - 1)
+        return np.unique(idx, return_inverse=True)
+
+    def read_rgb(self, indices: Sequence[int], _parallel: bool = True) -> np.ndarray:
+        uniq, inverse = self._sorted_unique(indices)
+        out = np.empty((len(uniq), self.height, self.width, 3), dtype=np.uint8)
+        # a sparse set spread over a long stream (the key-frame fetch) pays a
+        # seek and a decode forward per index: split it across readers on
+        # threads (the shim's calls release the GIL under ctypes)
+        spread = (
+            _parallel
+            and (os.cpu_count() or 1) > 1
+            and len(uniq) >= 8
+            and (uniq[-1] - uniq[0]) > 16 * max(1, len(uniq))
+        )
+        if spread:
+            import concurrent.futures
+
+            nw = min(4, len(uniq) // 4)
+            bounds = np.linspace(0, len(uniq), nw + 1).astype(int)
+
+            def work(w):
+                lo, hi = bounds[w], bounds[w + 1]
+                if hi <= lo:
+                    return
+                r = LibavReader(self.path)
+                try:
+                    out[lo:hi] = r.read_rgb(uniq[lo:hi], _parallel=False)
+                finally:
+                    r.close()
+
+            with concurrent.futures.ThreadPoolExecutor(max_workers=nw) as ex:
+                list(ex.map(work, range(nw)))
+            return out[inverse]
+        rc = self._lib.hmm_av_read_rgb_indices(
+            self._h, uniq.ctypes.data_as(ctypes.c_void_p), len(uniq),
+            out.ctypes.data_as(ctypes.c_void_p),
+        )
+        if rc != 0:
+            raise RuntimeError(f"libav decode failed rc={rc}")
+        return out[inverse]
+
+    def read_gray_small(self, indices: Sequence[int], gh: int, gw: int) -> np.ndarray:
+        """Decode and scale to the scoring resolution in C++ (SWS_AREA)."""
+        uniq, inverse = self._sorted_unique(indices)
+        out = np.empty((len(uniq), gh, gw), dtype=np.uint8)
+        rc = self._lib.hmm_av_read_gray_indices(
+            self._h, uniq.ctypes.data_as(ctypes.c_void_p), len(uniq), gw, gh,
+            out.ctypes.data_as(ctypes.c_void_p),
+        )
+        if rc != 0:
+            raise RuntimeError(f"libav gray decode failed rc={rc}")
+        return out[inverse]
+
+    def read_block(self, indices: Sequence[int], gh: int, gw: int, skip_nonref: bool = False):
+        """Decode a sorted candidate block once: the scoring luma eagerly, RGB
+        per taken frame from AVFrames the shim holds. `skip_nonref` skips
+        frames nothing references (B-frames); a wanted index on a skipped
+        frame clamps to the nearest decoded reference frame."""
+        idx = np.ascontiguousarray(indices, dtype=np.int64)
+        gray = np.empty((len(idx), gh, gw), dtype=np.uint8)
+        handle = ctypes.c_void_p()
+        rc = self._lib.hmm_av_read_block_hold(
+            self._h, idx.ctypes.data_as(ctypes.c_void_p), len(idx), gw, gh,
+            1 if skip_nonref else 0, gray.ctypes.data_as(ctypes.c_void_p), ctypes.byref(handle),
+        )
+        if rc != 0:
+            raise RuntimeError(f"libav block decode failed rc={rc}")
+        return _NativeFrameBlock(self._lib, handle, gray, self.height, self.width, reader=self)
+
+    def close(self):
+        if self._h:
+            self._lib.hmm_av_close(self._h)
+            self._h = None
+
+    def __del__(self):
+        try:
+            self.close()
+        except Exception:  # noqa: BLE001 — interpreter teardown
+            pass
+
+
+class LibavWriter:
+    """Streaming encoder: RGB frames + mono PCM -> mp4/mov/mkv/avi (H.264
+    through libx264 where the host's libavcodec has it, else MPEG-4; AAC
+    audio); `codec` names another video encoder."""
+
+    def __init__(self, path: str, width: int, height: int, fps: float, sample_rate: int = 0,
+                 codec: str = ""):
+        lib = _need_libav(f"libav encode of {path}")
+        self._lib = lib
+        self._h = lib.hmm_av_writer_open(path.encode(), width, height, float(fps),
+                                         int(sample_rate), codec.encode())
+        if not self._h:
+            raise RuntimeError(f"cannot open encoder for {path}")
+
+    def write_video(self, frames_rgb: np.ndarray) -> None:
+        frames_rgb = np.ascontiguousarray(frames_rgb, dtype=np.uint8)
+        if frames_rgb.ndim == 3:
+            frames_rgb = frames_rgb[None]
+        for fr in frames_rgb:
+            rc = self._lib.hmm_av_writer_video(self._h, fr.ctypes.data_as(ctypes.c_void_p))
+            if rc != 0:
+                raise RuntimeError(f"video encode failed rc={rc}")
+
+    def write_audio(self, pcm: np.ndarray) -> None:
+        pcm = np.ascontiguousarray(pcm, dtype=np.float32)
+        rc = self._lib.hmm_av_writer_audio(self._h, pcm.ctypes.data_as(ctypes.c_void_p), len(pcm))
+        if rc != 0:
+            raise RuntimeError(f"audio buffer failed rc={rc}")
+
+    def close(self) -> None:
+        if self._h:
+            rc = self._lib.hmm_av_writer_close(self._h)
+            self._h = None
+            if rc != 0:
+                raise RuntimeError(f"encoder finalize failed rc={rc}")
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+
+
+def write_video_av(path: str, frames_rgb: np.ndarray, fps: float = 30.0,
+                   audio: Optional[np.ndarray] = None, sample_rate: int = 16000,
+                   codec: str = "") -> None:
+    """One-shot encode of (N, H, W, 3) uint8 RGB (+ optional mono float PCM)."""
+    n, h, w, _ = frames_rgb.shape
+    wr = LibavWriter(path, w, h, fps, sample_rate if audio is not None else 0, codec)
+    try:
+        if audio is not None:
+            wr.write_audio(audio)
+        wr.write_video(frames_rgb)
+    finally:
+        wr.close()
+
+
+# ---------------------------------------------------------------------------
 # Unified video interface
 # ---------------------------------------------------------------------------
 
@@ -529,11 +775,11 @@ def open_video(path: str):
         return Y4MReader(path)
     if ext == ".avi":
         try:
-            return AviReader(path)
+            return AviReader(path)  # the MJPEG writer's own files
         except ValueError:
-            raise NotImplementedError(_LIBAV_TODO.format(what=f"a non-MJPEG AVI: {path}")) from None
+            return LibavReader(path)  # any other AVI codec
     if ext in LIBAV_EXTENSIONS:
-        raise NotImplementedError(_LIBAV_TODO.format(what=path))
+        return LibavReader(path)
     raise ValueError(
         f"unsupported video container: {ext} "
         f"(supported: .y4m, .avi, {', '.join(LIBAV_EXTENSIONS)})"

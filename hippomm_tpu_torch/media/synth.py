@@ -2,8 +2,8 @@
 workload generator (the reference has no fixtures at all, SURVEY.md §4).
 
 The port's copy of hippomm_tpu/media/synth.py. `write_synthetic_video`
-writes .y4m and MJPEG .avi (with a sibling .wav); the libav containers wait
-for the port's libav slice and raise.
+writes .y4m and MJPEG .avi (with a sibling .wav) and, through the libav
+shim, .mp4/.mov/.mkv with the audio track embedded.
 
 Videos are scene-structured: each scene has a distinct background + a moving
 square, so frame-difference segmentation has known boundaries. Audio interleaves
@@ -108,17 +108,33 @@ def write_synthetic_video(
     audio_path: Optional[str] = None,
     codec: str = "",
 ) -> Optional[SynthResult]:
-    """Generate and persist a synthetic clip (container chosen by extension):
-    .y4m, or MJPEG .avi through the media shim, video-only, with the audio in
-    a sibling wav when `audio_path` is given. Returns the full SynthResult.
-    .mp4/.mov/.mkv (and .avi with a `codec`) go through libav, which the
-    port does not have yet: NotImplementedError."""
+    """Generate and persist a synthetic clip (container chosen by extension).
+
+    .mp4/.mov/.mkv (and .avi with a `codec`) go through the libav writer
+    with the audio track embedded (H.264/AAC), rendered in chunks: returns
+    None for those, so an hour-long clip is never held whole. .y4m and
+    MJPEG .avi are video-only, with the audio in a sibling wav when
+    `audio_path` is given, and return the full SynthResult."""
     from hippomm_tpu_torch.media import io as mio
 
     spec = spec or SynthSpec()
     ext = path.rsplit(".", 1)[-1].lower()
+    # no .webm: libavcodec builds commonly lack VP8/VP9/Opus encoders (the
+    # webm muxer refuses H.264/AAC); .webm is still read
     if ext in ("mp4", "mov", "mkv") or (ext == "avi" and codec != ""):
-        raise NotImplementedError(mio._LIBAV_TODO.format(what=f"writing {path}"))
+        plan = _Plan(spec)
+        audio = render_audio(spec)
+        wr = mio.LibavWriter(path, spec.width, spec.height, spec.fps, spec.sample_rate, codec)
+        try:
+            wr.write_audio(audio)
+            chunk = max(1, int(round(spec.fps * 30)))  # ~30 s of frames at a time
+            for i0 in range(0, plan.n, chunk):
+                wr.write_video(render_frames(plan, i0, min(plan.n, i0 + chunk)))
+        finally:
+            wr.close()
+        if audio_path:
+            mio.write_wav(audio_path, audio, spec.sample_rate)
+        return None
     if ext not in ("avi", "y4m"):
         # reject before rendering the whole clip into memory
         raise ValueError(f"unsupported container: {path}")

@@ -42,8 +42,10 @@ BIG_CHUNK = 128  # bulk tier for the vision tower (see encode_vision)
 class ImageBind:
     """Joint-embedding model wrapper (reference surface: extract_features).
 
-    `params` (e.g. from carry.params_from_jax) replaces the random init.
-    Runs on CUDA unless `device` says otherwise."""
+    Weights come from `params` (e.g. carry.params_from_jax), else from the
+    checkpoint at `model_path` (the file, or a directory holding
+    imagebind_huge.pth or model.safetensors; imagebind.convert), else a
+    random init from `seed`. Runs on CUDA unless `device` says otherwise."""
 
     def __init__(
         self,
@@ -62,20 +64,24 @@ class ImageBind:
             )
         self.cfg = ib_model.get_config(variant)
         self.dtype = dtype
+        ckpt = None
+        if params is None and model_path:
+            for cand in (
+                model_path,
+                os.path.join(model_path, "imagebind_huge.pth"),
+                os.path.join(model_path, "model.safetensors"),
+            ):
+                if os.path.isfile(cand):
+                    ckpt = cand
+                    break
         if params is not None:
             self.params = params
+        elif ckpt:
+            from hippomm_tpu_torch.models.imagebind.convert import load_imagebind
+
+            logger.info("loading ImageBind checkpoint: %s", ckpt)
+            self.params = load_imagebind(ckpt, self.cfg, self.device, dtype)
         else:
-            if model_path:
-                for cand in (
-                    model_path,
-                    os.path.join(model_path, "imagebind_huge.pth"),
-                    os.path.join(model_path, "model.safetensors"),
-                ):
-                    if os.path.isfile(cand):
-                        raise NotImplementedError(
-                            f"loading the ImageBind checkpoint {cand} is a later slice of "
-                            "the PyTorch port; this slice runs random-init towers"
-                        )
             if variant == "huge":
                 logger.warning(
                     "no ImageBind checkpoint at %s — random-init weights "

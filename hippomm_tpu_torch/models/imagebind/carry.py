@@ -1,11 +1,13 @@
 """Carry a JAX ImageBind parameter tree into the port's parameters.
 
 The JAX tree (hippomm_tpu.models.imagebind.model.init_imagebind or its
-checkpoint converter), pulled to numpy by the caller, already uses the torch
-Linear (out, in) layout, so no transposes are needed. Two changes only:
-each `blocks` leaf's leading depth axis is unstacked into a per-layer list,
-and 2-D `weight` matrices are stored in the compute dtype (the forward casts
-them to it anyway); everything else stays fp32.
+checkpoint converter, or the port's convert.convert_state_dict), pulled to
+numpy by the caller, already uses the torch Linear (out, in) layout, so no
+transposes are needed. Two changes only: each `blocks` leaf's leading depth
+axis is unstacked into a per-layer list (a leaf that is already a list of
+per-layer arrays is taken as it is), and 2-D `weight` matrices are stored in
+the compute dtype (the forward casts them to it anyway); everything else
+stays fp32. Leaves are copied to the device one at a time.
 """
 
 from __future__ import annotations
@@ -33,6 +35,10 @@ def _convert(tree: Any, device, dtype, name: str = "") -> Any:
 def _unstack(tree: Any, depth: int, i: int) -> Any:
     if isinstance(tree, dict):
         return {k: _unstack(v, depth, i) for k, v in tree.items()}
+    if isinstance(tree, list):  # already per layer (convert.convert_state_dict)
+        if len(tree) != depth:
+            raise ValueError(f"block leaf has {len(tree)} layers, expected depth {depth}")
+        return tree[i]
     a = np.asarray(tree)
     if a.shape[0] != depth:
         raise ValueError(f"stacked block leaf has leading dim {a.shape[0]}, expected depth {depth}")

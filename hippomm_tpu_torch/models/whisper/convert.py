@@ -16,6 +16,7 @@ from typing import Dict
 import numpy as np
 import torch
 
+from hippomm_tpu_torch.models.ckpt_io import load_state_dict
 from hippomm_tpu_torch.models.whisper.carry import params_from_jax
 from hippomm_tpu_torch.models.whisper.model import WhisperConfig
 
@@ -130,25 +131,6 @@ def validate_state_dict(sd: Dict, cfg: WhisperConfig) -> None:
                     f"Whisper checkpoint token embedding {shape} != expected "
                     f"({cfg.vocab_size}, {cfg.d_model})"
                 )
-
-
-def load_state_dict(path: str) -> Dict:
-    """Checkpoint file -> flat {name: tensor or array} state_dict: torch
-    pickles (`.pth`, `pytorch_model.bin`) through torch.load(weights_only=True),
-    `.safetensors` through the safetensors package."""
-    if path.endswith(".safetensors"):
-        try:
-            from safetensors.torch import load_file
-        except ImportError as e:
-            raise ImportError(
-                f"{path} is a safetensors checkpoint and the `safetensors` package is not "
-                "installed; install it or convert the checkpoint to pytorch_model.bin"
-            ) from e
-        return dict(load_file(path))
-    sd = torch.load(path, map_location="cpu", weights_only=True)
-    if isinstance(sd, dict) and "state_dict" in sd:
-        sd = sd["state_dict"]
-    return sd
 
 
 def load_whisper(checkpoint_path: str, cfg: WhisperConfig, device, dtype=torch.bfloat16) -> Dict:

@@ -1,6 +1,6 @@
 """Build-at-first-use loader for the port's native code (csrc/).
 
-Three shared libraries with plain C interfaces, loaded with ctypes:
+Four shared libraries with plain C interfaces, loaded with ctypes:
 
   * the Hopper kernels (csrc/*.cu → one .so): every `.cu` source compiles
     with its own `nvcc` process, all started together, then one link step.
@@ -14,6 +14,13 @@ Three shared libraries with plain C interfaces, loaded with ctypes:
     None when there is no compiler, or no jpeglib.h / libjpeg: JPEG then
     goes through PIL and the AVI reader and writer raise, as the JAX
     package does without its shim.
+  * the libav shim (csrc/media_libav.cpp: .mp4/.mov/.mkv/.webm and non-MJPEG
+    .avi demux and decode, container audio, the libav writer), built with
+    the host C++ compiler against libavformat/codec/util, swscale and
+    swresample, on its own so a host with only one of libjpeg and libav
+    still gets that one. None where it does not build or load: the libav
+    readers and writers then raise RuntimeError, as the JAX package's do
+    without its shim.
 
 Outputs go to `_build/` inside the package (listed in .gitignore), named by
 a hash of sources, headers and flags, so an edited source or header never
@@ -48,6 +55,8 @@ _resize: Optional[ctypes.CDLL] = None
 _resize_tried = False
 _media: Optional[ctypes.CDLL] = None
 _media_tried = False
+_libav: Optional[ctypes.CDLL] = None
+_libav_tried = False
 _count_lock = threading.Lock()
 _thread_state = threading.local()
 #: ptxas register / shared-memory report of the last kernel build
@@ -189,34 +198,47 @@ def resize_lib() -> Optional[ctypes.CDLL]:
         return lib
 
 
+def _host_lib(src_name: str, name: str, libs: List[str], what: str) -> Optional[ctypes.CDLL]:
+    """Build csrc/`src_name` with the host C++ compiler against `libs` (once
+    per source hash) and load it; None where there is no compiler, the build
+    fails (headers or libraries missing) or the library does not load (e.g.
+    a build carried from a host whose shared libraries this one lacks).
+    Called under _lock."""
+    cxx = shutil.which("g++") or shutil.which("c++")
+    if cxx is None:
+        logger.warning("%s: no C++ compiler", what)
+        return None
+    src = os.path.join(_CSRC, src_name)
+    flags = ["-O3", "-fPIC", "-shared", "-std=c++17", "-pthread"]
+    lib_path = os.path.join(BUILD_DIR, f"lib{name}_{_digest([src], flags + libs)}.so")
+    if not os.path.exists(lib_path):
+        os.makedirs(BUILD_DIR, exist_ok=True)
+        tmp = f"{lib_path}.tmp{os.getpid()}"
+        build = subprocess.run([cxx, *flags, "-o", tmp, src, *libs], capture_output=True, text=True)
+        if build.returncode != 0:
+            logger.warning("%s: did not build (%s)", what,
+                           build.stderr.strip().splitlines()[-1:] or build.returncode)
+            return None
+        os.replace(tmp, lib_path)
+    try:
+        return ctypes.CDLL(lib_path)
+    except OSError as e:
+        logger.warning("%s: does not load (%s)", what, e)
+        return None
+
+
 def media_lib() -> Optional[ctypes.CDLL]:
     """The host media shim (libjpeg codec and MJPEG-AVI container), or None
-    where no C++ compiler, jpeglib.h or libjpeg is found."""
+    where no C++ compiler, jpeglib.h or libjpeg is found: JPEG then goes
+    through PIL and the AVI reader and writer raise."""
     global _media, _media_tried
     with _lock:
         if _media is not None or _media_tried:
             return _media
         _media_tried = True
-        cxx = shutil.which("g++") or shutil.which("c++")
-        if cxx is None:
-            return None
-        src = os.path.join(_CSRC, "media_jpeg.cpp")
-        flags = ["-O3", "-fPIC", "-shared", "-std=c++17", "-pthread"]
-        lib_path = os.path.join(BUILD_DIR, f"libhmm_media_{_digest([src], flags)}.so")
-        if not os.path.exists(lib_path):
-            os.makedirs(BUILD_DIR, exist_ok=True)
-            tmp = f"{lib_path}.tmp{os.getpid()}"
-            build = subprocess.run([cxx, *flags, "-o", tmp, src, "-ljpeg"],
-                                   capture_output=True, text=True)
-            if build.returncode != 0:
-                logger.warning("media shim did not build (%s); JPEG through PIL, no AVI",
-                               build.stderr.strip().splitlines()[-1:] or build.returncode)
-                return None
-            os.replace(tmp, lib_path)
-        try:
-            lib = ctypes.CDLL(lib_path)
-        except OSError as e:  # e.g. a build carried from a host whose libjpeg this one lacks
-            logger.warning("media shim does not load (%s); JPEG through PIL, no AVI", e)
+        lib = _host_lib("media_jpeg.cpp", "hmm_media", ["-ljpeg"],
+                        "media shim (JPEG through PIL, no AVI)")
+        if lib is None:
             return None
         vp, i32, i64, f64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_double
         pi32 = ctypes.POINTER(ctypes.c_int)
@@ -238,4 +260,46 @@ def media_lib() -> Optional[ctypes.CDLL]:
         lib.hmm_avi_writer_close.restype = i32
         lib.hmm_avi_writer_close.argtypes = [vp]
         _media = lib
+        return lib
+
+
+LIBAV_LIBS = ["-lavformat", "-lavcodec", "-lavutil", "-lswscale", "-lswresample", "-lpthread"]
+
+
+def media_libav_lib() -> Optional[ctypes.CDLL]:
+    """The libav shim (csrc/media_libav.cpp: container demux and decode,
+    audio demux and resample, H.264/MPEG-4 + AAC encode), or None where no
+    C++ compiler, libav headers or libav libraries are found: the libav
+    readers and writers then raise RuntimeError naming the missing library."""
+    global _libav, _libav_tried
+    with _lock:
+        if _libav is not None or _libav_tried:
+            return _libav
+        _libav_tried = True
+        lib = _host_lib("media_libav.cpp", "hmm_libav", LIBAV_LIBS,
+                        "libav shim (no .mp4/.mov/.mkv/.webm, no container audio)")
+        if lib is None:
+            return None
+        vp, i32, i64, f64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_double
+        pi32, pi64, pf64 = ctypes.POINTER(i32), ctypes.POINTER(i64), ctypes.POINTER(f64)
+        for fn, res, args in (
+            ("hmm_av_open", vp, [ctypes.c_char_p]),
+            ("hmm_av_info", i32, [vp, pi32, pi32, pf64, pf64, pi64, pi32]),
+            ("hmm_av_read_rgb_indices", i32, [vp, vp, i64, vp]),
+            ("hmm_av_read_gray_indices", i32, [vp, vp, i64, i32, i32, vp]),
+            ("hmm_av_read_block_hold", i32, [vp, vp, i64, i32, i32, i32, vp, ctypes.POINTER(vp)]),
+            ("hmm_av_block_take_rgb", i32, [vp, vp, i64, vp]),
+            ("hmm_av_block_free", None, [vp]),
+            ("hmm_av_close", None, [vp]),
+            ("hmm_av_audio_decode", vp, [ctypes.c_char_p, f64, f64, pi64]),
+            ("hmm_av_audio_take", i32, [vp, vp]),
+            ("hmm_av_audio_free", None, [vp]),
+            ("hmm_av_writer_open", vp, [ctypes.c_char_p, i32, i32, f64, i32, ctypes.c_char_p]),
+            ("hmm_av_writer_video", i32, [vp, vp]),
+            ("hmm_av_writer_audio", i32, [vp, vp, i64]),
+            ("hmm_av_writer_close", i32, [vp]),
+        ):
+            f = getattr(lib, fn)
+            f.restype, f.argtypes = res, args
+        _libav = lib
         return lib

@@ -564,3 +564,164 @@ def test_launch_counts_are_exact_from_two_threads(cuda_device):
     torch.cuda.synchronize()
     assert not errors, errors
     assert tfm.fused_mlp.launches - before == 2 * calls
+
+
+def _tiny_width_128():
+    """The tiny ImageBind config with all three towers 128 wide: the
+    narrowest width the K2/K3 gate (D % 128 == 0) admits."""
+    import dataclasses
+
+    from hippomm_tpu_torch.models.imagebind import model as ib_model
+
+    c = ib_model.tiny_config()
+    return dataclasses.replace(c, vision=dataclasses.replace(c.vision, width=128),
+                               audio=dataclasses.replace(c.audio, width=128),
+                               text=dataclasses.replace(c.text, width=128))
+
+
+@pytest.mark.cuda
+def test_qa_service_answers_from_two_handler_threads_on_cuda(cuda_device, tmp_path, monkeypatch):
+    """core/serve on the card, its engine built from a 128-wide tiny
+    ImageBind checkpoint file: after an ingest, two /ask requests at once,
+    each on a new handler thread whose first CUDA work is a kernel launch
+    (K2 in the text tower, K5 in the search), answer with the hits of the
+    host route."""
+    import json
+    import threading
+    import urllib.request
+
+    from hippomm_tpu_torch.config import Config
+    from hippomm_tpu_torch.core import batch_process, serve
+    from hippomm_tpu_torch.media.synth import SynthSpec, write_synthetic_video
+    from hippomm_tpu_torch.models.imagebind import model as ib_model
+    from hippomm_tpu_torch.models.imagebind.manifest import random_state_dict
+    from hippomm_tpu_torch.retrieval.search import FeatureSearchIndex
+
+    wide = _tiny_width_128()
+    monkeypatch.setattr(ib_model, "get_config", lambda variant: wide)
+    ckpt = str(tmp_path / "imagebind_tiny128.pth")
+    torch.save({k: torch.from_numpy(v) for k, v in random_state_dict(wide, seed=2).items()}, ckpt)
+    videos = tmp_path / "videos"
+    videos.mkdir()
+    write_synthetic_video(str(videos / "v.y4m"), SynthSpec(duration=20.0, fps=2.0, width=160, height=120,
+                                                           scene_changes=(9.0,), seed=5),
+                          audio_path=str(videos / "v.wav"))
+    cfg = Config()
+    cfg.api.mode = "stub"
+    cfg.models.imagebind_variant = "tiny"
+    cfg.models.imagebind_path = ckpt
+    cfg.models.whisper_variant = "stub"
+    cfg.processing.fast_path_confidence = 2.0
+    cfg.storage.base_dir = str(tmp_path / "store")
+    stats = batch_process.process_video_folder(str(videos), cfg.storage.base_dir, config=cfg)
+    assert (stats["processed"], stats["failed"]) == (1, 0)
+
+    service = serve.QAService(cfg)  # on the card; the warmup question runs here
+    assert service.memory.imagebind.cfg.text.width == 128
+    searches = []
+    real_search = FeatureSearchIndex.search
+
+    def search(index, query, *a, **k):
+        hits = real_search(index, query, *a, **k)
+        searches.append((index, query, a, k, hits))
+        return hits
+
+    monkeypatch.setattr(FeatureSearchIndex, "search", search)
+    monkeypatch.delenv("HIPPOMM_TOPK_ROUTE", raising=False)
+    server = serve.make_server(service, port=0)
+    threading.Thread(target=server.serve_forever, daemon=True).start()
+    port = server.server_address[1]
+    k2, k5 = tfm.fused_mlp.launches, ttk.top_k_cosine_kernel.launches
+    answers, errors = [], []
+
+    def ask(q):
+        try:
+            req = urllib.request.Request(f"http://127.0.0.1:{port}/ask", data=json.dumps({"question": q}).encode(),
+                                         headers={"Content-Type": "application/json"})
+            with urllib.request.urlopen(req, timeout=300) as r:
+                answers.append((r.status, json.loads(r.read())))
+        except Exception as e:  # noqa: BLE001 — reported below
+            errors.append(e)
+
+    try:
+        threads = [threading.Thread(target=ask, args=(q,)) for q in
+                   ("What color is the moving square?", "What objects appear on screen?")]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+        assert not any(t.is_alive() for t in threads)
+    finally:
+        server.shutdown()
+        server.server_close()
+    assert not errors, errors
+    assert [s for s, _ in answers] == [200, 200] and all(a["answer"] for _, a in answers)
+    assert tfm.fused_mlp.launches - k2 >= 2 * wide.text.depth
+    assert ttk.top_k_cosine_kernel.launches - k5 >= 2
+    assert len(searches) >= 2
+    monkeypatch.setenv("HIPPOMM_TOPK_ROUTE", "host")
+    for index, query, a, k, hits in searches:
+        want = real_search(index, query, *a, **k)
+        assert [(h.event_id, h.time) for h in hits] == [(h.event_id, h.time) for h in want]
+        assert max(abs(h.similarity - w.similarity) for h, w in zip(hits, want)) <= 1e-5
+
+
+def _write_safetensors(path, tensors):
+    """A safetensors file written by hand (a machine may lack the
+    package): u64 header length, JSON header, raw little-endian bytes."""
+    import json
+    import struct
+
+    names = {torch.float32: "F32", torch.float16: "F16", torch.bfloat16: "BF16", torch.int64: "I64",
+             torch.int32: "I32"}
+    header, blobs, off = {}, [], 0
+    for name, t in tensors.items():
+        raw = t.detach().cpu().contiguous().view(torch.uint8).numpy().tobytes() if t.numel() else b""
+        header[name] = {"dtype": names[t.dtype], "shape": list(t.shape), "data_offsets": [off, off + len(raw)]}
+        blobs.append(raw)
+        off += len(raw)
+    h = json.dumps(header).encode()
+    h += b" " * (-len(h) % 8)
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(h)) + h + b"".join(blobs))
+
+
+@pytest.mark.cuda
+def test_whisper_safetensors_checkpoint_loads_on_cuda(cuda_device, tmp_path, monkeypatch):
+    """model.safetensors of a Whisper checkpoint loads onto the card through
+    the port's own reader (the `safetensors` package made unimportable), to
+    the parameters the same weights give from pytorch_model.bin."""
+    import sys
+
+    transformers = pytest.importorskip("transformers")
+    from hippomm_tpu_torch.models.foundation import Whisper
+    from hippomm_tpu_torch.models.whisper import model as wh_model
+
+    cfg = wh_model.tiny_config()
+    hf_cfg = transformers.WhisperConfig(
+        vocab_size=cfg.vocab_size, num_mel_bins=cfg.n_mels, d_model=cfg.d_model,
+        encoder_layers=cfg.encoder_layers, decoder_layers=cfg.decoder_layers,
+        encoder_attention_heads=cfg.heads, decoder_attention_heads=cfg.heads,
+        encoder_ffn_dim=cfg.ffn, decoder_ffn_dim=cfg.ffn, max_source_positions=cfg.max_source_positions,
+        max_target_positions=cfg.max_target_positions, pad_token_id=0, bos_token_id=cfg.bos_token,
+        eos_token_id=cfg.eot_token, decoder_start_token_id=cfg.bos_token)
+    torch.manual_seed(0)
+    sd = {f"model.{k}": v.contiguous() for k, v in transformers.WhisperModel(hf_cfg).state_dict().items()}
+    (tmp_path / "st").mkdir()
+    (tmp_path / "bin").mkdir()
+    _write_safetensors(str(tmp_path / "st" / "model.safetensors"), sd)
+    torch.save(sd, tmp_path / "bin" / "pytorch_model.bin")
+    monkeypatch.setitem(sys.modules, "safetensors", None)
+    a = Whisper(model_path=str(tmp_path / "st"), variant="tiny", device=cuda_device)._impl.params
+    b = Whisper(model_path=str(tmp_path / "bin"), variant="tiny", device=cuda_device)._impl.params
+
+    def leaves(tree):
+        if isinstance(tree, dict):
+            return [x for k in sorted(tree) for x in leaves(tree[k])]
+        if isinstance(tree, list):
+            return [x for v in tree for x in leaves(v)]
+        return [tree]
+
+    la, lb = leaves(a), leaves(b)
+    assert len(la) == len(lb) > 0
+    assert all(x.device.type == "cuda" and torch.equal(x, y) for x, y in zip(la, lb))

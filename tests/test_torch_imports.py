@@ -20,6 +20,9 @@ _MODULES = [
     "hippomm_tpu_torch.models.imagebind.model",
     "hippomm_tpu_torch.models.imagebind.carry",
     "hippomm_tpu_torch.models.imagebind.preprocess",
+    "hippomm_tpu_torch.models.imagebind.manifest",
+    "hippomm_tpu_torch.models.imagebind.convert",
+    "hippomm_tpu_torch.models.ckpt_io",
     "hippomm_tpu_torch.models.whisper.model",
     "hippomm_tpu_torch.models.whisper.carry",
     "hippomm_tpu_torch.models.whisper.convert",
@@ -41,6 +44,7 @@ _MODULES = [
     "hippomm_tpu_torch.retrieval.qa",
     "hippomm_tpu_torch.core.ask_question",
     "hippomm_tpu_torch.core.batch_process",
+    "hippomm_tpu_torch.core.serve",
     "hippomm_tpu_torch.utils.timers",
     "hippomm_tpu_torch.utils.tokens",
 ]
@@ -66,12 +70,12 @@ def test_port_imports_neither_jax_nor_the_jax_package():
 
 
 @pytest.mark.parametrize("entry", ["engine", "imagebind", "whisper", "search_index", "keyframe_scanner",
-                                   "batch_main"])
+                                   "batch_main", "qa_service", "serve_main"])
 def test_entry_point_without_device_raises_without_cuda(entry, monkeypatch, tmp_path):
     import torch
 
     from hippomm_tpu_torch.config import Config
-    from hippomm_tpu_torch.core import batch_process
+    from hippomm_tpu_torch.core import batch_process, serve
     from hippomm_tpu_torch.memory.engine import HippocampalMemory
     from hippomm_tpu_torch.ops.keyframe import KeyframeScanner
     from hippomm_tpu_torch.models.foundation import ImageBind, Whisper
@@ -87,7 +91,9 @@ def test_entry_point_without_device_raises_without_cuda(entry, monkeypatch, tmp_
             "search_index": lambda: FeatureSearchIndex.build([], "vision"),
             "keyframe_scanner": lambda: KeyframeScanner(90, 160),
             "batch_main": lambda: batch_process.main(["--path", str(tmp_path / "none"),
-                                                      "--memory_store", str(tmp_path / "store")])}[entry]
+                                                      "--memory_store", str(tmp_path / "store")]),
+            "qa_service": lambda: serve.QAService(cfg),
+            "serve_main": lambda: serve.main(["--memory-store", str(tmp_path / "store"), "--port", "0"])}[entry]
     with pytest.raises(RuntimeError, match="no CUDA device"):
         make()
 
