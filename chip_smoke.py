@@ -75,6 +75,23 @@ Phases (any failure exits non-zero and prints no result line):
   7. search — a FeatureSearchIndex of 200 000 × 1024 seeded rows (100
      events of 2000): 64 single-query searches through K5 and one batch of
      64, ms per query, 4 queries' hits and times on the host route
+ 10. train  — (runs last) contrastive training (train/contrastive) at full
+     ImageBind-Huge width: fp32 masters from init_train_state's seed on the
+     card, bf16 compute, a fixed seeded batch of 16 image/caption pairs.
+     One step's gradients through the kernels (default, then fused
+     configuration) and with the kernels routed out in bf16, each held per
+     leaf to the same step in fp32 with the kernels routed out: the kernel
+     routes' relative L2 error within 2x the bf16 plain route's + 1e-2.
+     Then 3 steps in the default and 3 in the fused configuration, each
+     from the seeded parameters and a fresh optimizer (lr 5e-5): exact
+     K1-K4 launches per step (default: K1 32, K2 32 + 24; fused: K4 32, K3
+     32 + 24), a finite loss that falls in each configuration; step ms split
+     into forward, backward and optimizer (CUDA events), pairs/s, the
+     bound (the step's matmul operations at 989 TF/s bf16) and its share,
+     max memory allocated; a fourth default step under torch.profiler:
+     device busy ms, idle share and the top CUDA kernels by device time.
+     Last, a save_params / load_params round trip of
+     the 1.07e9 parameters: every leaf equal and the next step's loss equal
 
 Prints the card's name and power limit, a `{"kernels": [...]}` line, and as
 its last line `{"ok": true, "device": {...}}`. Writes the same numbers to
@@ -1120,6 +1137,302 @@ def search_phase(ttk):
     return out
 
 
+TRAIN_B = 16  # pairs a step
+TRAIN_STEPS = 3  # steps in each configuration
+TRAIN_LR = 5e-5
+GRAD_FACTOR, GRAD_FLOOR = 2.0, 1e-2  # kernel route vs the bf16 plain route, per leaf
+
+
+def train_flops(cfg, b: int) -> float:
+    """Matmul operations of one training step (forward, and a backward of
+    twice the forward's products) of the vision and text towers, from the
+    shapes: per block the QKV, attention (both products, every key: the
+    text tower's causal mask is applied to a full product), out-projection
+    and MLP products; the patchify and both heads. Recomputes (the kernels'
+    backward) are the implementation's, not the work's: not counted."""
+    def tower(t, width, depth):
+        f = int(width * 4)
+        per_block = 2 * t * width * (3 * width) + 4 * t * t * width + 2 * t * width * width + 4 * t * width * f
+        return depth * per_block
+    tv = cfg.vision_tokens
+    fwd = tower(tv, cfg.vision.width, cfg.vision.depth)
+    fwd += tower(cfg.context_length, cfg.text.width, cfg.text.depth)
+    fwd += 2 * (tv - 1) * (3 * cfg.patch_size ** 2) * cfg.vision.width
+    fwd += 2 * cfg.embed_dim * (cfg.vision.width + cfg.text.width)
+    return 3.0 * b * fwd
+
+
+class StepTimer:
+    """CUDA events around the three parts of a training step, recorded on
+    the stream as the step enqueues them: the forward ends when
+    `contrastive_loss` returns, the backward when the optimizer's update
+    starts, the update when it returns."""
+
+    def __init__(self, tc, optimizer):
+        import torch
+
+        self.tc, self.optimizer, self.real_loss = tc, optimizer, tc.contrastive_loss
+        self.events = None
+        real_step = optimizer.step
+
+        def loss(*a, **k):
+            out = self.real_loss(*a, **k)
+            self._mark("forward")
+            return out
+
+        def update(*a, **k):
+            self._mark("backward")
+            real_step(*a, **k)
+            self._mark("optimizer")
+
+        tc.contrastive_loss, optimizer.step = loss, update
+        self._event = lambda: torch.cuda.Event(enable_timing=True)
+
+    def _mark(self, name):
+        if self.events is not None:
+            self.events[name] = self._event()
+            self.events[name].record()
+
+    def start(self):
+        self.events = {"start": self._event()}
+        self.events["start"].record()
+
+    def read(self):
+        """ms of forward, backward and optimizer (after a synchronize)."""
+        e = self.events
+        return {"forward": e["start"].elapsed_time(e["forward"]),
+                "backward": e["forward"].elapsed_time(e["backward"]),
+                "optimizer": e["backward"].elapsed_time(e["optimizer"])}
+
+    def restore(self):
+        self.tc.contrastive_loss = self.real_loss
+        del self.optimizer.step
+
+
+def profile_step(fn, top: int = 12):
+    """One call of `fn` under torch.profiler (CUDA activity only): its wall
+    ms (to a synchronize), the device's busy ms (the union of the kernels'
+    intervals) and idle share over the wall, and the `top` CUDA kernels by
+    total device µs with their counts."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    spans, by_name = [], {}
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        spans.append((e.time_range.start, e.time_range.end))
+        us, n = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (us + e.time_range.elapsed_us(), n + 1)
+    busy, end = 0.0, float("-inf")
+    for start, stop in sorted(spans):
+        if stop > end:
+            busy += stop - max(start, end)
+            end = stop
+    kernels = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]
+    return {"wall_ms": wall, "busy_ms": busy / 1e3, "idle_share": 1.0 - busy / 1e3 / wall,
+            "kernels": len(spans), "top": [{"name": k[:90], "us": us, "count": n} for k, (us, n) in kernels]}
+
+
+def train_phase(fa, fm, counters):
+    """10. contrastive training at full ImageBind-Huge width (see the
+    module doc)."""
+    import gc
+
+    import torch
+
+    from hippomm_tpu_torch.models import layers
+    from hippomm_tpu_torch.models.imagebind.model import huge_config
+    from hippomm_tpu_torch.train import checkpoint as ck
+    from hippomm_tpu_torch.train import contrastive as tc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    live_before = torch.cuda.memory_allocated()
+    cfg = huge_config()
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    params, opt = tc.init_train_state(cfg, learning_rate=TRAIN_LR, seed=10)  # CUDA by default
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in ck.flatten_params(params).values())
+    # a fixed seeded batch: normalized-image-like pixels, and captions of
+    # seeded lengths ending in EOS (the largest id), zero-padded as the
+    # tokenizer pads them
+    gen = torch.Generator(device=dev).manual_seed(10)
+    images = torch.randn((TRAIN_B, 3, cfg.image_size, cfg.image_size), generator=gen, device=dev)
+    t = cfg.context_length
+    tokens = torch.randint(1, cfg.vocab_size - 1, (TRAIN_B, t), generator=gen, device=dev)
+    lengths = torch.randint(8, t, (TRAIN_B,), generator=gen, device=dev)
+    tokens = torch.where(torch.arange(t, device=dev) < lengths[:, None], tokens, 0)
+    tokens[torch.arange(TRAIN_B, device=dev), lengths] = cfg.vocab_size - 1
+    vis, txt = cfg.vision.depth, cfg.text.depth
+    expect = {False: {"flash_mha": vis, "fused_mlp": vis + txt, "fused_ln_mlp_residual": 0, "flash_mha_bthd": 0},
+              True: {"flash_mha": 0, "fused_mlp": 0, "fused_ln_mlp_residual": vis + txt, "flash_mha_bthd": vis}}
+
+    def grads(dtype, plain: bool):
+        """One forward and backward at the current parameters; with `plain`,
+        the kernels routed out (their shape gates shut)."""
+        gates = (layers.flash_supported, layers.fused_mlp_supported, fa.bthd_supported)
+        if plain:
+            layers.flash_supported = layers.fused_mlp_supported = fa.bthd_supported = lambda *a: False
+        try:
+            metrics, g = tc.loss_and_grads(params, images, tokens, cfg, dtype)
+        finally:
+            layers.flash_supported, layers.fused_mlp_supported, fa.bthd_supported = gates
+        return float(metrics["loss"]), g
+
+    def rel_errs(g, ref):
+        return {k: ((g[k] - r).norm() / r.norm().clamp_min(1e-30)).item() for k, r in ref.items() if r is not None}
+
+    # gradients through the kernels against the kernels routed out, both
+    # held to an fp32 step with the kernels routed out (TF32 off)
+    t0 = time.perf_counter()
+    loss32, ref = grads(torch.float32, True)
+    errs = {"plain_bf16": rel_errs(grads(torch.bfloat16, True)[1], ref)}
+    for name, fused in (("kernels_default", False), ("kernels_fused", True)):
+        set_fused_flags(fa, fm, fused)
+        for c in counters.values():
+            c.launches = 0
+        loss_k, g = grads(torch.bfloat16, False)
+        launched = {n: c.launches for n, c in counters.items()}
+        if launched != expect[fused]:
+            fail(f"train {name}: gradient forward launched {launched}, not {expect[fused]}")
+        errs[name] = rel_errs(g, ref)
+        del g
+    set_fused_flags(fa, fm, False)
+    del ref
+    grad_s = time.perf_counter() - t0
+    worst = {}
+    for name in ("kernels_default", "kernels_fused"):
+        bad = [(k, e, errs["plain_bf16"][k]) for k, e in errs[name].items()
+               if not e <= GRAD_FACTOR * errs["plain_bf16"][k] + GRAD_FLOOR]
+        if bad:
+            fail(f"train {name}: {len(bad)} leaves' gradients farther from the fp32 step than "
+                 f"{GRAD_FACTOR}x the bf16 plain route's + {GRAD_FLOOR}: {bad[:5]}")
+        ratio = max(errs[name].items(), key=lambda kv: kv[1] / (errs["plain_bf16"][kv[0]] + GRAD_FLOOR))
+        worst[name] = {"leaf": ratio[0], "rel_err": ratio[1], "plain_rel_err": errs["plain_bf16"][ratio[0]]}
+    summary = {name: {"median": float(sorted(e.values())[len(e) // 2]), "max": max(e.values()),
+                      "leaves": len(e)} for name, e in errs.items()}
+    print(f"train gradients vs an fp32 plain-route step (loss {loss32:.6f}), relative L2 per leaf: "
+          f"{json.dumps(summary)}; worst kernel leaf against bound {GRAD_FACTOR}x plain + {GRAD_FLOOR}: "
+          f"{json.dumps(worst)}; {grad_s:.1f} s", flush=True)
+
+    # the steps: default configuration, then fused, each from the seeded
+    # parameters and a fresh optimizer, on the same batch
+    runs, peak, step, trace = [], {}, None, None
+    for phase, fused in (("default", False), ("fused", True)):
+        if fused:
+            del params, opt, step
+            gc.collect()
+            params, opt = tc.init_train_state(cfg, learning_rate=TRAIN_LR, seed=10)
+        torch.cuda.reset_peak_memory_stats()
+        step = tc.make_train_step(cfg, opt, dtype=torch.bfloat16)
+        timer = StepTimer(tc, opt)
+        try:
+            set_fused_flags(fa, fm, fused)
+            for i in range(TRAIN_STEPS):
+                for c in counters.values():
+                    c.launches = 0
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                timer.start()
+                metrics = step(params, images, tokens)
+                torch.cuda.synchronize()
+                wall = (time.perf_counter() - t0) * 1e3
+                launches = {n: c.launches for n, c in counters.items()}
+                if launches != expect[fused]:
+                    fail(f"train {phase} step {i}: launches {launches} != {expect[fused]}: a block "
+                         "bypassed its kernel")
+                loss = metrics["loss"].item()
+                if not math.isfinite(loss):
+                    fail(f"train {phase} step {i}: loss {loss}")
+                runs.append({"config": phase, "step": i, "loss": loss, "accuracy": metrics["accuracy"].item(),
+                             "wall_ms": wall, "ms": timer.read(), "launches": launches})
+        finally:
+            timer.restore()
+            set_fused_flags(fa, fm, False)
+        peak[phase] = torch.cuda.max_memory_allocated()
+        if not fused:  # one more step, under the profiler: the device's share of a step
+            trace = profile_step(lambda: step(params, images, tokens))
+            print(f"train default profiled step: wall {trace['wall_ms']:.1f} ms, device busy "
+                  f"{trace['busy_ms']:.1f} ms (idle share {trace['idle_share']:.3f}), {trace['kernels']} CUDA "
+                  f"kernels; top by device µs: {json.dumps(trace['top'])}", flush=True)
+        losses = [r["loss"] for r in runs if r["config"] == phase]
+        print(f"train {phase}: losses {losses}", flush=True)
+        if not losses[-1] < losses[0]:
+            fail(f"train {phase}: the loss did not fall over {TRAIN_STEPS} steps: {losses}")
+    flops = train_flops(cfg, TRAIN_B)
+    b_ms = flops / PEAK_BF16_FLOP_S * 1e3
+    # bytes the step must move at least: the fp32 masters read, gradients
+    # written and read, AdamW's two moments read and written, the masters
+    # written (activations and weight casts not counted)
+    by_ms = 7 * 4 * n_params / PEAK_BYTES_S * 1e3
+    steady = {}
+    for phase in ("default", "fused"):
+        later = [r for r in runs if r["config"] == phase][1:]  # the first step of each warms up
+        ms = {part: sum(r["ms"][part] for r in later) / len(later) for part in ("forward", "backward", "optimizer")}
+        wall = sum(r["wall_ms"] for r in later) / len(later)
+        steady[phase] = {"ms": ms, "wall_ms": wall, "pairs_per_s": TRAIN_B * 1e3 / wall,
+                         "pct_of_bound": 100.0 * max(b_ms, by_ms) / wall}
+    for r in runs:
+        print(f"train {r['config']} step {r['step']}: loss {r['loss']:.6f} accuracy {r['accuracy']:.4f}; "
+              f"wall {r['wall_ms']:.1f} ms (forward {r['ms']['forward']:.1f}, backward "
+              f"{r['ms']['backward']:.1f}, optimizer {r['ms']['optimizer']:.1f}); launches {r['launches']}",
+              flush=True)
+    for phase, st in steady.items():
+        print(f"train {phase}: {st['wall_ms']:.1f} ms a step of {TRAIN_B} pairs (forward "
+              f"{st['ms']['forward']:.1f}, backward {st['ms']['backward']:.1f}, optimizer "
+              f"{st['ms']['optimizer']:.1f}), {st['pairs_per_s']:.1f} pairs/s; bound {max(b_ms, by_ms):.2f} ms "
+              f"({flops / 1e12:.2f} TFLOP at 989 TF/s bf16 {b_ms:.2f} ms; bytes {by_ms:.2f} ms), "
+              f"{st['pct_of_bound']:.1f} % of bound", flush=True)
+    print(f"train: {n_params} fp32 parameters, init {init_s:.2f} s; max memory allocated over the steps "
+          f"{ {k: round(v / 2**30, 2) for k, v in peak.items()} } GiB ({live_before / 2**30:.2f} GiB live "
+          f"before the phase); fused vs default loss per step "
+          f"{[b['loss'] - a['loss'] for a, b in zip(runs[:TRAIN_STEPS], runs[TRAIN_STEPS:])]}", flush=True)
+
+    # the checkpoint round trip, and the next step's loss from it
+    with tempfile.TemporaryDirectory() as work:
+        path = os.path.join(work, "imagebind_huge_train.pt")
+        t0 = time.perf_counter()
+        ck.save_params(path, params)
+        save_s = time.perf_counter() - t0
+        nbytes = os.path.getsize(path)
+        t0 = time.perf_counter()
+        loaded = ck.load_params(path, like=params)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+    live, back = ck.flatten_params(params), ck.flatten_params(loaded)
+    differ = [k for k in live if not (back[k].dtype == live[k].dtype and torch.equal(back[k], live[k].detach()))]
+    if list(back) != list(live) or differ:
+        fail(f"train checkpoint: the loaded parameters differ from the saved ones: {differ[:5]}")
+    with torch.no_grad():
+        next_live = tc.contrastive_loss(params, images, tokens, cfg, torch.bfloat16)[0].item()
+        next_loaded = tc.contrastive_loss(loaded, images, tokens, cfg, torch.bfloat16)[0].item()
+    if next_live != next_loaded:
+        fail(f"train checkpoint: next step's loss {next_loaded} from the loaded parameters, {next_live} live")
+    print(f"train checkpoint: {nbytes / 1e9:.2f} GB saved in {save_s:.2f} s, loaded in {load_s:.2f} s, "
+          f"every leaf equal; next step's loss {next_live:.6f} from both", flush=True)
+    del loaded, live, back, params, opt, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"params": n_params, "batch": TRAIN_B, "learning_rate": TRAIN_LR, "init_s": init_s, "trace": trace,
+            "grad_rel_err": summary, "grad_worst": worst, "grad_loss_fp32": loss32, "grad_s": grad_s,
+            "steps": runs, "steady": steady, "bound_ms": max(b_ms, by_ms), "flop_bound_ms": b_ms,
+            "byte_bound_ms": by_ms, "tflop": flops / 1e12, "max_memory_allocated": peak,
+            "live_before": live_before, "checkpoint": {"bytes": nbytes, "save_s": save_s, "load_s": load_s,
+                                                       "next_loss": next_live},
+            "launches": {"default": runs[0]["launches"], "fused": runs[TRAIN_STEPS]["launches"]}}
+
+
 class CliSpies:
     """What the ingest CLI does on the card: every key-frame scanner's fed
     luma, times and mask handles, the seconds of each mask read (and how
@@ -1475,15 +1788,20 @@ def main() -> int:
     gen = torch.Generator(device="cuda").manual_seed(0)
     rows = {
         # ImageBind vision, audio trunk (bias_kv), Whisper encoder (4 chunks)
+        # ... and the training step's vision tower (16 pairs)
         "flash_mha": [check_attention(fa, s, gen) for s in (
-            (32, 16, 257, 257, 80), (96, 12, 229, 230, 64), (4, 20, 1500, 1500, 64))],
+            (32, 16, 257, 257, 80), (96, 12, 229, 230, 64), (4, 20, 1500, 1500, 64),
+            (16, 16, 257, 257, 80))],
         # ... and the text tower: one question (77 rows), a batch of 8 (616)
+        # ... and the training step's towers (16 pairs: 4112 vision rows,
+        # 1232 text rows)
         "fused_mlp": [check_mlp_kernel(fm, s, gen, False) for s in (
             (8224, 1280, 5120), (21984, 768, 3072), (6000, 1280, 5120), (77, 1024, 4096),
-            (616, 1024, 4096))],
+            (616, 1024, 4096), (4112, 1280, 5120), (1232, 1024, 4096))],
         "fused_ln_mlp_residual": [check_mlp_kernel(fm, s, gen, True) for s in (
-            (8224, 1280, 5120), (21984, 768, 3072), (77, 1024, 4096), (616, 1024, 4096))],
-        "flash_mha_bthd": [check_attention_bthd(fa, (32, 257, 16, 80), gen)],
+            (8224, 1280, 5120), (21984, 768, 3072), (77, 1024, 4096), (616, 1024, 4096),
+            (4112, 1280, 5120), (1232, 1024, 4096))],
+        "flash_mha_bthd": [check_attention_bthd(fa, s, gen) for s in ((32, 257, 16, 80), (16, 257, 16, 80))],
         # the JAX package's store scale, search's first round, and 1e6 rows
         # at the kernel's k limit; then an ascending-sorted 2e5 store
         # (reported: the filter's worst case)
@@ -1734,6 +2052,9 @@ def main() -> int:
     # 7. search at a store of 200 000 rows
     report["search"] = search_phase(ttk)
 
+    # 10. contrastive training at full ImageBind-Huge width
+    report["train"] = train_phase(fa, fm, counters)
+
     sources = {"flash_mha": "hippomm_tpu_torch/csrc/flash_mha.cu",
                "fused_mlp": "hippomm_tpu_torch/csrc/fused_mlp.cu",
                "fused_ln_mlp_residual": "hippomm_tpu_torch/csrc/fused_mlp.cu",
@@ -1752,6 +2073,9 @@ def main() -> int:
     # the server's requests: both /ingest calls, then the questions
     serve_runs = list(report["serve"]["ingest"].values()) + list(report["serve"]["ask"].values())
     by_path["serve"] = {k: sum(r["launches"].get(k, 0) for r in serve_runs) for k in rows}
+    # one training step in each configuration
+    by_path["train_default"] = report["train"]["launches"]["default"]
+    by_path["train_fused"] = report["train"]["launches"]["fused"]
     # each kernel's own path: K1/K2 the default ingest, K3/K4 the fused one, K5 the query path
     own_path = {"flash_mha": "ingest_default", "fused_mlp": "ingest_default",
                 "fused_ln_mlp_residual": "ingest_fused", "flash_mha_bthd": "ingest_fused",

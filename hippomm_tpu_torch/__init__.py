@@ -10,6 +10,8 @@ module's counterpart is found under the same name:
   memory/   segmentation, consolidation, the HippocampalMemory engine
   retrieval/ feature search, token budgets, dual-pathway QA
   core/     the query CLI (ask_question)
+  train/    contrastive training (fp32 masters, optax-AdamW) and its
+            parameter checkpoints
   media/    synthetic clips, the JPEG and thumbnail helpers of recall
   utils/    device resolution, stage timers, token counting
 

@@ -100,8 +100,10 @@ def init_imagebind(cfg: ImageBindConfig, device, dtype=torch.bfloat16, seed: int
     """Random init of all three towers on `device` from a torch.Generator
     seeded with `seed`. Matmul weights are stored in `dtype` (the forward
     casts them to it anyway); norms, biases, embeddings and patchify kernels
-    stay fp32. Not the JAX package's random numbers — tests carry weights
-    across with carry.params_from_jax instead."""
+    stay fp32. Training takes dtype=torch.float32: every leaf an fp32 master,
+    as the JAX package's init keeps them (train/contrastive). Not the JAX
+    package's random numbers — tests carry weights across with
+    carry.params_from_jax instead."""
     device = torch.device(device)
     g = torch.Generator(device=device)
     g.manual_seed(seed)

@@ -4,7 +4,8 @@ Counterpart of hippomm_tpu/models/layers.py, with the same conventions:
   * params are nested dicts of tensors; weights follow the torch Linear
     convention W (out, in), y = x @ W.T + b
   * matmuls take operands in `compute_dtype` and return fp32 (JAX's
-    preferred_element_type=float32); the fp32 bias is added after
+    preferred_element_type=float32; ops/matmul, differentiable on CUDA
+    too); the fp32 bias is added after
   * LayerNorm statistics and affine always run in fp32
   * the residual stream is kept in the compute dtype
 
@@ -21,7 +22,9 @@ the dtype:
     (HIPPOMM_FUSED_MLP=0 takes the plain torch ops).
 On CPU tensors the kernel wrappers run their plain versions; on CUDA a call
 the kernels cannot take (fp32) raises NotImplementedError. A flag at 0 is
-the user's choice of the plain ops, not a fallback.
+the user's choice of the plain ops, not a fallback. Every route is
+differentiable: the kernel wrappers carry the JAX package's custom_vjp
+backward (plain PyTorch recomputes), so training runs through the kernels.
 """
 
 from __future__ import annotations
@@ -36,22 +39,9 @@ from hippomm_tpu_torch.ops import flash_attention as fa
 from hippomm_tpu_torch.ops import fused_mlp as fm
 from hippomm_tpu_torch.ops.flash_attention import flash_mha, flash_supported
 from hippomm_tpu_torch.ops.fused_mlp import fused_mlp, fused_mlp_supported
+from hippomm_tpu_torch.ops.matmul import matmul_f32
 
 Params = Dict[str, Any]
-
-
-def matmul_f32(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """(..., K) @ (N, K)ᵀ → (..., N) in fp32, from operands in their given
-    (compute) dtype. On CUDA a bf16 product returns fp32 from the tensor
-    cores without a bf16 rounding (torch.mm out_dtype); elsewhere the
-    operands are widened to fp32 first — exact, since bf16·bf16 fits fp32."""
-    lead = a.shape[:-1]
-    a2 = a.reshape(-1, a.shape[-1])
-    if a2.is_cuda and a2.dtype in (torch.bfloat16, torch.float16):
-        y = torch.mm(a2, w.t(), out_dtype=torch.float32)
-    else:
-        y = a2.float() @ w.float().t()
-    return y.reshape(*lead, w.shape[0])
 
 
 def linear(p: Params, x: torch.Tensor, dtype=torch.bfloat16) -> torch.Tensor:

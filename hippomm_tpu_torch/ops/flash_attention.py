@@ -23,6 +23,10 @@ same functions in plain PyTorch, in the JAX op order:
 
 Each wrapper runs the kernel for a CUDA tensor and the plain version for a
 CPU tensor — nothing else: a CUDA call that the kernel cannot take raises.
+Both wrappers are differentiable, as the JAX package's custom_vjp wrappers
+are: when an operand requires grad they run under `_Attention`, whose
+backward is the JAX `_bwd` / `_bthd_bwd` recompute in plain PyTorch (the
+JAX package has no backward kernel either); the kernel runs the forward.
 The TPU-only schedules of the JAX module (CLS-split, fast-exp) were written
 for the v5e's vector unit and have no counterpart here.
 """
@@ -37,6 +41,7 @@ import torch
 import torch.nn.functional as F
 
 from hippomm_tpu_torch.ops import _native
+from hippomm_tpu_torch.ops.matmul import bmm_f32, needs_grad
 
 # Per-head key length the JAX routing gate admits (its VMEM budget); the
 # CUDA kernel streams K/V and has no such limit, but the gate is kept so both
@@ -105,10 +110,54 @@ def flash_mha_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: floa
     return torch.matmul(w.to(dt).float(), v.float()).to(dt)
 
 
+def _attention_bwd(q, k, v, g, scale: float):
+    """The JAX `_bwd` recompute, op for op, on (B, H, T, hd) operands: fp32
+    logits·scale and softmax, products of compute-dtype operands with fp32
+    results, each gradient cast to its input's dtype."""
+    dt = q.dtype
+    w = torch.softmax(bmm_f32(q, k.transpose(-1, -2)) * scale, dim=-1)
+    wc = w.to(dt)
+    g = g.to(dt)
+    dv = bmm_f32(wc.transpose(-1, -2), g)
+    dw = bmm_f32(g, v.transpose(-1, -2))
+    dlogits = (w * (dw - (dw * w).sum(dim=-1, keepdim=True)) * scale).to(dt)
+    dq = bmm_f32(dlogits, k)
+    dk = bmm_f32(dlogits.transpose(-1, -2), q)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+class _Attention(torch.autograd.Function):
+    """K1 or K4 (`forward`) with the JAX custom_vjp's backward. Saves the
+    unpadded inputs — for K4 the strided views, whose gradients autograd
+    scatters into the tensor they view."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale, forward, bthd):
+        ctx.save_for_backward(q, k, v)
+        ctx.scale, ctx.bthd = scale, bthd
+        return forward(q, k, v, scale)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v = ctx.saved_tensors
+        if ctx.bthd:  # (B, T, H, hd) → the (B, H, T, hd) views and back
+            q, k, v, g = (t.transpose(1, 2) for t in (q, k, v, g))
+        grads = _attention_bwd(q, k, v, g, ctx.scale)
+        if ctx.bthd:
+            grads = tuple(t.transpose(1, 2) for t in grads)
+        return (*grads, None, None, None)
+
+
 def flash_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float) -> torch.Tensor:
-    """Fused attention forward: the CUDA kernel for CUDA tensors (bf16,
-    contiguous), the plain version for CPU tensors. Counts kernel launches
-    in `flash_mha.launches`."""
+    """Fused attention: the CUDA kernel for CUDA tensors (bf16, contiguous),
+    the plain version for CPU tensors; differentiable (`_Attention`). Counts
+    kernel launches in `flash_mha.launches`."""
+    if needs_grad(q, k, v):
+        return _Attention.apply(q, k, v, scale, _flash_mha_forward, False)
+    return _flash_mha_forward(q, k, v, scale)
+
+
+def _flash_mha_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float) -> torch.Tensor:
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError(f"flash_mha takes 4-D (B, H, T, hd) tensors, got {q.shape} {k.shape} {v.shape}")
     b, h, tq, hd = q.shape
@@ -211,8 +260,15 @@ def flash_mha_bthd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: flo
     """Fused attention in the native (B, T, H, hd) layout: the CUDA kernel
     for CUDA tensors (bf16; strided views with a contiguous hd axis, every
     stride a multiple of 8 elements, 16-byte aligned), the plain version for
-    CPU tensors. Returns a contiguous (B, Tq, H, hd) tensor on CUDA. Counts
-    kernel launches in `flash_mha_bthd.launches`."""
+    CPU tensors; differentiable (`_Attention`). Returns a contiguous
+    (B, Tq, H, hd) tensor on CUDA. Counts kernel launches in
+    `flash_mha_bthd.launches`."""
+    if needs_grad(q, k, v):
+        return _Attention.apply(q, k, v, scale, _flash_mha_bthd_forward, True)
+    return _flash_mha_bthd_forward(q, k, v, scale)
+
+
+def _flash_mha_bthd_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float) -> torch.Tensor:
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError(
             f"flash_mha_bthd takes 4-D (B, T, H, hd) tensors, got {q.shape} {k.shape} {v.shape}"

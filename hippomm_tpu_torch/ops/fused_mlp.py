@@ -24,6 +24,11 @@ The TPU kernels' Abramowitz–Stegun and polynomial erfs existed only because
 Mosaic has no erf; CUDA has erff, so the kernels are exact-erf like the
 reference. Each wrapper runs the kernel for CUDA tensors and the plain
 version for CPU tensors; a CUDA call that the kernel cannot take raises.
+Both wrappers are differentiable, as the JAX package's fused_mlp_vjp /
+fused_ln_mlp_residual_vjp are: when an operand requires grad they run under
+`_Recompute`, whose backward is autograd of the plain version recomputed on
+the saved inputs (the JAX `jax.vjp` of _ref_mlp / _ref_ln_mlp_residual; the
+JAX package has no backward kernel either); the kernel runs the forward.
 """
 
 from __future__ import annotations
@@ -36,6 +41,7 @@ import torch
 import torch.nn.functional as F
 
 from hippomm_tpu_torch.ops import _native
+from hippomm_tpu_torch.ops.matmul import matmul_f32, needs_grad
 
 _LANES = 128
 _BM = 128  # rows per GEMM tile
@@ -91,13 +97,12 @@ def fused_mlp_supported(n: int, d: int, f: int) -> bool:
 
 def fused_mlp_ref(x, w1, b1, w2, b2) -> torch.Tensor:
     """Plain PyTorch MLP in the kernel's op order. x (N, D) compute dtype;
-    w1 (F, D), b1 (F,), w2 (D, F), b2 (D,) — weights cast to x.dtype, biases
-    added in fp32. Returns (N, D) in x.dtype."""
+    w1 (F, D), b1 (F,), w2 (D, F), b2 (D,) — weights cast to x.dtype, the
+    products' fp32 results (ops/matmul), biases added in fp32. Returns
+    (N, D) in x.dtype."""
     dt = x.dtype
-    h = torch.matmul(x.float(), w1.to(dt).float().t())
-    h = (h + b1.float()).to(dt)
-    y = F.gelu(h)
-    out = torch.matmul(y.float(), w2.to(dt).float().t())
+    h = (matmul_f32(x, w1.to(dt)) + b1.float()).to(dt)
+    out = matmul_f32(F.gelu(h), w2.to(dt))
     return (out + b2.float()).to(dt)
 
 
@@ -153,13 +158,16 @@ def _current_stream() -> int:
     return torch.cuda.current_stream().cuda_stream
 
 
-def _launch(entry: str, x, vectors, w1, b1, w2, b2, eps=None) -> torch.Tensor:
+def _launch(entry: str, x, vectors, w1, b1, w2, b2, eps=None, own_out: bool = False) -> torch.Tensor:
     """Allocate one workspace for `_plan`'s passes with the (N, D) bf16
     output at its head, launch `entry` on the current stream and return the
     output. `vectors` are the fp32 (D,) operands that precede W1 in the C
     signature (K3's gamma and beta); K3 also takes eps and a workspace for
     LN(x). A text-tower call is host-bound, so this path keeps its tensor
-    calls few: one allocation, the output a view of it."""
+    calls few: one allocation, the output a view of it. `own_out` gives the
+    output an allocation of its own instead, so that a caller that keeps it
+    (autograd saves it as the next block's input) does not keep the hidden
+    workspace alive with it."""
     n, d = x.shape
     f = w1.shape[0]
     bf16, f32 = torch.bfloat16, torch.float32
@@ -173,10 +181,12 @@ def _launch(entry: str, x, vectors, w1, b1, w2, b2, eps=None) -> torch.Tensor:
             raise ValueError(f"{entry} takes contiguous, 16-byte aligned operands")
         args.append(ptr)
     plan, (hidden, normed, partial), length = _workspace(n, d, f, eps is not None)
-    # the output heads the workspace, which lives as long as the output does
+    # the output heads the workspace, which lives as long as the output
+    # does; an own output leaves that slot unused
     ws = torch.empty((length,), dtype=bf16, device=x.device)
     base = ws.data_ptr()
-    args.append(base)
+    out = torch.empty((n, d), dtype=bf16, device=x.device) if own_out else ws[: n * d].view(n, d)
+    args.append(out.data_ptr())
     if eps is not None:
         args.append(base + normed)
     args += [base + hidden, None if partial is None else base + partial, n, d, f, plan.bn1,
@@ -193,15 +203,46 @@ def _launch(entry: str, x, vectors, w1, b1, w2, b2, eps=None) -> torch.Tensor:
     if rc != 0:
         raise RuntimeError(f"{entry} kernel launch failed: error {rc} (CUDA error, or 1000 + the "
                            "CUresult of a tensor map that could not be built)")
-    return ws[: n * d].view(n, d)
+    return out
+
+
+class _Recompute(torch.autograd.Function):
+    """`forward(*args)` (K2 or K3, or the plain version on the CPU), with
+    the backward of the JAX custom_vjp: autograd of `ref(*args)` recomputed
+    on the saved inputs. Only the inputs are saved. A weight or bias passed
+    as an fp32 master gets an fp32 gradient (its cast to x.dtype is inside
+    `ref`)."""
+
+    @staticmethod
+    def forward(ctx, forward, ref, *args):
+        ctx.ref = ref
+        ctx.save_for_backward(*args)
+        return forward(*args)
+
+    @staticmethod
+    def backward(ctx, g):
+        need = ctx.needs_input_grad[2:]
+        with torch.enable_grad():
+            args = [a.detach().requires_grad_(n) for a, n in zip(ctx.saved_tensors, need)]
+            out = ctx.ref(*args)
+        grads = iter(torch.autograd.grad(out, [a for a in args if a.requires_grad], g))
+        return (None, None, *(next(grads) if n else None for n in need))
 
 
 def fused_mlp(x, w1, b1, w2, b2) -> torch.Tensor:
     """Fused MLP: the CUDA kernels for CUDA tensors, the plain version for CPU
-    tensors. Counts calls that launch the kernels in `fused_mlp.launches`."""
+    tensors; differentiable (`_Recompute`). Counts calls that launch the
+    kernels in `fused_mlp.launches`."""
+    if needs_grad(x, w1, b1, w2, b2):
+        return _Recompute.apply(functools.partial(_fused_mlp_forward, own_out=True), fused_mlp_ref,
+                                x, w1, b1, w2, b2)
+    return _fused_mlp_forward(x, w1, b1, w2, b2)
+
+
+def _fused_mlp_forward(x, w1, b1, w2, b2, own_out: bool = False) -> torch.Tensor:
     if not _check_operands("fused_mlp", x, w1, b1, w2, b2):
         return fused_mlp_ref(x, w1, b1, w2, b2)
-    out = _launch("hmm_fused_mlp_bf16", x, (), w1, b1, w2, b2)
+    out = _launch("hmm_fused_mlp_bf16", x, (), w1, b1, w2, b2, own_out=own_out)
     _native.count_launch(fused_mlp)
     return out
 
@@ -252,11 +293,22 @@ def fused_ln_mlp_residual_ref(x, gamma, beta, w1, b1, w2, b2, eps: float = 1e-6)
 
 def fused_ln_mlp_residual(x, gamma, beta, w1, b1, w2, b2, eps: float = 1e-6) -> torch.Tensor:
     """x + mlp(LN(x)) for x (N, D) in the stream dtype: the CUDA kernels for
-    CUDA tensors (bf16), the plain version for CPU tensors. Counts calls that
-    launch the kernels in `fused_ln_mlp_residual.launches`."""
+    CUDA tensors (bf16), the plain version for CPU tensors; differentiable
+    (`_Recompute`). Counts calls that launch the kernels in
+    `fused_ln_mlp_residual.launches`."""
+    if needs_grad(x, gamma, beta, w1, b1, w2, b2):
+        return _Recompute.apply(
+            functools.partial(_fused_ln_mlp_residual_forward, eps=eps, own_out=True),
+            functools.partial(fused_ln_mlp_residual_ref, eps=eps), x, gamma, beta, w1, b1, w2, b2)
+    return _fused_ln_mlp_residual_forward(x, gamma, beta, w1, b1, w2, b2, eps)
+
+
+def _fused_ln_mlp_residual_forward(x, gamma, beta, w1, b1, w2, b2, eps: float = 1e-6,
+                                   own_out: bool = False) -> torch.Tensor:
     if not _check_operands("fused_ln_mlp_residual", x, w1, b1, w2, b2, gamma, beta):
         return fused_ln_mlp_residual_ref(x, gamma, beta, w1, b1, w2, b2, eps)
-    out = _launch("hmm_fused_ln_mlp_residual_bf16", x, (gamma, beta), w1, b1, w2, b2, eps=eps)
+    out = _launch("hmm_fused_ln_mlp_residual_bf16", x, (gamma, beta), w1, b1, w2, b2, eps=eps,
+                  own_out=own_out)
     _native.count_launch(fused_ln_mlp_residual)
     return out
 

@@ -37,6 +37,10 @@ _MODULES = [
     "hippomm_tpu_torch.ops.topk",
     "hippomm_tpu_torch.ops.keyframe",
     "hippomm_tpu_torch.ops._native",
+    "hippomm_tpu_torch.ops.matmul",
+    "hippomm_tpu_torch.train",
+    "hippomm_tpu_torch.train.contrastive",
+    "hippomm_tpu_torch.train.checkpoint",
     "hippomm_tpu_torch.media.synth",
     "hippomm_tpu_torch.media.io",
     "hippomm_tpu_torch.retrieval.budget",
@@ -70,7 +74,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
 
 
 @pytest.mark.parametrize("entry", ["engine", "imagebind", "whisper", "search_index", "keyframe_scanner",
-                                   "batch_main", "qa_service", "serve_main"])
+                                   "batch_main", "qa_service", "serve_main", "train_state",
+                                   "load_params"])
 def test_entry_point_without_device_raises_without_cuda(entry, monkeypatch, tmp_path):
     import torch
 
@@ -79,7 +84,9 @@ def test_entry_point_without_device_raises_without_cuda(entry, monkeypatch, tmp_
     from hippomm_tpu_torch.memory.engine import HippocampalMemory
     from hippomm_tpu_torch.ops.keyframe import KeyframeScanner
     from hippomm_tpu_torch.models.foundation import ImageBind, Whisper
+    from hippomm_tpu_torch.models.imagebind import model as ib_model
     from hippomm_tpu_torch.retrieval.search import FeatureSearchIndex
+    from hippomm_tpu_torch.train import checkpoint, init_train_state
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = Config()
@@ -93,7 +100,11 @@ def test_entry_point_without_device_raises_without_cuda(entry, monkeypatch, tmp_
             "batch_main": lambda: batch_process.main(["--path", str(tmp_path / "none"),
                                                       "--memory_store", str(tmp_path / "store")]),
             "qa_service": lambda: serve.QAService(cfg),
-            "serve_main": lambda: serve.main(["--memory-store", str(tmp_path / "store"), "--port", "0"])}[entry]
+            "serve_main": lambda: serve.main(["--memory-store", str(tmp_path / "store"), "--port", "0"]),
+            "train_state": lambda: init_train_state(ib_model.tiny_config()),
+            "load_params": lambda: checkpoint.load_params(str(tmp_path / "params.pt"))}[entry]
+    if entry == "load_params":
+        checkpoint.save_params(str(tmp_path / "params.pt"), {"w": torch.zeros(2)})
     with pytest.raises(RuntimeError, match="no CUDA device"):
         make()
 
