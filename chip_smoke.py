@@ -72,9 +72,27 @@ Phases (any failure exits non-zero and prints no result line):
      clean. Last, a restart over the 3-event store with the checkpoint's
      pages dropped from the page cache: load (from the disk) and warmup
      seconds
-  7. search — a FeatureSearchIndex of 200 000 × 1024 seeded rows (100
-     events of 2000): 64 single-query searches through K5 and one batch of
-     64, ms per query, 4 queries' hits and times on the host route
+  7. search — (runs after phase 6) a FeatureSearchIndex of 200 000 × 1024
+     seeded rows (100 events of 2000): 64 single-query searches through K5
+     and one batch of 64, ms per query, 4 queries' hits and times on the
+     host route
+ 11. mesh   — (runs after phase 7, before phase 9) the data-parallel
+     serving path over make_mesh(4, devices=[cuda:0] * 4): four "data"
+     shards that all sit on the card. An engine built over those devices
+     (the mesh from system.mesh_*) ingests phase 4's clip in the default
+     and the fused configuration: exact K1-K4 launches by the mesh formula
+     (mesh_launches: a divisible tower batch once per shard), every shard's
+     vision and audio forward equal bit for bit to the one-device forward
+     of its slab, each lockstep Whisper decode equal to each shard's own
+     decode, the features against phases 4/5 (2e-2, cosine ≥ 0.999), the
+     wall and stages beside the one-device engine's. Then a
+     ShardedFeatureIndex of phase 7's store (4 × 50 000 rows): 64 single
+     searches (K5 on every shard, 4 launches a round) and a batch of 64,
+     hits against the one-device index and the host route, ms beside the
+     one-device index's; a store of 50 003 rows (a short last shard holding
+     the least negative rows) on both routes. Last, QARecallSystem over a
+     mesh engine on phase 6's store picks ShardedFeatureIndex and answers
+     the VIDEO question with phase 6's hits, exact K2/K5 launches
  10. train  — (runs last) contrastive training (train/contrastive) at full
      ImageBind-Huge width: fp32 masters from init_train_state's seed on the
      card, bf16 compute, a fixed seeded batch of 16 image/caption pairs.
@@ -1134,6 +1152,331 @@ def search_phase(ttk):
           f"{batch_ms:.3f} ms ({batch_ms / 64:.3f} ms/query); host route {host_ms} ms for 4 queries, "
           f"whose hits the device routes' agree with (similarity gap {err:.3g}, {ties} near-tie "
           f"ranks); set-up {setup:.1f} s", flush=True)
+    return out, index, events, queries
+
+
+MESH_SHARDS = 4  # phase 11: "data" shards, all on the one card
+# The kernels' shapes on one of phase 11's shards, checked in phase 2: a
+# 32-frame vision chunk is 4 × 8 frames (K1/K4 batch 8, K2/K3 8 × 257 rows);
+# an audio chunk of 32 segments × 3 clips is 4 × 24 clips (K1 (24, 12, 229,
+# 230, 64), K2/K3 24 × 229 rows); Whisper's batch of 4 chunks is 4 × 1 (K1
+# (1, 20, 1500, 1500, 64), K2 1500 rows); the 2e5-row store is 4 × 5e4 rows
+# and the 50 003-row store's shards hold 12 501 rows (K5, search's first
+# round k 40).
+SHARD_SHAPES = {
+    "flash_mha": ((8, 16, 257, 257, 80), (24, 12, 229, 230, 64), (1, 20, 1500, 1500, 64)),
+    "fused_mlp": ((2056, 1280, 5120), (5496, 768, 3072), (1500, 1280, 5120)),
+    "fused_ln_mlp_residual": ((2056, 1280, 5120), (5496, 768, 3072)),
+    "flash_mha_bthd": ((8, 257, 16, 80),),
+    "top_k_cosine": ((50_000, 1024, 40), (12_501, 1024, 40)),
+}
+
+
+def mesh_launches(n_vis_chunks, n_aud, enc_batches, bucket, vis_depth, aud_depth, fused, shards):
+    """K1-K4 launches of one ingest on a mesh: every tower batch whose rows
+    divide by the shard count runs once per shard (vision chunks of 32/128,
+    audio chunks of 32, Whisper buckets of 4/16/32), an indivisible one
+    once."""
+    per = lambda rows: shards if rows % shards == 0 else 1  # noqa: E731
+    vis = n_vis_chunks * per(32) * vis_depth
+    aud = math.ceil(n_aud / 32) * per(32) * aud_depth
+    wh = enc_batches * per(bucket) * WHISPER_DEPTH
+    if fused:
+        return {"flash_mha": aud + wh, "fused_mlp": wh, "fused_ln_mlp_residual": vis + aud,
+                "flash_mha_bthd": vis}
+    return {"flash_mha": vis + aud + wh, "fused_mlp": vis + aud + wh, "fused_ln_mlp_residual": 0,
+            "flash_mha_bthd": 0}
+
+
+class _Patch:
+    """Attributes replaced for a phase and put back after it."""
+
+    def __init__(self):
+        self.saved = []
+
+    def set(self, obj, name, new):
+        self.saved.append((obj, name, getattr(obj, name)))
+        setattr(obj, name, new)
+
+    def restore(self):
+        for obj, name, old in reversed(self.saved):
+            setattr(obj, name, old)
+        self.saved = []
+
+
+def mesh_phase(cfg, qcfg, clip, one_device, counters, fa, fm, ttk, search, video_result):
+    """Phase 11: the data-parallel serving path on a mesh of 4 "data" shards
+    that all sit on the card (make_mesh(4, devices=[cuda:0] * 4)): the
+    engine's ingest of phase 4's clip (default and fused), the 4-shard
+    index over phase 7's store, and a VIDEO question over phase 6's store.
+    Each shard's tower forwards are held bit for bit to the one-device
+    forward of its slab, the sharded Whisper decode to each shard's own
+    decode, the features to the one-device engine's (phases 4 and 5), the
+    hits to the one-device index's and the host route's; exact launches."""
+    import numpy as np
+    import torch
+
+    from hippomm_tpu_torch.memory.engine import HippocampalMemory
+    from hippomm_tpu_torch.memory.schema import ThetaEvent
+    from hippomm_tpu_torch.models.imagebind import model as ib_model
+    from hippomm_tpu_torch.models.whisper import model as wh_model
+    from hippomm_tpu_torch.models.whisper import transcribe as wh_transcribe
+    from hippomm_tpu_torch.parallel.sharded_store import ShardedFeatureIndex
+    from hippomm_tpu_torch.retrieval.qa import QARecallSystem
+    from hippomm_tpu_torch.retrieval.search import FeatureSearchIndex
+
+    start = time.perf_counter()
+    devices = [torch.device("cuda", 0)] * MESH_SHARDS
+    out = {"shards": MESH_SHARDS, "ingest": {}}
+    with tempfile.TemporaryDirectory() as mesh_dir:
+        mcfg = copy.deepcopy(cfg)
+        mcfg.storage.base_dir = mesh_dir
+        mem = HippocampalMemory(mcfg, devices=devices)
+        if mem.mesh is None or mem.mesh.shape != {"data": MESH_SHARDS, "model": 1}:
+            fail(f"mesh: the engine over {MESH_SHARDS} devices built {mem.mesh}")
+        if not (mem.imagebind.mesh is mem.mesh and mem.whisper._impl.mesh is mem.mesh):
+            fail("mesh: the engine did not hand its mesh to both towers")
+        ib, wt = mem.imagebind, mem.whisper._impl
+        wcfg = wt.cfg
+
+        # 1. the engine's ingest through the mesh, default then fused
+        for phase, video_id, fused in (("default", "clip_mesh", False), ("fused", "clip_mesh_fused", True)):
+            set_fused_flags(fa, fm, fused)
+            forwards, decodes, patch = [], [], _Patch()
+            for name in ("vision_forward", "audio_forward"):
+                real = getattr(ib_model, name)
+                patch.set(ib_model, name, lambda p, x, c, d, real=real: forwards.append(
+                    (real, p, x, real(p, x, c, d))) or forwards[-1][3])
+            real_dec = wh_transcribe.greedy_decode_shards
+            patch.set(wh_transcribe, "greedy_decode_shards", lambda shards, c, **k: decodes.append(
+                (list(shards), k, real_dec(shards, c, **k))) or decodes[-1][2])
+            stages_before = dict(mem.timers.totals)
+            try:
+                for c in counters.values():
+                    c.launches = 0
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                stms = mem.process_sequence(
+                    video_id,
+                    frame_paths=[f"frames/{video_id}/{i:05d}.jpg" for i in range(len(clip.frames))],
+                    frame_times=clip.frame_times, frames_rgb=clip.frames, audio_data=clip.audio,
+                )
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                launches = {name: c.launches for name, c in counters.items()}
+            finally:
+                patch.restore()
+            one = one_device[phase]
+            n_frames = sum(len(s.segment_info["frames"]) for s in stms)
+            n_aud = sum(1 for s in stms if "audio" in s.features)
+            expect = mesh_launches(one["vision_chunks"], n_aud, one["encoder_batches"], one["bucket"],
+                                   ib.cfg.vision.depth, ib.cfg.audio.depth, fused, MESH_SHARDS)
+            stages = {k: v - stages_before.get(k, 0.0) for k, v in mem.timers.totals.items()}
+            print(f"mesh engine {phase}: {len(stms)} segments, {n_frames} frames, {n_aud} audio segments; "
+                  f"launches {launches}, expected {expect}; wall {wall:.3f} s on {MESH_SHARDS} shards "
+                  f"against {one['wall_s']:.3f} s on one device (phase {5 if fused else 4})", flush=True)
+            print(f"mesh stages {phase}: " + json.dumps({k: round(v, 4) for k, v in stages.items()})
+                  + " against one device " + json.dumps({k: round(v, 4) for k, v in one["stages_s"].items()}),
+                  flush=True)
+            if launches != expect:
+                fail(f"mesh {phase}: kernel launches {launches} != {expect}")
+            if (len(stms), n_frames, n_aud) != (one["segments"], one["frames"], one["audio_segments"]):
+                fail(f"mesh {phase}: {len(stms)} segments / {n_frames} frames / {n_aud} audio segments, one "
+                     f"device {one['segments']} / {one['frames']} / {one['audio_segments']}")
+            # every shard's forward against the one-device forward of its slab
+            slabs = {"vision_forward": [], "audio_forward": []}
+            with torch.no_grad():
+                for real, p, x, got in forwards:
+                    if not torch.equal(real(p, x, ib.cfg, ib.dtype), got):
+                        fail(f"mesh {phase}: a shard's {real.__name__} differs from the one-device "
+                             f"forward of its slab")
+                    slabs[real.__name__].append(x.shape[0])
+            if slabs != {"vision_forward": [8] * (MESH_SHARDS * one["vision_chunks"]),
+                         "audio_forward": [8] * (MESH_SHARDS * math.ceil(n_aud / 32))}:
+                fail(f"mesh {phase}: tower slabs {slabs}")
+            # the lockstep decode against each shard's own decode
+            steps = []
+            for shards, kw, result in decodes:
+                if len(shards) != MESH_SHARDS:
+                    fail(f"mesh {phase}: a Whisper decode of {len(shards)} shards")
+                for (p, enc, prompt), (tok, ln) in zip(shards, result):
+                    if enc.shape[0] != one["bucket"] // MESH_SHARDS:  # SHARD_SHAPES' Whisper rows
+                        fail(f"mesh {phase}: a Whisper shard of {enc.shape[0]} chunks")
+                    tok1, ln1 = wh_model.greedy_decode(p, enc, prompt, wcfg, **kw)
+                    ends = [min(int(n) + 1, tok.shape[1]) for n in ln.tolist()]
+                    if not (torch.equal(ln, ln1) and all(torch.equal(tok[j, :e], tok1[j, :e])
+                                                         for j, e in enumerate(ends))):
+                        fail(f"mesh {phase}: a shard's lockstep tokens differ from its own decode")
+                    steps.append(max(ends) - prompt.shape[1])
+            if len(decodes) != one["encoder_batches"]:
+                fail(f"mesh {phase}: {len(decodes)} decodes for {one['encoder_batches']} encoder batches")
+            agree = {}
+            for mod, norm in (("vision", 1.0), ("audio", 20.0)):
+                a = np.concatenate([s.features[mod] for s in stms if mod in s.features])
+                b = one[mod]
+                err = float(np.abs(a - b).max()) / norm if a.shape == b.shape else float("inf")
+                cos = float((np.sum(a * b, 1) / (np.linalg.norm(a, axis=1) * np.linalg.norm(b, axis=1))).min())
+                agree[mod] = {"max_abs_err": err, "min_cosine": cos}
+                if not (math.isfinite(err) and err <= 2e-2 and cos >= 0.999):
+                    fail(f"mesh {phase} {mod} features disagree with one device: {err}, cos {cos}")
+            print(f"mesh {phase}: features against one device "
+                  + ", ".join(f"{m} (÷{n:g}) max abs {agree[m]['max_abs_err']:.3g} min cosine "
+                              f"{agree[m]['min_cosine']:.6f}" for m, n in (("vision", 1), ("audio", 20)))
+                  + f"; {len(forwards)} shard forwards equal to the one-device forward of their slabs; "
+                  f"{len(decodes)} decodes of {MESH_SHARDS} shards in lockstep equal to each shard's "
+                  f"own decode (steps {steps})", flush=True)
+            out["ingest"][phase] = {"wall_s": wall, "one_device_wall_s": one["wall_s"], "stages_s": stages,
+                                    "one_device_stages_s": one["stages_s"], "launches": launches,
+                                    "expected_launches": expect, "features_vs_one_device": agree,
+                                    "shard_forwards": len(forwards), "decode_steps": steps}
+        set_fused_flags(fa, fm, False)
+        mesh = mem.mesh
+        del mem, ib, wt, forwards, decodes
+
+    # 2. the 4-shard index over phase 7's store
+    index, events, queries = search
+    t0 = time.perf_counter()
+    sharded = ShardedFeatureIndex.build(events, "vision", mesh)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    if [f.shape[0] for _, f in sharded._shards.parts] != [len(index) // MESH_SHARDS] * MESH_SHARDS:
+        fail(f"mesh search: shards {[f.shape for _, f in sharded._shards.parts]}")
+    rounds, patch = [], _Patch()
+    real_topk = ShardedFeatureIndex._topk
+    patch.set(ShardedFeatureIndex, "_topk", lambda idx, q, k: rounds.append(k) or real_topk(idx, q, k))
+    os.environ.pop("HIPPOMM_TOPK_ROUTE", None)
+    try:
+        one_ms, one_hits = [], []
+        for i in range(64):
+            t1 = time.perf_counter()
+            one_hits.append(index.search(queries[i]))
+            one_ms.append((time.perf_counter() - t1) * 1e3)
+        ttk.top_k_cosine_kernel.launches = 0
+        mesh_ms, mesh_hits = [], []
+        for i in range(64):
+            t1 = time.perf_counter()
+            mesh_hits.append(sharded.search(queries[i]))
+            mesh_ms.append((time.perf_counter() - t1) * 1e3)
+        launches = ttk.top_k_cosine_kernel.launches
+        k5_rounds = [k for k in rounds if k <= 128]
+        host_q = queries.cpu().numpy()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        one_batch = index.search_batch(host_q)
+        one_batch_ms = (time.perf_counter() - t1) * 1e3
+        t1 = time.perf_counter()
+        mesh_batch = sharded.search_batch(host_q)
+        mesh_batch_ms = (time.perf_counter() - t1) * 1e3
+    finally:
+        patch.restore()
+    if launches != MESH_SHARDS * len(k5_rounds) or not k5_rounds:
+        fail(f"mesh search: {launches} K5 launches for {len(k5_rounds)} rounds of {MESH_SHARDS} shards")
+    err, ties = 0.0, 0
+    for i in range(64):
+        for got, want, what in ((mesh_hits[i], one_hits[i], "search"), (mesh_batch[i], one_batch[i], "batch")):
+            e, t = compare_hits(index, host_q[i], got, want, f"mesh {what} query {i} against one device")
+            err, ties = max(err, e), ties + t
+    os.environ["HIPPOMM_TOPK_ROUTE"] = "host"
+    try:
+        for i in range(4):
+            want = index.search(host_q[i])
+            e, t = compare_hits(index, host_q[i], mesh_hits[i], want, f"mesh search query {i} against host")
+            err, ties = max(err, e), ties + t
+    finally:
+        os.environ.pop("HIPPOMM_TOPK_ROUTE", None)
+    out["search"] = {"rows": len(index), "build_s": build_s, "single_ms_median": float(np.median(mesh_ms)),
+                     "one_device_single_ms_median": float(np.median(one_ms)), "single_ms": mesh_ms,
+                     "batch64_ms": mesh_batch_ms, "one_device_batch64_ms": one_batch_ms,
+                     "k5_launches": launches, "k5_rounds": len(k5_rounds), "max_sim_gap": err,
+                     "near_ties": ties}
+    print(f"mesh search: {len(index)} rows over {MESH_SHARDS} shards (built in {build_s:.2f} s); single "
+          f"query {np.median(mesh_ms):.3f} ms median against {np.median(one_ms):.3f} ms on one device; "
+          f"batch of 64 {mesh_batch_ms:.3f} ms against {one_batch_ms:.3f} ms; {launches} K5 launches for "
+          f"{len(k5_rounds)} rounds; hits agree with the one-device index and the host route (similarity "
+          f"gap {err:.3g}, {ties} near-tie ranks)", flush=True)
+    del sharded
+
+    # ... and a store whose rows do not divide by 4, with negative scores:
+    # 50 003 rows, the least negative in the short last shard, two positive
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    n, d = 50_003, 1024
+    q = torch.randn((d,), generator=gen, device="cuda")
+    rows = torch.randn((n, d), generator=gen, device="cuda") - 2.0 * q
+    rows[40_000:] += 1.8 * q
+    rows[4], rows[11] = q, q + 0.3 * torch.randn((d,), generator=gen, device="cuda")
+    rows = rows.cpu().numpy()
+    small = [ThetaEvent(video_id=f"n{e}", features={"vision": rows[lo:lo + 5000]},
+                        feature_times={"vision": [float(t) for t in range(len(rows[lo:lo + 5000]))]},
+                        start_time=0.0, end_time=5000.0) for e, lo in enumerate(range(0, n, 5000))]
+    one_small = FeatureSearchIndex.build(small, "vision", devices[0])
+    sharded_small = ShardedFeatureIndex.build(small, "vision", mesh)
+    last = sharded_small._shards.parts[-1][0]
+    qh = q.cpu().numpy()
+    for kw in ({}, {"top_k_per_event": 200, "global_top_k": 150}):  # K5, then the k > 128 route
+        got = sharded_small.search(q, **kw)
+        compare_hits(one_small, qh, got, one_small.search(q, **kw), f"mesh short-shard store {kw}")
+        os.environ["HIPPOMM_TOPK_ROUTE"] = "host"
+        try:
+            compare_hits(one_small, qh, got, one_small.search(qh, **kw), f"mesh short-shard store {kw} host")
+        finally:
+            os.environ.pop("HIPPOMM_TOPK_ROUTE", None)
+        hit_rows = [int(h.video_id[1:]) * 5000 + h.index_in_event for h in got]
+        if sum(h.similarity > 0 for h in got) != 2 or min(hit_rows[2:]) < last:
+            fail(f"mesh short-shard store: hits {[(r, h.similarity) for r, h in zip(hit_rows, got)][:8]}")
+    print(f"mesh short-shard store: {n} rows over {MESH_SHARDS} shards ({[f.shape[0] for _, f in sharded_small._shards.parts]}); "
+          f"the negative rows of the last shard (from row {last}) rank as on one device and the host route",
+          flush=True)
+    del one_small, sharded_small, small, rows
+
+    # 3. a VIDEO question over phase 6's store through a mesh engine
+    qmem = HippocampalMemory(qcfg, devices=devices)
+    qmem.load_all_events()
+    qa = QARecallSystem(qmem, qcfg)
+    idx = qa._index("vision")
+    if not isinstance(idx, ShardedFeatureIndex):
+        fail(f"mesh question: QARecallSystem built {type(idx).__name__}, not ShardedFeatureIndex")
+    text_rows, enc_calls, rounds, patch = [], [], [], _Patch()
+    real_text, real_enc = ib_model.text_forward, wh_transcribe.encoder_forward
+    patch.set(ib_model, "text_forward", lambda p, t, *a: text_rows.append(t.numel()) or real_text(p, t, *a))
+    patch.set(wh_transcribe, "encoder_forward", lambda *a, **k: enc_calls.append(1) or real_enc(*a, **k))
+    patch.set(ShardedFeatureIndex, "_topk_device",
+              lambda ix, qq, k, f=ShardedFeatureIndex._topk_device: rounds.append(k) or f(ix, qq, k))
+    try:
+        for c in list(counters.values()) + [ttk.top_k_cosine_kernel]:
+            c.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = qa.answer_question(VIDEO_Q)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {name: c.launches for name, c in counters.items()}
+        launches["top_k_cosine"] = ttk.top_k_cosine_kernel.launches
+    finally:
+        patch.restore()
+    shards_used = len(idx._shards.parts)
+    expect = {"flash_mha": WHISPER_DEPTH * len(enc_calls),
+              "fused_mlp": TEXT_DEPTH * len(text_rows) + WHISPER_DEPTH * len(enc_calls),
+              "fused_ln_mlp_residual": 0, "flash_mha_bthd": 0,
+              "top_k_cosine": shards_used * sum(1 for k in rounds if k <= 128)}
+    print(f"mesh question VIDEO: wall {wall:.3f} s; text rows {text_rows} (one question does not divide "
+          f"by {MESH_SHARDS}: one forward), search rounds k {rounds} over {shards_used} non-empty shards; "
+          f"launches {launches}, expected {expect}", flush=True)
+    if launches != expect or not rounds or text_rows != [77]:
+        fail(f"mesh question: launches {launches} != {expect} (rounds {rounds}, text rows {text_rows})")
+    want = video_result["retrieved_segments"]
+    got = [h for h in res.retrieved_segments]
+    if res.question_type != "VIDEO" or [(h["event_id"], h["time"], h["index_in_event"]) for h in got] != [
+            (h["event_id"], h["time"], h["index_in_event"]) for h in want]:
+        fail(f"mesh question: hits {got} differ from phase 6's {want}")
+    gap = max((abs(a["similarity"] - b["similarity"]) for a, b in zip(got, want)), default=0.0)
+    if not gap <= 1e-5:
+        fail(f"mesh question: similarities differ from phase 6's by {gap}")
+    print(f"mesh question VIDEO: {len(got)} hits equal to phase 6's (similarity gap {gap:.3g})", flush=True)
+    out["query"] = {"wall_s": wall, "launches": launches, "expected_launches": expect, "hits": len(got),
+                    "search_rounds_k": rounds, "shards_used": shards_used}
+    del qa, qmem, idx
+    out["phase_s"] = time.perf_counter() - start
+    print(f"mesh: phase 11 took {out['phase_s']:.1f} s", flush=True)
     return out
 
 
@@ -1746,6 +2089,7 @@ def main() -> int:
     if not os.path.isdir(os.path.join(HERE, "hippomm_tpu_torch")):
         fail("no hippomm_tpu_torch package beside this script (run it from a checkout)", 2)
     sys.path.insert(0, HERE)
+    started = time.perf_counter()
     import numpy as np
     import torch
 
@@ -1789,25 +2133,28 @@ def main() -> int:
     rows = {
         # ImageBind vision, audio trunk (bias_kv), Whisper encoder (4 chunks)
         # ... and the training step's vision tower (16 pairs)
+        # ... and on one of phase 11's 4 shards (SHARD_SHAPES)
         "flash_mha": [check_attention(fa, s, gen) for s in (
             (32, 16, 257, 257, 80), (96, 12, 229, 230, 64), (4, 20, 1500, 1500, 64),
-            (16, 16, 257, 257, 80))],
+            (16, 16, 257, 257, 80)) + SHARD_SHAPES["flash_mha"]],
         # ... and the text tower: one question (77 rows), a batch of 8 (616)
         # ... and the training step's towers (16 pairs: 4112 vision rows,
-        # 1232 text rows)
+        # 1232 text rows); then the shard shapes
         "fused_mlp": [check_mlp_kernel(fm, s, gen, False) for s in (
             (8224, 1280, 5120), (21984, 768, 3072), (6000, 1280, 5120), (77, 1024, 4096),
-            (616, 1024, 4096), (4112, 1280, 5120), (1232, 1024, 4096))],
+            (616, 1024, 4096), (4112, 1280, 5120), (1232, 1024, 4096)) + SHARD_SHAPES["fused_mlp"]],
         "fused_ln_mlp_residual": [check_mlp_kernel(fm, s, gen, True) for s in (
             (8224, 1280, 5120), (21984, 768, 3072), (77, 1024, 4096), (616, 1024, 4096),
-            (4112, 1280, 5120), (1232, 1024, 4096))],
-        "flash_mha_bthd": [check_attention_bthd(fa, s, gen) for s in ((32, 257, 16, 80), (16, 257, 16, 80))],
+            (4112, 1280, 5120), (1232, 1024, 4096)) + SHARD_SHAPES["fused_ln_mlp_residual"]],
+        "flash_mha_bthd": [check_attention_bthd(fa, s, gen) for s in (
+            (32, 257, 16, 80), (16, 257, 16, 80)) + SHARD_SHAPES["flash_mha_bthd"]],
         # the JAX package's store scale, search's first round, and 1e6 rows
         # at the kernel's k limit; then an ascending-sorted 2e5 store
-        # (reported: the filter's worst case)
+        # (reported: the filter's worst case); then the shard shapes
         "top_k_cosine": [check_topk(ttk, s, gen) for s in (
             (200_000, 1024, 20), (200_000, 1024, 40), (1_000_000, 1024, 128))]
-        + [check_topk(ttk, (200_000, 1024, 20), gen, ascending=True)],
+        + [check_topk(ttk, (200_000, 1024, 20), gen, ascending=True)]
+        + [check_topk(ttk, s, gen) for s in SHARD_SHAPES["top_k_cosine"]],
     }
     torch.cuda.empty_cache()
     for name, rs in rows.items():
@@ -1907,15 +2254,17 @@ def main() -> int:
             report["towers"][name] = {"max_abs_err": err, "limit": lim, "min_cosine": cos_min}
 
         # the decoder's token ids and steps, as the transcriber gets them
+        # (one shard: one device)
         decodes = []
-        real_greedy = wh_transcribe.greedy_decode
+        real_greedy = wh_transcribe.greedy_decode_shards
 
         def greedy_spy(*a, **k):
-            tokens, lengths = real_greedy(*a, **k)
-            decodes.append((tokens.cpu().numpy(), lengths.cpu().numpy()))
-            return tokens, lengths
+            out = real_greedy(*a, **k)
+            decodes.append((torch.cat([t for t, _ in out]).cpu().numpy(),
+                            torch.cat([ln for _, ln in out]).cpu().numpy()))
+            return out
 
-        wh_transcribe.greedy_decode = greedy_spy
+        wh_transcribe.greedy_decode_shards = greedy_spy
         counters = {"flash_mha": fa.flash_mha, "fused_mlp": fm.fused_mlp,
                     "fused_ln_mlp_residual": fm.fused_ln_mlp_residual,
                     "flash_mha_bthd": fa.flash_mha_bthd}
@@ -1985,7 +2334,7 @@ def main() -> int:
                     "token_ids": token_ids, "stms": stms,
                 }
         finally:
-            wh_transcribe.greedy_decode = real_greedy
+            wh_transcribe.greedy_decode_shards = real_greedy
             set_fused_flags(fa, fm, False)
 
         # the persisted events: one per video, well-formed features
@@ -2024,6 +2373,17 @@ def main() -> int:
         print("fused vs default transcript token ids: equal", flush=True)
         stats = mem.get_stats()
         print("stages: " + json.dumps(stats["timers"]), flush=True)
+        # what phase 11 holds the mesh engine to: the one-device engine's
+        # features, counts and times
+        bucket = next(t for t in (4, 16, 32) if n_chunks <= t or t == 32)
+        one_device = {ph: {"vision": np.concatenate([s.features["vision"] for s in v["stms"] if "vision" in s.features]),
+                           "audio": np.concatenate([s.features["audio"] for s in v["stms"] if "audio" in s.features]),
+                           "bucket": bucket, **{k: v[k] for k in ("wall_s", "stages_s", "segments", "frames",
+                                                                  "audio_segments", "vision_chunks",
+                                                                  "encoder_batches")}}
+                      for ph, v in paths.items()}
+        if enc_batches != 1:
+            fail(f"phase 11 expects one Whisper encoder batch, the clip has {enc_batches}")
         for ph in paths.values():
             ph.pop("stms")
         report["engine"] = {"paths": paths, "fused_vs_default": agree, "stages": stats["timers"],
@@ -2045,12 +2405,18 @@ def main() -> int:
 
         report["query"] = query_phase(qcfg, dict(counters, top_k_cosine=ttk.top_k_cosine_kernel), fa, fm)
 
+        # 7. search at a store of 200 000 rows
+        report["search"], *search = search_phase(ttk)
+
+        # 11. the data-parallel path on a mesh of 4 shards on the card, over
+        # phase 4's clip, phase 7's store and phase 6's store
+        report["mesh"] = mesh_phase(cfg, qcfg, clip, one_device, counters, fa, fm, ttk, search,
+                                    report["query"]["runs"]["video"]["results"][0])
+        del search
+
     # 9. the QA server from a checkpoint file, after the query phase (the
     # token counter's `transformers` import is paid)
     report["serve"] = serve_phase(dict(counters, top_k_cosine=ttk.top_k_cosine_kernel), depths)
-
-    # 7. search at a store of 200 000 rows
-    report["search"] = search_phase(ttk)
 
     # 10. contrastive training at full ImageBind-Huge width
     report["train"] = train_phase(fa, fm, counters)
@@ -2073,6 +2439,11 @@ def main() -> int:
     # the server's requests: both /ingest calls, then the questions
     serve_runs = list(report["serve"]["ingest"].values()) + list(report["serve"]["ask"].values())
     by_path["serve"] = {k: sum(r["launches"].get(k, 0) for r in serve_runs) for k in rows}
+    # phase 11's mesh: both ingests, the 64 single searches, the question
+    for ph in ("default", "fused"):
+        by_path[f"mesh_{ph}"] = report["mesh"]["ingest"][ph]["launches"]
+    by_path["mesh_search"] = {"top_k_cosine": report["mesh"]["search"]["k5_launches"]}
+    by_path["mesh_query"] = report["mesh"]["query"]["launches"]
     # one training step in each configuration
     by_path["train_default"] = report["train"]["launches"]["default"]
     by_path["train_fused"] = report["train"]["launches"]["fused"]
@@ -2093,6 +2464,8 @@ def main() -> int:
             "pct_of_bound": head["pct_of_bound"], "shapes": rs,
         })
     report["kernels"] = kernels
+    report["wall_s"] = time.perf_counter() - started
+    print(f"chip_smoke: all phases in {report['wall_s']:.1f} s, the build included", flush=True)
     os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)
     with open(os.path.join(HERE, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump(report, f, indent=1)

@@ -22,8 +22,15 @@ DEFAULT_CONFIG_PATH = os.path.join(
 
 @dataclasses.dataclass
 class SystemConfig:
-    # The device is the entry points' `device=` argument, and the port runs
-    # on one device; the YAML's system.device and mesh_* keys are ignored.
+    # kept for the YAML schema only: it has no effect (nothing reads it, as
+    # in the JAX package); the entry points' `device=` argument decides
+    device: str = "tpu"
+    # mesh axis sizes over the engine's local devices (parallel/mesh.py);
+    # mesh_data None = every device left after model x replicas
+    mesh_data: Optional[int] = None
+    mesh_model: int = 1
+    # a leading "replica" axis: the batch splits over replica x data
+    mesh_replicas: int = 1
     # when set, each process_sequence runs under torch.profiler and writes a
     # Chrome trace into this directory (stage timers are always on; this is
     # the trace half)

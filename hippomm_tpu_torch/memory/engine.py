@@ -1,8 +1,7 @@
 """HippocampalMemory — the memory engine (reference: hippocampal_memory.py:214-1612).
 
-Counterpart of hippomm_tpu/memory/engine.py for one CUDA device (the JAX
-engine's data-parallel mesh waits for the port's parallel layer). Same
-stages, same store format:
+Counterpart of hippomm_tpu/memory/engine.py. Same stages, same store
+format:
 
   * temporal pattern separation: device SSIM over all adjacent frame pairs
     plus host audio RMS, then the greedy walk (segmentation.py)
@@ -16,6 +15,14 @@ stages, same store format:
 
 Per-video STM checkpoints are written after encoding and resumed at the top
 of process_sequence, as in the JAX engine. A device fault raises.
+
+Device mesh: as the JAX engine does over jax.devices(), the engine builds a
+data-parallel mesh (parallel/mesh.py) over its local devices from
+system.mesh_data / mesh_model / mesh_replicas — the caller's `devices`, or
+every local CUDA device when the caller names no `device` — and both towers
+encode data-parallel over it. One device gives no mesh: a caller who names
+a `device` gets that device alone. A config that asks for more devices
+than exist warns and runs on one device; a mesh that fails to build raises.
 """
 
 from __future__ import annotations
@@ -36,9 +43,9 @@ from hippomm_tpu_torch.memory.segmentation import segment_sequence
 from hippomm_tpu_torch.memory.store import MemoryStore
 from hippomm_tpu_torch.models.clients import make_client
 from hippomm_tpu_torch.models.foundation import ImageBind, QwenVL, Whisper
-from hippomm_tpu_torch.models.imagebind import model as ib_model
 from hippomm_tpu_torch.models.imagebind.preprocess import preprocess_audio_batch
 from hippomm_tpu_torch.models.whisper.transcribe import Segment
+from hippomm_tpu_torch.parallel import mesh as pmesh
 from hippomm_tpu_torch.utils.device import fetch, resolve_device
 from hippomm_tpu_torch.utils.timers import StageTimer, maybe_profile
 
@@ -57,9 +64,21 @@ class HippocampalMemory:
         qwen_path: Optional[str] = None,
         models: Optional[Dict] = None,
         device=None,
+        devices=None,
     ):
+        """`device`: where the engine runs (CUDA unless the caller says
+        otherwise; the first of `devices` when only those are given). A
+        named `device` and no `devices` pins the engine to that device (no
+        mesh). `devices`: the local devices a mesh may span (a device may
+        repeat); with neither given, every CUDA device of the host, as
+        jax.devices()."""
         self.config = config or Config()
+        if device is None and devices is not None:
+            device = devices[0]
         self.device = resolve_device(device)
+        self.mesh = self._make_mesh(pmesh.local_devices(devices, device))
+        if self.mesh is not None:
+            self.device = resolve_device(pmesh.first_device(self.mesh))
         m = self.config.models
         p = self.config.processing
 
@@ -81,6 +100,7 @@ class HippocampalMemory:
             variant=m.imagebind_variant,
             dtype=getattr(torch, m.compute_dtype),
             device=self.device,
+            mesh=self.mesh,
         )
         self.whisper: Whisper = models.get("whisper") or Whisper(
             model_name=whisper_model or m.whisper_model,
@@ -89,6 +109,7 @@ class HippocampalMemory:
             random_init=m.whisper_random_init,
             beam_size=m.whisper_beam_size,
             device=self.device,
+            mesh=self.mesh,
         )
         self.qwen: QwenVL = models.get("qwen") or QwenVL(
             model_name=qwen_path or m.qwen_path, config=self.config
@@ -115,6 +136,29 @@ class HippocampalMemory:
             features_format=getattr(self.config.storage, "features_format", "json"),
         )
         self.timers = StageTimer()
+
+    def _make_mesh(self, devs: List[torch.device]) -> Optional[pmesh.Mesh]:
+        """The data-parallel mesh of system.mesh_* over `devs` (JAX engine:
+        mesh_data None = every device left after model × replicas); None on
+        one device, or with a warning when the config needs more devices
+        than there are. No fallback: a mesh that fails to build raises."""
+        sys_cfg = self.config.system
+        n_dev = len(devs)
+        reps = max(1, sys_cfg.mesh_replicas)
+        model = max(1, sys_cfg.mesh_model)
+        denom = model * reps
+        data = sys_cfg.mesh_data or (n_dev // denom)
+        total = data * denom
+        if data >= 1 and 1 < total <= n_dev:
+            return pmesh.make_mesh(total, model_parallel=model, devices=devs, dcn_replicas=reps)
+        if total > n_dev or data < 1:
+            # data < 1: replicas × model alone exceed the device count
+            logger.warning(
+                "configured mesh replicas=%d x data=%d x model=%d needs %d devices but only "
+                "%d are available — running single-device",
+                reps, data, model, max(total, denom), n_dev,
+            )
+        return None
 
     # ------------------------------------------------------------------ ingest
 
@@ -279,7 +323,8 @@ class HippocampalMemory:
             n_real = part.shape[0]
             if n_real < AUDIO_CHUNK:
                 part = torch.cat([part, part[-1:].expand(AUDIO_CHUNK - n_real, *part.shape[1:])])
-            outs.append(ib_model.audio_forward(ib.params, part, ib.cfg, ib.dtype)[:n_real])
+            # sharded over the mesh's batch split, as the JAX engine's chunks
+            outs.append(ib._run(ib._audio_forward, part)[:n_real])
         return torch.cat(outs)
 
     def _encode_segments(

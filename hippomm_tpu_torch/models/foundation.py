@@ -13,6 +13,13 @@ towers:
     transcriber (models/whisper) from a checkpoint, from random weights
     (`random_init`, or variant "tiny"), or the deterministic stub
   * QwenVL.generate — OpenAI-protocol HTTP client or stub
+
+With a `mesh` (parallel/mesh.py) ImageBind and Whisper run data-parallel:
+the weights are copied to each distinct device of the mesh's batch shards,
+every tower batch whose leading axis divides by data_axis_size splits into
+one slab per shard, each slab runs on its device, and the results come back
+in order to the mesh's first device (an indivisible batch runs there
+whole). A call still reads the host once.
 """
 
 from __future__ import annotations
@@ -30,7 +37,9 @@ from hippomm_tpu_torch.models.imagebind import model as ib_model
 from hippomm_tpu_torch.models.imagebind.preprocess import load_tokenizer, preprocess_audio
 from hippomm_tpu_torch.models.whisper import model as wh_model
 from hippomm_tpu_torch.models.whisper.transcribe import Segment, WhisperTranscriber
+from hippomm_tpu_torch.ops import _native
 from hippomm_tpu_torch.ops.resize import normalize_nchw, resize_crop_u8
+from hippomm_tpu_torch.parallel import mesh as pmesh
 from hippomm_tpu_torch.utils.device import fetch, resolve_device
 
 logger = logging.getLogger(__name__)
@@ -39,13 +48,27 @@ CHUNK = 32
 BIG_CHUNK = 128  # bulk tier for the vision tower (see encode_vision)
 
 
+def _home_device(device, mesh):
+    """Where a tower's unsharded work runs and its results gather: the
+    mesh's first device on a mesh (a caller's `device` must be that one),
+    else `device`."""
+    if mesh is None:
+        return device
+    first = pmesh.first_device(mesh)
+    if device is not None and pmesh.canonical_device(device) != first:
+        raise ValueError(f"device {device} is not the mesh's first device {first}")
+    return first
+
+
 class ImageBind:
     """Joint-embedding model wrapper (reference surface: extract_features).
 
     Weights come from `params` (e.g. carry.params_from_jax), else from the
     checkpoint at `model_path` (the file, or a directory holding
     imagebind_huge.pth or model.safetensors; imagebind.convert), else a
-    random init from `seed`. Runs on CUDA unless `device` says otherwise."""
+    random init from `seed`. Runs on CUDA unless `device` says otherwise;
+    with a `mesh`, on the mesh's devices (`device`, if given, must be the
+    mesh's first device)."""
 
     def __init__(
         self,
@@ -55,8 +78,10 @@ class ImageBind:
         seed: int = 0,
         device=None,
         params: Optional[Dict] = None,
+        mesh=None,
     ):
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = resolve_device(_home_device(device, mesh))
         if self.device.type == "cuda" and dtype != torch.bfloat16:
             # every encoder block runs K1/K2, whose CUDA kernels are bf16 only
             raise NotImplementedError(
@@ -96,11 +121,26 @@ class ImageBind:
         self.tokenizer = load_tokenizer(
             tok_dir, vocab_size=self.cfg.vocab_size, context_length=self.cfg.context_length
         )
+        # the weights on each device that runs a shard (one entry without a mesh)
+        self._replicas = (pmesh.replicate(self.params, mesh) if mesh is not None
+                          else {pmesh.canonical_device(self.device): self.params})
+
+    def _run(self, forward, batch) -> torch.Tensor:
+        """forward(params, x) over a host array or tensor batch: one slab per
+        batch shard on its device, gathered in order on self.device; the
+        whole batch on self.device without a mesh or when it does not
+        divide (JAX's _shard_batch gate)."""
+        parts = None if self.mesh is None else pmesh.shard_batch(batch, self.mesh)
+        if parts is None:
+            return forward(self.params, torch.as_tensor(batch).to(self.device))
+        return pmesh.gather([forward(self._replicas[x.device], x) for x in parts], self.device)
+
+    def _vision_forward(self, params, x_u8: torch.Tensor) -> torch.Tensor:
+        return ib_model.vision_forward(params, normalize_nchw(x_u8), self.cfg, self.dtype)
 
     @torch.no_grad()
     def _vision_chunk(self, crops_u8: np.ndarray) -> torch.Tensor:
-        x = torch.from_numpy(crops_u8).to(self.device)
-        return ib_model.vision_forward(self.params, normalize_nchw(x), self.cfg, self.dtype)
+        return self._run(self._vision_forward, crops_u8)
 
     def encode_vision(self, frames: Union[np.ndarray, Sequence[str]]) -> np.ndarray:
         """uint8 (N, H, W, 3) frames or JPEG paths -> (N, 1024) fp32, in
@@ -144,7 +184,10 @@ class ImageBind:
             clips_per_video=clips_per_video,
             device=self.device,
         )
-        return fetch(ib_model.audio_forward(self.params, mel, self.cfg, self.dtype), dtype=np.float32)
+        return fetch(self._run(self._audio_forward, mel), dtype=np.float32)
+
+    def _audio_forward(self, params, mel: torch.Tensor) -> torch.Tensor:
+        return ib_model.audio_forward(params, mel, self.cfg, self.dtype)
 
     def encode_text(self, texts: Sequence[str]) -> np.ndarray:
         """list[str] -> (N, 1024) fp32 on the host."""
@@ -157,8 +200,8 @@ class ImageBind:
         """list[str] -> (N, 1024) fp32 tensor left on the device: retrieval
         feeds it straight into the top-k, so a query reads back only the
         top-k result."""
-        tokens = torch.from_numpy(self.tokenizer(list(texts))).to(self.device)
-        return ib_model.text_forward(self.params, tokens, self.cfg, self.dtype)
+        return self._run(lambda p, t: ib_model.text_forward(p, t, self.cfg, self.dtype),
+                         self.tokenizer(list(texts)))
 
     def extract_features(self, inputs: Dict[str, object]) -> Dict[str, np.ndarray]:
         out: Dict[str, np.ndarray] = {}
@@ -188,7 +231,8 @@ class VisionEncodeStream:
 
     One worker keeps feed order. Grad mode is per thread, so the worker
     enters `torch.no_grad()` itself; it queues on its thread's current
-    stream (the default stream)."""
+    stream (the default stream), after binding the CUDA context of every
+    device the tower's shards run on (ops/_native.bind_thread)."""
 
     def __init__(self, ib: ImageBind):
         self._ib = ib
@@ -219,6 +263,9 @@ class VisionEncodeStream:
     def _ingest(self, frames_u8: np.ndarray) -> None:
         if self._val is not None:
             return  # closed while this job sat in the queue
+        for dev in self._ib._replicas:
+            if dev.type == "cuda":
+                _native.bind_thread(dev)
         with torch.no_grad():
             self._buf.append(resize_crop_u8(frames_u8, self._ib.cfg.image_size))
             self._buffered += len(self._buf[-1])
@@ -323,7 +370,8 @@ class Whisper:
     at the variant's full width, and the default without a checkpoint falls
     back to the stub. `params` (e.g. from whisper.carry.params_from_jax)
     replaces the random init. The tower runs on CUDA unless `device` says
-    otherwise; on CUDA in bfloat16 only (its encoder blocks run K1/K2)."""
+    otherwise; on CUDA in bfloat16 only (its encoder blocks run K1/K2).
+    With a `mesh` the chunk batches shard over it (WhisperTranscriber)."""
 
     def __init__(
         self,
@@ -336,6 +384,7 @@ class Whisper:
         beam_size: int = 5,
         device=None,
         params: Optional[Dict] = None,
+        mesh=None,
     ):
         self.model_name = model_name
         variant = variant or model_name
@@ -362,7 +411,7 @@ class Whisper:
         if variant == "stub":
             self._impl = StubWhisperSegments()
         elif ckpt or params is not None or variant == "tiny" or random_init:
-            self.device = resolve_device(device)
+            self.device = resolve_device(_home_device(device, mesh))
             if self.device.type == "cuda" and dtype != torch.bfloat16:
                 raise NotImplementedError(f"Whisper on CUDA runs in bfloat16; got {dtype}")
             self.cfg = wh_model.get_config(variant)
@@ -376,7 +425,8 @@ class Whisper:
                 if params is None:
                     params = wh_model.init_whisper(self.cfg, self.device, dtype, seed)
                 tokenizer = None
-            self._impl = WhisperTranscriber(params, self.cfg, tokenizer, dtype, beam_size=beam_size)
+            self._impl = WhisperTranscriber(params, self.cfg, tokenizer, dtype, beam_size=beam_size,
+                                            mesh=mesh)
         else:
             logger.warning("no Whisper checkpoint — using deterministic stub transcriber")
             self._impl = StubWhisperSegments()

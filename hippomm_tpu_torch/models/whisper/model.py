@@ -6,7 +6,9 @@ log-mel input (ops/mel.WhisperMel), two convolutions and a pre-LN encoder
 stack, and a decoder whose autoregressive loop runs over static-shape KV
 caches. The JAX `lax.scan` over layers is a Python loop; its device
 `while_loop` is a host loop that stops once every row has emitted
-<|endoftext|> (one device→host read per token).
+<|endoftext|> (one device→host read per token). On a mesh the chunk batch's
+shards step in lockstep (`greedy_decode_shards`, `beam_decode_shards`), with
+one read per token for all of them.
 
 Routing on the card: every encoder block's self-attention goes to K1 (H = 20
 fails the K4 gate) and its MLP to K2 (`mlp(cast_out=True)`); the decoder's
@@ -21,7 +23,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Dict, List, Tuple
+from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -307,7 +309,73 @@ def _caches(cfg: WhisperConfig, rows: int, d: int, max_len: int, dtype, device):
     return torch.zeros(shape, dtype=dtype, device=device), torch.zeros(shape, dtype=dtype, device=device)
 
 
+class _GreedyShard:
+    """One shard's greedy decode state: enc_out (B, S, d) on its device, the
+    prompt prefilled. `step(pos)` writes the token at `pos`."""
+
+    def __init__(self, params, enc_out, prompt, cfg: WhisperConfig, max_len: int, dtype):
+        self.params, self.cfg, self.dtype = params, cfg, dtype
+        p = params["decoder"]
+        b, _, d = enc_out.shape
+        dev = enc_out.device
+        plen = prompt.shape[1]
+        self.xkv = _cross_kv(params, enc_out, cfg.heads, dtype)
+        self.tokens = torch.zeros((b, max_len), dtype=torch.int32, device=dev)
+        self.tokens[:, :plen] = prompt.to(device=dev, dtype=torch.int32)
+        self.self_k, self.self_v = _caches(cfg, b, d, max_len, dtype, dev)
+        self.finished = torch.zeros((b,), dtype=torch.bool, device=dev)
+        self.lengths = torch.full((b,), max_len, dtype=torch.int32, device=dev)
+        for i in range(plen - 1):  # prefill the prompt token by token
+            _step_layers(params, cfg, _embed_at(p, self.tokens, i), i, self.self_k, self.self_v,
+                         self.xkv, dtype)
+
+    def step(self, pos: int) -> None:
+        cfg = self.cfg
+        logits = _next_logits(self.params, cfg, self.tokens, pos - 1, self.self_k, self.self_v,
+                              self.xkv, self.dtype)
+        nxt = torch.argmax(logits, dim=-1).to(torch.int32)
+        nxt = torch.where(self.finished, cfg.eot_token, nxt)
+        self.tokens[:, pos] = nxt
+        now_done = nxt == cfg.eot_token
+        self.lengths = torch.where(now_done & ~self.finished, pos, self.lengths)
+        self.finished = self.finished | now_done
+
+
+def _all_finished(shards) -> bool:
+    """Every row of every shard finished: one device→host read for all
+    shards, on the first shard's device."""
+    home = shards[0].finished.device
+    done = [s.finished.all().to(home) for s in shards]
+    return bool(done[0] if len(done) == 1 else torch.stack(done).all())
+
+
+def _lockstep(shards, plen: int, max_len: int) -> None:
+    """Step every shard at each position, then read once whether all have
+    finished: the exit rule of one decode loop over the whole sharded batch
+    (a shard that finished early keeps emitting <|endoftext|>)."""
+    for pos in range(plen, max_len):
+        for s in shards:
+            s.step(pos)
+        if _all_finished(shards):
+            break
+
+
 @torch.no_grad()
+def greedy_decode_shards(
+    shards: Sequence[Tuple[Dict, torch.Tensor, torch.Tensor]],
+    cfg: WhisperConfig,
+    max_len: int = 224,
+    dtype=torch.bfloat16,
+) -> List[Tuple[torch.Tensor, torch.Tensor]]:
+    """Greedy decode of several shards in lockstep: `shards` holds (params,
+    enc_out, prompt) on each shard's device. Returns each shard's (tokens,
+    lengths) as greedy_decode does, the loop exiting once every row of
+    every shard has emitted <|endoftext|>."""
+    states = [_GreedyShard(p, e, pr, cfg, max_len, dtype) for p, e, pr in shards]
+    _lockstep(states, shards[0][2].shape[1], max_len)
+    return [(s.tokens, s.lengths) for s in states]
+
+
 def greedy_decode(
     params: Dict,
     enc_out: torch.Tensor,
@@ -319,34 +387,99 @@ def greedy_decode(
     """Greedy autoregressive decode. enc_out (B, S, d); prompt (B, P) forced
     decoder ids. Returns (tokens (B, max_len) int32, lengths (B,) int32);
     the loop exits once every row has emitted <|endoftext|>."""
-    p = params["decoder"]
-    b, _, d = enc_out.shape
-    dev = enc_out.device
-    plen = prompt.shape[1]
-    xkv = _cross_kv(params, enc_out, cfg.heads, dtype)
-    tokens = torch.zeros((b, max_len), dtype=torch.int32, device=dev)
-    tokens[:, :plen] = prompt.to(device=dev, dtype=torch.int32)
-    self_k, self_v = _caches(cfg, b, d, max_len, dtype, dev)
-    finished = torch.zeros((b,), dtype=torch.bool, device=dev)
-    lengths = torch.full((b,), max_len, dtype=torch.int32, device=dev)
+    return greedy_decode_shards([(params, enc_out, prompt)], cfg, max_len, dtype)[0]
 
-    for i in range(plen - 1):  # prefill the prompt token by token
-        _step_layers(params, cfg, _embed_at(p, tokens, i), i, self_k, self_v, xkv, dtype)
 
-    for pos in range(plen, max_len):
-        logits = _next_logits(params, cfg, tokens, pos - 1, self_k, self_v, xkv, dtype)
-        nxt = torch.argmax(logits, dim=-1).to(torch.int32)
-        nxt = torch.where(finished, cfg.eot_token, nxt)
-        tokens[:, pos] = nxt
-        now_done = nxt == cfg.eot_token
-        lengths = torch.where(now_done & ~finished, pos, lengths)
-        finished = finished | now_done
-        if bool(finished.all()):
-            break
-    return tokens, lengths
+class _BeamShard:
+    """One shard's beam search state: B chunks × `beam` hypotheses on the
+    batch axis of the cached step."""
+
+    def __init__(self, params, enc_out, prompt, cfg: WhisperConfig, max_len: int, beam: int, dtype):
+        self.params, self.cfg, self.beam, self.dtype = params, cfg, beam, dtype
+        p = params["decoder"]
+        bsz, _, d = enc_out.shape
+        dev = enc_out.device
+        self.plen = plen = prompt.shape[1]
+        self.bsz, self.rows = bsz, bsz * beam
+        neg = -1e30
+        self.vocab = p["token_embedding"].shape[0]
+
+        self.xkv = _cross_kv(params, enc_out, cfg.heads, dtype)  # per chunk, not beam-repeated
+        self.tokens = torch.zeros((self.rows, max_len), dtype=torch.int32, device=dev)
+        self.tokens[:, :plen] = prompt.to(device=dev, dtype=torch.int32).repeat_interleave(beam, dim=0)
+        self.self_k, self.self_v = _caches(cfg, self.rows, d, max_len, dtype, dev)
+        # per chunk: hypothesis 0 starts live, the others at -1e30 so the
+        # first expansion fans out
+        self.scores = torch.full((bsz, beam), neg, device=dev)
+        self.scores[:, 0] = 0.0
+        self.finished = torch.zeros((self.rows,), dtype=torch.bool, device=dev)
+        self.lengths = torch.full((self.rows,), max_len, dtype=torch.int32, device=dev)
+
+        for i in range(plen - 1):
+            _step_layers(params, cfg, _embed_at(p, self.tokens, i), i, self.self_k, self.self_v,
+                         self.xkv, dtype, beam)
+
+        self.row_base = (torch.arange(bsz, device=dev) * beam)[:, None]
+        self.frozen = torch.full((self.vocab,), neg, device=dev)
+        self.frozen[cfg.eot_token] = 0.0
+
+    def step(self, pos: int) -> None:
+        cfg, beam, vocab = self.cfg, self.beam, self.vocab
+        logits = _next_logits(self.params, cfg, self.tokens, pos - 1, self.self_k, self.self_v,
+                              self.xkv, self.dtype, beam)
+        logprobs = torch.log_softmax(logits, dim=-1)
+        logprobs = torch.where(self.finished[:, None], self.frozen[None], logprobs)
+        cand = self.scores.reshape(self.rows, 1) + logprobs
+        top_s, flat = torch.sort(cand.reshape(self.bsz, beam * vocab), dim=1, descending=True,
+                                 stable=True)
+        top_s, flat = top_s[:, :beam], flat[:, :beam]
+        src = (self.row_base + flat // vocab).reshape(-1)
+        tok = (flat % vocab).to(torch.int32).reshape(-1)
+
+        self.tokens = self.tokens[src]
+        self.self_k = self.self_k[:, src]
+        self.self_v = self.self_v[:, src]
+        lengths = self.lengths[src]
+        was_done = self.finished[src]
+        tok = torch.where(was_done, cfg.eot_token, tok)
+        self.tokens[:, pos] = tok
+        now_done = tok == cfg.eot_token
+        self.lengths = torch.where(now_done & ~was_done, pos, lengths)
+        self.scores = top_s
+        self.finished = was_done | now_done
+
+    def result(self) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        bsz, beam = self.bsz, self.beam
+        tokens = self.tokens.reshape(bsz, beam, -1)
+        lengths = self.lengths.reshape(bsz, beam)
+        # normalise per generated token including EOT (whose log-prob is in
+        # the cumulative score), as faster-whisper ranks
+        gen_len = torch.clamp(lengths - self.plen + 1, min=1).float()
+        norm = self.scores / gen_len
+        order = torch.argsort(-norm, dim=1, stable=True)
+        tokens = torch.take_along_dim(tokens, order[:, :, None], dim=1)
+        lengths = torch.take_along_dim(lengths, order, dim=1)
+        norm = torch.take_along_dim(norm, order, dim=1)
+        return tokens, lengths, norm
 
 
 @torch.no_grad()
+def beam_decode_shards(
+    shards: Sequence[Tuple[Dict, torch.Tensor, torch.Tensor]],
+    cfg: WhisperConfig,
+    max_len: int = 224,
+    beam: int = 5,
+    dtype=torch.bfloat16,
+) -> List[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]]:
+    """Beam search over several shards in lockstep, as greedy_decode_shards:
+    each shard's chunks keep their beams to themselves (no exchange between
+    shards), and one read per step says whether every hypothesis of every
+    shard has finished. Returns each shard's beam_decode_batch result."""
+    states = [_BeamShard(p, e, pr, cfg, max_len, beam, dtype) for p, e, pr in shards]
+    _lockstep(states, shards[0][2].shape[1], max_len)
+    return [s.result() for s in states]
+
+
 def beam_decode_batch(
     params: Dict,
     enc_out: torch.Tensor,
@@ -364,65 +497,7 @@ def beam_decode_batch(
 
     Returns (tokens (B, beam, max_len), lengths (B, beam), scores (B, beam))
     sorted per chunk by length-normalised log-prob, best first."""
-    p = params["decoder"]
-    bsz, _, d = enc_out.shape
-    dev = enc_out.device
-    plen = prompt.shape[1]
-    rows = bsz * beam
-    neg = -1e30
-    vocab = p["token_embedding"].shape[0]
-
-    xkv = _cross_kv(params, enc_out, cfg.heads, dtype)  # per chunk, not beam-repeated
-    tokens = torch.zeros((rows, max_len), dtype=torch.int32, device=dev)
-    tokens[:, :plen] = prompt.to(device=dev, dtype=torch.int32).repeat_interleave(beam, dim=0)
-    self_k, self_v = _caches(cfg, rows, d, max_len, dtype, dev)
-    # per chunk: hypothesis 0 starts live, the others at -1e30 so the first
-    # expansion fans out
-    scores = torch.full((bsz, beam), neg, device=dev)
-    scores[:, 0] = 0.0
-    finished = torch.zeros((rows,), dtype=torch.bool, device=dev)
-    lengths = torch.full((rows,), max_len, dtype=torch.int32, device=dev)
-
-    for i in range(plen - 1):
-        _step_layers(params, cfg, _embed_at(p, tokens, i), i, self_k, self_v, xkv, dtype, beam)
-
-    row_base = (torch.arange(bsz, device=dev) * beam)[:, None]
-    frozen = torch.full((vocab,), neg, device=dev)
-    frozen[cfg.eot_token] = 0.0
-    for pos in range(plen, max_len):
-        logits = _next_logits(params, cfg, tokens, pos - 1, self_k, self_v, xkv, dtype, beam)
-        logprobs = torch.log_softmax(logits, dim=-1)
-        logprobs = torch.where(finished[:, None], frozen[None], logprobs)
-        cand = scores.reshape(rows, 1) + logprobs
-        top_s, flat = torch.sort(cand.reshape(bsz, beam * vocab), dim=1, descending=True, stable=True)
-        top_s, flat = top_s[:, :beam], flat[:, :beam]
-        src = (row_base + flat // vocab).reshape(-1)
-        tok = (flat % vocab).to(torch.int32).reshape(-1)
-
-        tokens = tokens[src]
-        self_k = self_k[:, src]
-        self_v = self_v[:, src]
-        lengths = lengths[src]
-        was_done = finished[src]
-        tok = torch.where(was_done, cfg.eot_token, tok)
-        tokens[:, pos] = tok
-        now_done = tok == cfg.eot_token
-        lengths = torch.where(now_done & ~was_done, pos, lengths)
-        scores = top_s
-        finished = was_done | now_done
-        if bool(finished.all()):
-            break
-    tokens = tokens.reshape(bsz, beam, max_len)
-    lengths = lengths.reshape(bsz, beam)
-    # normalise per generated token including EOT (whose log-prob is in the
-    # cumulative score), as faster-whisper ranks
-    gen_len = torch.clamp(lengths - plen + 1, min=1).float()
-    norm = scores / gen_len
-    order = torch.argsort(-norm, dim=1, stable=True)
-    tokens = torch.take_along_dim(tokens, order[:, :, None], dim=1)
-    lengths = torch.take_along_dim(lengths, order, dim=1)
-    norm = torch.take_along_dim(norm, order, dim=1)
-    return tokens, lengths, norm
+    return beam_decode_shards([(params, enc_out, prompt)], cfg, max_len, beam, dtype)[0]
 
 
 def beam_decode(

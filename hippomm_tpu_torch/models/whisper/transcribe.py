@@ -7,6 +7,13 @@ beam decode, and timestamp tokens give sub-chunk segment times when present.
 `transcribe_many_async` queues every batch's mel and encoder work on the
 device at once and returns a finisher that decodes and parses; the decode
 loops read one flag per token to stop early, so they run in the finisher.
+
+With a `mesh` (parallel/mesh.py) the weights are copied to each device of
+the batch shards and a chunk batch that divides by data_axis_size splits
+into one slab per shard (JAX's `_shard_chunks`): each shard runs its mel and
+encoder on its device, the shards decode in lockstep with one read per
+token for all of them, and the tokens come back to the first device. Beam
+state is chunk-local, so the shards exchange nothing inside the loop.
 """
 
 from __future__ import annotations
@@ -20,11 +27,12 @@ import torch
 
 from hippomm_tpu_torch.models.whisper.model import (
     WhisperConfig,
-    beam_decode_batch,
+    beam_decode_shards,
     encoder_forward,
-    greedy_decode,
+    greedy_decode_shards,
 )
 from hippomm_tpu_torch.ops.mel import WhisperMel
+from hippomm_tpu_torch.parallel import mesh as pmesh
 
 logger = logging.getLogger(__name__)
 
@@ -43,7 +51,8 @@ class Segment:
 
 class WhisperTranscriber:
     """Chunked, bucketed, batched transcription with the Whisper params on
-    their device. `tokenizer` None gives empty texts (segment times only)."""
+    their device (on a mesh, the mesh's first device, and copied to the
+    others). `tokenizer` None gives empty texts (segment times only)."""
 
     def __init__(
         self,
@@ -53,16 +62,31 @@ class WhisperTranscriber:
         dtype=torch.bfloat16,
         with_timestamps: bool = True,
         beam_size: int = 5,
+        mesh=None,
     ):
-        self.params = params
         self.cfg = cfg
         self.tokenizer = tokenizer
         self.dtype = dtype
         self.with_timestamps = with_timestamps
         self.beam_size = beam_size
-        self.device = params["decoder"]["token_embedding"].device
-        self.mel = WhisperMel(n_mels=cfg.n_mels, device=self.device)
+        self.mesh = mesh
+        if mesh is None:
+            self.device = params["decoder"]["token_embedding"].device
+            self._replicas = {self.device: params}
+        else:
+            self.device = pmesh.first_device(mesh)
+            self._replicas = pmesh.replicate(params, mesh)
+        self.params = self._replicas[self.device]
+        self._mels = {dev: WhisperMel(n_mels=cfg.n_mels, device=dev) for dev in self._replicas}
+        self.mel = self._mels[self.device]
         self._chunk_samples = int(CHUNK_SECONDS * SAMPLE_RATE)
+
+    def _shard_chunks(self, stacked: np.ndarray) -> List[torch.Tensor]:
+        """The chunk batch as one slab per batch shard on its device, or
+        whole on the first device without a mesh or when it does not
+        divide."""
+        parts = None if self.mesh is None else pmesh.shard_batch(stacked, self.mesh)
+        return parts if parts is not None else [torch.from_numpy(stacked).to(self.device)]
 
     def _prompt(self) -> np.ndarray:
         c = self.cfg
@@ -176,7 +200,7 @@ class WhisperTranscriber:
         max_len = min(plen + max_new_tokens, self.cfg.max_target_positions)
         n_frames_target = 2 * self.cfg.max_source_positions  # 3000 for 30 s
 
-        encoded = []  # (lo, n_real, encoder output, prompt)
+        encoded = []  # (lo, n_real, [(params, encoder output, prompt) per shard])
         with torch.no_grad():
             for lo in range(0, len(chunks), max_chunk_batch):
                 batch = chunks[lo : lo + max_chunk_batch]
@@ -187,26 +211,22 @@ class WhisperTranscriber:
                 b = min(b, max_chunk_batch)
                 if b > n:
                     batch = batch + [batch[-1]] * (b - n)
-                stacked = torch.from_numpy(np.stack(batch)).to(self.device)
-                mels = self.mel(stacked)[:, :, :n_frames_target]
-                enc = encoder_forward(self.params, mels, self.cfg, self.dtype)
-                prompt = torch.from_numpy(np.repeat(prompt1, b, axis=0)).to(self.device)
-                encoded.append((lo, n, enc, prompt))
+                shards = []
+                for x in self._shard_chunks(np.stack(batch)):
+                    params = self._replicas[x.device]
+                    mels = self._mels[x.device](x)[:, :, :n_frames_target]
+                    prompt = torch.from_numpy(np.repeat(prompt1, x.shape[0], axis=0)).to(x.device)
+                    shards.append((params, encoder_forward(params, mels, self.cfg, self.dtype), prompt))
+                encoded.append((lo, n, shards))
 
         def finish() -> List[List[Segment]]:
             results: List[List[Segment]] = [[] for _ in pcms]
-            for lo, n, enc, prompt in encoded:
-                if self.beam_size > 1:
-                    tokens, lengths, _ = beam_decode_batch(
-                        self.params, enc, prompt, self.cfg,
-                        max_len=max_len, beam=self.beam_size, dtype=self.dtype,
-                    )
-                    tokens, lengths = tokens[:, 0], lengths[:, 0]  # best hypothesis
-                else:
-                    tokens, lengths = greedy_decode(
-                        self.params, enc, prompt, self.cfg, max_len=max_len, dtype=self.dtype
-                    )
-                tokens, lengths = tokens.cpu().numpy(), lengths.cpu().numpy()
+            for lo, n, shards in encoded:
+                out = self._decode(shards, max_len)
+                # one read for the tokens and lengths of every shard
+                both = pmesh.gather([torch.cat([t, ln[:, None]], 1) for t, ln in out], self.device)
+                both = both.cpu().numpy()
+                tokens, lengths = both[:, :-1], both[:, -1]
                 for j in range(n):
                     ci = lo + j
                     ids = [int(t) for t in tokens[j][plen : int(lengths[j])]]
@@ -217,3 +237,12 @@ class WhisperTranscriber:
             return results
 
         return finish
+
+    def _decode(self, shards, max_len: int) -> List[tuple]:
+        """Each shard's (tokens, lengths) of its best hypothesis, the shards
+        decoded in lockstep (greedy, or beam)."""
+        if self.beam_size > 1:
+            out = beam_decode_shards(shards, self.cfg, max_len=max_len, beam=self.beam_size,
+                                     dtype=self.dtype)
+            return [(t[:, 0], ln[:, 0]) for t, ln, _ in out]  # best hypothesis
+        return greedy_decode_shards(shards, self.cfg, max_len=max_len, dtype=self.dtype)

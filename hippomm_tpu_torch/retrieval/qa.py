@@ -88,7 +88,16 @@ class QARecallSystem:
         cached = self._index_cache.get(key)
         if cached and cached[0] == sig:
             return cached[1]
-        idx = FeatureSearchIndex.build(events, modality, device=getattr(self.memory, "device", None))
+        mesh = getattr(self.memory, "mesh", None)
+        if mesh is not None and mesh.devices.size > 1:
+            # multi-device engine: the store rows shard over the mesh and a
+            # query's top-k runs per shard, re-ranked on the first device
+            # (parallel/sharded_store.py): the one-device index's results
+            from hippomm_tpu_torch.parallel.sharded_store import ShardedFeatureIndex
+
+            idx: FeatureSearchIndex = ShardedFeatureIndex.build(events, modality, mesh)
+        else:
+            idx = FeatureSearchIndex.build(events, modality, device=getattr(self.memory, "device", None))
         self._index_cache[key] = (sig, idx)
         return idx
 

@@ -35,6 +35,23 @@ from hippomm_tpu_torch.ops.topk import MAX_K, top_k_cosine_kernel
 from hippomm_tpu_torch.utils.device import fetch, resolve_device
 
 
+def topk_packed(q: torch.Tensor, feats: torch.Tensor, k: int) -> torch.Tensor:
+    """One query's top-k over unit rows `feats`, on their device: a (2, k)
+    int32 tensor, the values' bits then the rows. K5 for k ≤ MAX_K, else
+    top_k_cosine_prenorm (the widened rounds of `search`)."""
+    if k <= MAX_K:
+        return top_k_cosine_kernel(q, feats, k, True)
+    vals, idx = top_k_cosine_prenorm(q, feats, k)
+    return torch.stack((vals.view(torch.int32), idx.to(torch.int32)))
+
+
+def read_packed(both: torch.Tensor) -> Tuple[np.ndarray, np.ndarray]:
+    """One device→host copy (and one wait) of a packed top-k: the values
+    (from their bits) and int64 rows."""
+    both = both.cpu().numpy()
+    return both[0].view(np.float32), both[1].astype(np.int64)
+
+
 @dataclasses.dataclass
 class SearchHit:
     event_id: str
@@ -129,16 +146,8 @@ class FeatureSearchIndex:
         return self._topk_host(q, k) if self._route() == "host" else self._topk_device(q, k)
 
     def _topk_device(self, q, k: int) -> Tuple[np.ndarray, np.ndarray]:
-        feats = self._device_feats()
         q = torch.as_tensor(q, dtype=torch.float32, device=self.device).reshape(-1)
-        if k <= MAX_K:
-            both = top_k_cosine_kernel(q, feats, k, True)  # packed
-        else:
-            vals, idx = top_k_cosine_prenorm(q, feats, k)
-            both = torch.stack((vals.view(torch.int32), idx.to(torch.int32)))
-        # one device→host copy (and one wait) for the values' bits and the rows
-        both = both.cpu().numpy()
-        return both[0].view(np.float32), both[1].astype(np.int64)
+        return read_packed(topk_packed(q, self._device_feats(), k))
 
     def _topk_batch(self, queries: np.ndarray, k: int) -> Tuple[np.ndarray, np.ndarray]:
         """(Q, D) queries → ((Q, k) values, (Q, k) global indices), routed

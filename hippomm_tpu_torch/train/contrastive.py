@@ -14,8 +14,11 @@ moves it every step, as optax's does.
 
 The JAX module's pipeline (`init_train_state_pp`, `make_train_step_pp`),
 Switch-MoE adapter (`init_moe_adapter_state`, `make_train_step_moe`) and
-ZeRO-1 paths need the parallel layer, which the port does not have yet
-(ROADMAP.md, queue 1 item 7): a mesh or zero1=True raises.
+ZeRO-1 paths need the training half of the parallel layer (tensor and
+sequence parallelism, the pipeline, the MoE adapter, ZeRO-1), which the port
+does not have yet (ROADMAP.md, queue 1 item 7): a mesh or zero1=True raises.
+The serving half (parallel/mesh.py, parallel/sharded_store.py) does not
+train.
 """
 
 from __future__ import annotations
@@ -35,7 +38,8 @@ from hippomm_tpu_torch.models.imagebind.model import (
 from hippomm_tpu_torch.train.checkpoint import flatten_params
 from hippomm_tpu_torch.utils.device import DeviceLike, resolve_device
 
-_NO_PARALLEL = "needs the port's parallel layer (ROADMAP.md, queue 1 item 7)"
+_NO_PARALLEL = ("needs the training half of the port's parallel layer, which is not ported yet "
+                "(ROADMAP.md, queue 1 item 7)")
 
 
 def contrastive_loss(params: Dict, images: torch.Tensor, tokens: torch.Tensor, cfg: ImageBindConfig,

@@ -824,3 +824,103 @@ def test_train_step_gives_every_block_parameter_a_gradient_on_cuda(cuda_device, 
         assert gr is not None and gr.dtype == torch.float32 and torch.isfinite(gr).all() and gr.any(), key
         err = ((gr - plain[key]).norm() / plain[key].norm()).item()
         assert err <= 0.1, (key, err)
+
+
+def _cuda_mesh(cuda_device, shards: int = 4):
+    """A mesh whose `shards` data shards all sit on the one card."""
+    from hippomm_tpu_torch.parallel.mesh import make_mesh
+
+    return make_mesh(shards, devices=[cuda_device] * shards)
+
+
+@pytest.mark.cuda
+def test_sharded_k5_search_matches_the_one_device_index_on_cuda(cuda_device):
+    """A 4-shard index of 50 003 rows (the last shard short, a fifth of the
+    rows scoring negative) against the one-device index: equal hits, K5
+    once per shard a round, and the batched route's hits too."""
+    import numpy as np
+
+    from hippomm_tpu_torch.memory.schema import ThetaEvent
+    from hippomm_tpu_torch.parallel.sharded_store import ShardedFeatureIndex
+    from hippomm_tpu_torch.retrieval.search import FeatureSearchIndex
+
+    rng = np.random.default_rng(21)
+    n, d = 50_003, 1024
+    feats = rng.normal(size=(n, d)).astype(np.float32)
+    q = rng.normal(size=(8, d)).astype(np.float32)
+    feats[-10_000:] -= 0.2 * q[0]
+    events = [ThetaEvent(video_id=f"v{e}", features={"vision": feats[lo:lo + 5000]},
+                         feature_times={"vision": [float(t) for t in range(len(feats[lo:lo + 5000]))]},
+                         start_time=0.0, end_time=5000.0) for e, lo in enumerate(range(0, n, 5000))]
+    one = FeatureSearchIndex.build(events, "vision", device=cuda_device)
+    sharded = ShardedFeatureIndex.build(events, "vision", _cuda_mesh(cuda_device))
+    assert [f.shape[0] for _, f in sharded._shards.parts] == [12_501, 12_501, 12_501, 12_500]
+    keys = lambda hits: [(h.event_id, h.index_in_event) for h in hits]  # noqa: E731
+    for i in range(len(q)):
+        want = one.search(q[i], top_k_per_event=5, global_top_k=5)
+        before = ttk.top_k_cosine_kernel.launches
+        got = sharded.search(torch.from_numpy(q[i]).to(cuda_device), top_k_per_event=5, global_top_k=5)
+        assert ttk.top_k_cosine_kernel.launches - before == 4  # one round, four shards
+        assert keys(got) == keys(want)
+        assert max(abs(a.similarity - b.similarity) for a, b in zip(got, want)) <= 1e-5
+    for got, want in zip(sharded.search_batch(q), one.search_batch(q)):
+        assert keys(got) == keys(want)
+
+
+@pytest.mark.cuda
+def test_sharded_encode_equals_the_one_device_encode_of_each_slab_on_cuda(cuda_device, monkeypatch):
+    """A 32-frame chunk over 4 shards on one card: every shard's features
+    equal, bit for bit, the one-device forward of its 8-frame slab; the
+    gathered features meet the tower gate against the 32-frame forward; K1
+    and K2 run once per block per shard."""
+    from hippomm_tpu_torch.models.foundation import ImageBind
+    from hippomm_tpu_torch.models.imagebind import model as ib_model
+
+    import numpy as np
+
+    cfg = _tiny_width_128()
+    params = ib_model.init_imagebind(cfg, cuda_device, torch.bfloat16, seed=5)
+    monkeypatch.setattr(ib_model, "get_config", lambda variant: cfg)
+    ib = ImageBind(variant="tiny", params=params, mesh=_cuda_mesh(cuda_device))
+    calls = []
+    real = ib_model.vision_forward
+    monkeypatch.setattr(ib_model, "vision_forward",
+                        lambda p, x, *a: calls.append((x.clone(), real(p, x, *a).clone())) or calls[-1][1])
+    frames = np.random.default_rng(3).integers(0, 256, size=(20, 48, 64, 3)).astype(np.uint8)
+    before = (tfa.flash_mha.launches, tfm.fused_mlp.launches)
+    got = ib.encode_vision(frames)
+    launches = (tfa.flash_mha.launches - before[0], tfm.fused_mlp.launches - before[1])
+    assert launches == (4 * cfg.vision.depth, 4 * cfg.vision.depth)
+    assert [x.shape[0] for x, _ in calls] == [8] * 4
+    with torch.no_grad():
+        for x, out in calls:
+            assert torch.equal(real(params, x, cfg, torch.bfloat16), out)
+        whole = real(params, torch.cat([x for x, _ in calls]), cfg, torch.bfloat16)[:20].float().cpu().numpy()
+    assert np.abs(got - whole).max() <= 2e-2
+    cos = (got * whole).sum(1) / (np.linalg.norm(got, axis=1) * np.linalg.norm(whole, axis=1))
+    assert cos.min() >= 0.999
+
+
+@pytest.mark.cuda
+def test_lockstep_greedy_decode_equals_each_shards_decode_on_cuda(cuda_device):
+    """Whisper's greedy decode of 4 shards in lockstep on the card: each
+    shard's tokens up to its rows' <|endoftext|> and its lengths equal the
+    shard decoded alone."""
+    from hippomm_tpu_torch.models.whisper import model as twm
+
+    cfg = twm.tiny_config()
+    params = twm.init_whisper(cfg, cuda_device, torch.bfloat16, seed=2)
+    g = torch.Generator(device=cuda_device).manual_seed(4)
+    mel = torch.randn((8, cfg.n_mels, 2 * cfg.max_source_positions), generator=g, device=cuda_device)
+    enc = twm.encoder_forward(params, mel, cfg, torch.bfloat16)
+    prompt = torch.tensor([[cfg.bos_token, cfg.lang_en_token, cfg.task_transcribe_token]] * 2,
+                          device=cuda_device)
+    shards = [(params, enc[i:i + 2], prompt) for i in range(0, 8, 2)]
+    ml = cfg.max_target_positions
+    both = twm.greedy_decode_shards(shards, cfg, max_len=ml)
+    for (tok, ln), shard in zip(both, shards):
+        tok1, ln1 = twm.greedy_decode(*shard, cfg, max_len=ml)
+        assert torch.equal(ln, ln1)
+        for j in range(tok.shape[0]):
+            end = min(int(ln[j]) + 1, ml)
+            assert torch.equal(tok[j, :end], tok1[j, :end])

@@ -51,6 +51,12 @@ _MODULES = [
     "hippomm_tpu_torch.core.serve",
     "hippomm_tpu_torch.utils.timers",
     "hippomm_tpu_torch.utils.tokens",
+    "hippomm_tpu_torch.utils.device",
+    "hippomm_tpu_torch.utils.vector_ops",
+    "hippomm_tpu_torch.ops.color",
+    "hippomm_tpu_torch.parallel",
+    "hippomm_tpu_torch.parallel.mesh",
+    "hippomm_tpu_torch.parallel.sharded_store",
 ]
 
 _PROBE = """
