@@ -93,7 +93,7 @@ Phases (any failure exits non-zero and prints no result line):
      the least negative rows) on both routes. Last, QARecallSystem over a
      mesh engine on phase 6's store picks ShardedFeatureIndex and answers
      the VIDEO question with phase 6's hits, exact K2/K5 launches
- 10. train  — (runs last) contrastive training (train/contrastive) at full
+ 10. train  — (runs after phase 9) contrastive training (train/contrastive) at full
      ImageBind-Huge width: fp32 masters from init_train_state's seed on the
      card, bf16 compute, a fixed seeded batch of 16 image/caption pairs.
      One step's gradients through the kernels (default, then fused
@@ -110,6 +110,27 @@ Phases (any failure exits non-zero and prints no result line):
      device busy ms, idle share and the top CUDA kernels by device time.
      Last, a save_params / load_params round trip of
      the 1.07e9 parameters: every leaf equal and the next step's loss equal
+ 12. mesh train — (runs after phase 10, whose state it frees first) the
+     training half of the parallel layer at full ImageBind-Huge width on
+     make_mesh(4, model_parallel=2, devices=[cuda:0] * 4): data 2 × model 2,
+     four shards that all sit on the card (the split's cost, not scaling).
+     Phase 10's seed and batch of 16 pairs. One tensor-parallel step's
+     gradients, gathered per leaf, against phase 10's one-device kernel
+     route (relative L2 within 2x the bf16 plain route's error + 1e-2);
+     3 TP steps default and 3 fused, each from the seed (K1 2·2·32 and K2
+     2·2·56 launches a step, or K4 and K3; a finite loss that falls); one
+     ZeRO-1 step against the replicated-moment step (|Δ| ≤ 3e-5 +
+     1e-4·|p|) with each position's moment bytes; 3 GPipe steps on (data 1,
+     pipe 2, model 2) with 2 microbatches (3 ticks × 32 vision blocks × 2
+     model ranks of K1 and of K2, plus 2 × 24 text K2; the first loss
+     within 2e-3 of the TP step's; falling); 3 Switch-MoE adapter steps (4
+     experts) over the frozen towers (K1 2·32, K2 2·56; falling, the aux
+     finite, the dropped tokens counted); save_params of a sharded state
+     and load_params(shardings=) with every block its leaf's slice. Each
+     path's step ms split into forward, backward and optimizer (CUDA
+     events), pairs/s and max memory allocated beside phase 10's, with the
+     card's name and power limit. Phase 2 checks the per-shard shapes
+     (TRAIN_SHARD_SHAPES), K3 also without its residual
 
 Prints the card's name and power limit, a `{"kernels": [...]}` line, and as
 its last line `{"ok": true, "device": {...}}`. Writes the same numbers to
@@ -250,10 +271,14 @@ def mlp_operands(shape, gen, ln: bool):
     return (x, *norm, w1, b1, w2, b2)
 
 
-def check_mlp_kernel(fm, shape, gen, ln: bool):
+def check_mlp_kernel(fm, shape, gen, ln: bool, residual: bool = True):
     """K2 (ln False) or K3 against its plain version on one operand set,
     then kernel, plain and library times cycling through weight sets that
-    overflow the L2 (each launch finds its weights cold, as on the path)."""
+    overflow the L2 (each launch finds its weights cold, as on the path).
+    residual=False: K3 without its residual (a tensor-parallel shard's
+    call other than the first)."""
+    import functools
+
     import torch
     import torch.nn.functional as F
 
@@ -261,6 +286,8 @@ def check_mlp_kernel(fm, shape, gen, ln: bool):
     name = "fused_ln_mlp_residual" if ln else "fused_mlp"
     kernel = fm.fused_ln_mlp_residual if ln else fm.fused_mlp
     plain = fm.fused_ln_mlp_residual_ref if ln else fm.fused_mlp_ref
+    if not residual:
+        kernel, plain = (functools.partial(fn, residual=False) for fn in (kernel, plain))
     tail = (1e-6,) if ln else ()
     sets = operand_sets(lambda: mlp_operands(shape, gen, ln), 4 * d * f)
     out = kernel(*sets[0], *tail)
@@ -276,7 +303,7 @@ def check_mlp_kernel(fm, shape, gen, ln: bool):
         g16, bt16, w1, b1h, w2, b2h = rest if ln else (None, None, *rest)
         h = F.layer_norm(x, (d,), g16, bt16, 1e-6) if ln else x
         y = F.linear(F.gelu(F.linear(h, w1, b1h)), w2, b2h)
-        return x + y if ln else y
+        return x + y if ln and residual else y
 
     lib_args = [tuple(t.to(torch.bfloat16) if t.dtype == torch.float32 else t for t in s) for s in sets]
     # x read and out written once, W1 and W2 once, the (D,)/(F,) vectors once
@@ -284,6 +311,7 @@ def check_mlp_kernel(fm, shape, gen, ln: bool):
     plan = fm._plan(n, d, f)
     row = {
         "shape": list(shape), "max_abs_err": err, "rel_err": rel, "operand_sets": len(sets),
+        **({} if residual else {"residual": False}),
         "plan": plan._asdict(), "kernels_per_call": fm.kernels_per_call(plan, ln),
         "ms": cuda_ms([lambda s=s: kernel(*s, *tail) for s in sets], repeats=5),
         "plain_ms": cuda_ms([lambda s=s: plain(*s, *tail) for s in sets], iters=3, warmup=1),
@@ -1172,6 +1200,21 @@ SHARD_SHAPES = {
 }
 
 
+TRAIN_MESH = {"data": 2, "model": 2}  # phase 12: four shards on the one card
+# The kernels' shapes on one of phase 12's shards, checked in phase 2: a
+# batch of 16 pairs on (data 2, model 2) is 8 pairs a shard at heads/2 and
+# hidden/2 (K1 (8, 8, 257, 257, 80), K4 (8, 257, 8, 80), K2/K3 8 × 257
+# vision rows at F 2560 and 8 × 77 text rows at F 2048; K3 also without its
+# residual, the second model rank's call); a GPipe microbatch on (pipe 2,
+# model 2) is 8 pairs over 258 padded tokens (K1 q 258, k/v 257; K2 8 × 258).
+TRAIN_SHARD_SHAPES = {
+    "flash_mha": ((8, 8, 257, 257, 80), (8, 8, 258, 257, 80)),
+    "fused_mlp": ((2056, 1280, 2560), (616, 1024, 2048), (2064, 1280, 2560)),
+    "fused_ln_mlp_residual": ((2056, 1280, 2560), (616, 1024, 2048)),
+    "flash_mha_bthd": ((8, 257, 8, 80),),
+}
+
+
 def mesh_launches(n_vis_chunks, n_aud, enc_batches, bucket, vis_depth, aud_depth, fused, shards):
     """K1-K4 launches of one ingest on a mesh: every tower batch whose rows
     divide by the shard count runs once per shard (vision chunks of 32/128,
@@ -1507,14 +1550,15 @@ def train_flops(cfg, b: int) -> float:
 
 class StepTimer:
     """CUDA events around the three parts of a training step, recorded on
-    the stream as the step enqueues them: the forward ends when
-    `contrastive_loss` returns, the backward when the optimizer's update
-    starts, the update when it returns."""
+    the stream as the step enqueues them: the forward ends when the loss
+    function (`tc.<loss_name>`) returns, the backward when the optimizer's
+    update starts, the update when it returns."""
 
-    def __init__(self, tc, optimizer):
+    def __init__(self, tc, optimizer, loss_name: str = "contrastive_loss"):
         import torch
 
-        self.tc, self.optimizer, self.real_loss = tc, optimizer, tc.contrastive_loss
+        self.tc, self.optimizer, self.loss_name = tc, optimizer, loss_name
+        self.real_loss = getattr(tc, loss_name)
         self.events = None
         real_step = optimizer.step
 
@@ -1528,7 +1572,8 @@ class StepTimer:
             real_step(*a, **k)
             self._mark("optimizer")
 
-        tc.contrastive_loss, optimizer.step = loss, update
+        setattr(tc, loss_name, loss)
+        optimizer.step = update
         self._event = lambda: torch.cuda.Event(enable_timing=True)
 
     def _mark(self, name):
@@ -1548,7 +1593,7 @@ class StepTimer:
                 "optimizer": e["backward"].elapsed_time(e["optimizer"])}
 
     def restore(self):
-        self.tc.contrastive_loss = self.real_loss
+        setattr(self.tc, self.loss_name, self.real_loss)
         del self.optimizer.step
 
 
@@ -1641,6 +1686,7 @@ def train_phase(fa, fm, counters):
     t0 = time.perf_counter()
     loss32, ref = grads(torch.float32, True)
     errs = {"plain_bf16": rel_errs(grads(torch.bfloat16, True)[1], ref)}
+    carry = {"images": images, "tokens": tokens}  # what phase 12 holds the mesh step to
     for name, fused in (("kernels_default", False), ("kernels_fused", True)):
         set_fused_flags(fa, fm, fused)
         for c in counters.values():
@@ -1650,6 +1696,9 @@ def train_phase(fa, fm, counters):
         if launched != expect[fused]:
             fail(f"train {name}: gradient forward launched {launched}, not {expect[fused]}")
         errs[name] = rel_errs(g, ref)
+        if not fused:
+            carry["kernel_grads"] = {k: v.cpu() for k, v in g.items() if v is not None}
+            carry["kernel_loss"] = loss_k
         del g
     set_fused_flags(fa, fm, False)
     del ref
@@ -1767,13 +1816,285 @@ def train_phase(fa, fm, counters):
     del loaded, live, back, params, opt, step
     gc.collect()
     torch.cuda.empty_cache()
-    return {"params": n_params, "batch": TRAIN_B, "learning_rate": TRAIN_LR, "init_s": init_s, "trace": trace,
+    carry["plain_err"] = errs["plain_bf16"]
+    carry["steady"] = steady
+    carry["peak"] = peak
+    return carry, {"params": n_params, "batch": TRAIN_B, "learning_rate": TRAIN_LR, "init_s": init_s, "trace": trace,
             "grad_rel_err": summary, "grad_worst": worst, "grad_loss_fp32": loss32, "grad_s": grad_s,
             "steps": runs, "steady": steady, "bound_ms": max(b_ms, by_ms), "flop_bound_ms": b_ms,
             "byte_bound_ms": by_ms, "tflop": flops / 1e12, "max_memory_allocated": peak,
             "live_before": live_before, "checkpoint": {"bytes": nbytes, "save_s": save_s, "load_s": load_s,
                                                        "next_loss": next_live},
             "launches": {"default": runs[0]["launches"], "fused": runs[TRAIN_STEPS]["launches"]}}
+
+
+MESH_TRAIN_STEPS = 3  # steps of each mesh path
+PP_MICRO = 2  # GPipe microbatches
+PP_LOSS_TOL = 2e-3  # the pp step's first loss against the TP step's (tests/test_megatron.py:94)
+ZERO1_ABS, ZERO1_REL = 3e-5, 1e-4  # ZeRO-1 against replicated moments (tests/test_parallel.py:398)
+MOE_EXPERTS, MOE_LR = 4, 1e-4  # the JAX adapter state's default learning rate
+
+
+def mesh_train_phase(fa, fm, counters, carry, card):
+    """12. the training half of the parallel layer at full ImageBind-Huge
+    width on a mesh of 4 shards on the card."""
+    import gc
+
+    import torch
+
+    from hippomm_tpu_torch.models.imagebind.model import huge_config, init_imagebind
+    from hippomm_tpu_torch.parallel import mesh as pm
+    from hippomm_tpu_torch.train import checkpoint as ck
+    from hippomm_tpu_torch.train import contrastive as tc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = huge_config()
+    images, tokens = carry["images"], carry["tokens"]
+    dev = torch.device("cuda", torch.cuda.current_device())
+    mesh = pm.make_mesh(4, model_parallel=TRAIN_MESH["model"], devices=[dev] * 4)
+    if mesh.shape != TRAIN_MESH:
+        fail(f"mesh train: mesh {mesh.shape}, not {TRAIN_MESH}")
+    dp, mp = mesh.shape["data"], mesh.shape["model"]
+    vis, txt = cfg.vision.depth, cfg.text.depth
+    # one K1 (K4) a vision block and one K2 (K3) a block of both towers, on
+    # each of the dp·mp shards
+    expect = {False: {"flash_mha": dp * mp * vis, "fused_mlp": dp * mp * (vis + txt),
+                      "fused_ln_mlp_residual": 0, "flash_mha_bthd": 0},
+              True: {"flash_mha": 0, "fused_mlp": 0, "fused_ln_mlp_residual": dp * mp * (vis + txt),
+                     "flash_mha_bthd": dp * mp * vis}}
+    out = {"mesh": mesh.shape, "card": card, "batch": TRAIN_B, "learning_rate": TRAIN_LR, "launches": {}}
+    print(f"mesh train: ImageBind-Huge on a mesh {mesh.shape} of 4 shards that all sit on one card "
+          f"({card}): these times measure the cost of the split, not scaling", flush=True)
+
+    def zero():
+        for c in counters.values():
+            c.launches = 0
+
+    def read():
+        return {n: c.launches for n, c in counters.items()}
+
+    def fresh():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    def timed_steps(name, step, state, timer, want, n=MESH_TRAIN_STEPS, after_first=None):
+        """n steps, each: exact launches, a finite loss; the losses fall."""
+        rows = []
+        torch.cuda.reset_peak_memory_stats()
+        for i in range(n):
+            zero()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            timer.start()
+            metrics = step(state, images, tokens)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+            launches = read()
+            if launches != want:
+                fail(f"mesh train {name} step {i}: launches {launches} != {want}: a shard bypassed its kernel")
+            loss = metrics["loss"].item()
+            if not math.isfinite(loss):
+                fail(f"mesh train {name} step {i}: loss {loss}")
+            row = {"step": i, "loss": loss, "wall_ms": wall, "ms": timer.read(), "launches": launches}
+            row.update({k: v.item() for k, v in metrics.items() if k not in ("loss",)})
+            rows.append(row)
+            if i == 0 and after_first is not None:
+                after_first()
+        losses = [r["loss"] for r in rows]
+        if not losses[-1] < losses[0]:
+            fail(f"mesh train {name}: the loss did not fall over {n} steps: {losses}")
+        later = rows[1:]
+        ms = {part: sum(r["ms"][part] for r in later) / len(later) for part in ("forward", "backward", "optimizer")}
+        wall = sum(r["wall_ms"] for r in later) / len(later)
+        summary = {"steps": rows, "losses": losses, "ms": ms, "wall_ms": wall, "pairs_per_s": TRAIN_B * 1e3 / wall,
+                   "max_memory_allocated": torch.cuda.max_memory_allocated()}
+        one = carry["steady"]["default"]
+        for r in rows:
+            print(f"mesh train {name} step {r['step']}: loss {r['loss']:.6f}; wall {r['wall_ms']:.1f} ms (forward "
+                  f"{r['ms']['forward']:.1f}, backward {r['ms']['backward']:.1f}, optimizer "
+                  f"{r['ms']['optimizer']:.1f}); launches {r['launches']}", flush=True)
+        print(f"mesh train {name}: {wall:.1f} ms a step of {TRAIN_B} pairs (forward {ms['forward']:.1f}, backward "
+              f"{ms['backward']:.1f}, optimizer {ms['optimizer']:.1f}), {summary['pairs_per_s']:.1f} pairs/s, max "
+              f"memory allocated {summary['max_memory_allocated'] / 2**30:.2f} GiB; phase 10's one-device step "
+              f"{one['wall_ms']:.1f} ms (forward {one['ms']['forward']:.1f}, backward {one['ms']['backward']:.1f}, "
+              f"optimizer {one['ms']['optimizer']:.1f}), {one['pairs_per_s']:.1f} pairs/s, "
+              f"{carry['peak']['default'] / 2**30:.2f} GiB; {card}", flush=True)
+        out["launches"][name] = rows[0]["launches"]
+        return summary
+
+    # (a) one TP step's gradients against phase 10's one-device kernel route
+    set_fused_flags(fa, fm, False)
+    t0 = time.perf_counter()
+    params, opt = tc.init_train_state(cfg, learning_rate=TRAIN_LR, seed=10, mesh=mesh)
+    torch.cuda.synchronize()
+    out["init_s"] = time.perf_counter() - t0
+    zero()
+    metrics, grads = tc.mesh_loss_and_grads(params, images, tokens, cfg, mesh, torch.bfloat16)
+    torch.cuda.synchronize()
+    if read() != expect[False]:
+        fail(f"mesh train gradients: launches {read()} != {expect[False]}")
+    errs, bad = {}, []
+    for k, leaf in ck.flatten_params(params).items():
+        blocks = grads[k]
+        ref = carry["kernel_grads"].get(k)
+        if ref is None:  # the audio tower: outside the loss on both
+            if any(g is not None for g in blocks.values()):
+                fail(f"mesh train gradients: {k} has a gradient, the one-device step has none")
+            continue
+        g = torch.zeros(leaf.shape, device=dev)
+        for (_, bidx), gb in blocks.items():
+            g[leaf.block_slices(bidx)] += gb
+        ref = ref.to(dev)
+        errs[k] = ((g - ref).norm() / ref.norm().clamp_min(1e-30)).item()
+        lim = GRAD_FACTOR * carry["plain_err"][k] + GRAD_FLOOR
+        if not errs[k] <= lim:
+            bad.append((k, errs[k], lim))
+    del grads, g, ref
+    if bad:
+        fail(f"mesh train gradients: {len(bad)} leaves farther from the one-device kernel route than "
+             f"{GRAD_FACTOR}x the bf16 plain route's error + {GRAD_FLOOR}: {bad[:5]}")
+    worst = max(errs, key=lambda k: errs[k] / (GRAD_FACTOR * carry["plain_err"][k] + GRAD_FLOOR))
+    out["grads"] = {"loss": metrics["loss"].item(), "one_device_loss": carry["kernel_loss"],
+                    "median_rel_err": sorted(errs.values())[len(errs) // 2], "max_rel_err": max(errs.values()),
+                    "worst": {"leaf": worst, "rel_err": errs[worst], "plain_rel_err": carry["plain_err"][worst]},
+                    "leaves": len(errs)}
+    print(f"mesh train gradients (TP, gathered per leaf) vs phase 10's one-device kernel route: loss "
+          f"{out['grads']['loss']:.6f} vs {carry['kernel_loss']:.6f}; relative L2 median "
+          f"{out['grads']['median_rel_err']:.3g}, max {out['grads']['max_rel_err']:.3g} over {len(errs)} leaves; "
+          f"worst against bound {GRAD_FACTOR}x plain + {GRAD_FLOOR}: {json.dumps(out['grads']['worst'])}",
+          flush=True)
+    del params, opt, metrics
+    fresh()
+
+    # (b) the TP step, default then fused, each from the seeded parameters;
+    # the default run's parameters after one step kept for (c)
+    snapshot = {}
+    for name, fused in (("tp_default", False), ("tp_fused", True)):
+        params, opt = tc.init_train_state(cfg, learning_rate=TRAIN_LR, seed=10, mesh=mesh)
+        step = tc.make_train_step(cfg, opt, dtype=torch.bfloat16, mesh=mesh)
+        timer = StepTimer(tc, opt, "contrastive_loss_mesh")
+
+        def keep(params=params):
+            snapshot.update({k: v.full(dev).detach().to("cpu", copy=True) for k, v in ck.flatten_params(params).items()})
+
+        try:
+            set_fused_flags(fa, fm, fused)
+            out[name] = timed_steps(name, step, params, timer, expect[fused], after_first=None if fused else keep)
+        finally:
+            timer.restore()
+            set_fused_flags(fa, fm, False)
+        if not fused:
+            out["moment_bytes"] = {"replicated": sum(b.numel() * 4 for m in opt.mu.values() for b in m.blocks.values())}
+        del params, opt, step, timer
+        fresh()
+
+    # (c) ZeRO-1 against the replicated moments, one step
+    params, opt = tc.init_train_state(cfg, learning_rate=TRAIN_LR, seed=10, mesh=mesh, zero1=True)
+    step = tc.make_train_step(cfg, opt, dtype=torch.bfloat16, mesh=mesh)
+    zero()
+    loss = step(params, images, tokens)["loss"].item()
+    torch.cuda.synchronize()
+    if read() != expect[False]:
+        fail(f"mesh train zero1: launches {read()} != {expect[False]}")
+    worst, bad = 0.0, []
+    for k, leaf in ck.flatten_params(params).items():
+        want = snapshot[k].to(dev)
+        diff = (leaf.full(dev).detach() - want).abs()
+        if not bool((diff <= ZERO1_ABS + ZERO1_REL * want.abs()).all()):
+            bad.append((k, diff.max().item()))
+        worst = max(worst, diff.max().item())
+    if bad:
+        fail(f"mesh train zero1: {len(bad)} leaves beyond {ZERO1_ABS} + {ZERO1_REL}·|p| of the replicated step: "
+             f"{bad[:5]}")
+    positions = pm.positions(mesh)
+    per_pos = [sum(m.local(pos).numel() * 4 for m in opt.mu.values()) for pos in positions]
+    whole = sum(math.prod(m.shape) * 4 for m in opt.mu.values())
+    split = sum(1 for m in opt.mu.values() if "data" in m.spec)
+    out["zero1"] = {"loss": loss, "max_abs_diff": worst, "first_default_loss": out["tp_default"]["losses"][0],
+                    "mu_bytes_per_position": per_pos, "mu_bytes_whole": whole,
+                    "leaves_split_over_data": split, "leaves": len(opt.mu)}
+    out["launches"]["zero1"] = read()
+    print(f"mesh train zero1: one step's loss {loss:.6f} (replicated {out['tp_default']['losses'][0]:.6f}); "
+          f"parameters within {worst:.3g} of the replicated-moment step (bound {ZERO1_ABS} + {ZERO1_REL}·|p|); "
+          f"{split} of {len(opt.mu)} moment leaves split over data; each position's mu shards hold "
+          f"{[round(b / 2**30, 3) for b in per_pos]} GiB of the whole {whole / 2**30:.3f} GiB (nu the same)",
+          flush=True)
+    del params, opt, step, snapshot
+    fresh()
+
+    # (d) GPipe on (data 1, pipe 2, model 2)
+    mesh3 = pm.make_mesh(4, model_parallel=2, pipeline_parallel=2, devices=[dev] * 4)
+    d3, s3, m3 = mesh3.shape["data"], mesh3.shape["pipe"], mesh3.shape["model"]
+    ticks = PP_MICRO + s3 - 1
+    # every stage runs its depth/S blocks on every tick, on each data × model
+    # shard; the text tower tensor-parallel over the data shards' model ranks
+    want_pp = {"flash_mha": ticks * vis * m3 * d3, "fused_mlp": ticks * vis * m3 * d3 + d3 * m3 * txt,
+               "fused_ln_mlp_residual": 0, "flash_mha_bthd": 0}
+    state, opt = tc.init_train_state_pp(cfg, mesh3, learning_rate=TRAIN_LR, seed=10)
+    step = tc.make_train_step_pp(cfg, mesh3, opt, n_micro=PP_MICRO, dtype=torch.bfloat16)
+    timer = StepTimer(tc, opt, "contrastive_loss_pp")
+    try:
+        out["pp"] = timed_steps("pp", step, state, timer, want_pp)
+    finally:
+        timer.restore()
+    first = out["tp_default"]["losses"][0]
+    if not abs(out["pp"]["losses"][0] - first) <= PP_LOSS_TOL:
+        fail(f"mesh train pp: first loss {out['pp']['losses'][0]} not within {PP_LOSS_TOL} of the TP step's {first}")
+    print(f"mesh train pp: mesh {mesh3.shape}, {PP_MICRO} microbatches, {ticks} ticks; first loss "
+          f"{out['pp']['losses'][0]:.6f} vs the TP step's {first:.6f} (bound {PP_LOSS_TOL})", flush=True)
+    del state, opt, step, timer
+    fresh()
+
+    # (e) the Switch-MoE adapter over the frozen towers
+    frozen = init_imagebind(cfg, dev, dtype=torch.bfloat16, seed=10)
+    moe, opt = tc.init_moe_adapter_state(cfg, mesh, n_experts=MOE_EXPERTS, learning_rate=MOE_LR, seed=11)
+    step = tc.make_train_step_moe(frozen, cfg, mesh, opt, dtype=torch.bfloat16)
+    want_moe = {"flash_mha": dp * vis, "fused_mlp": dp * (vis + txt), "fused_ln_mlp_residual": 0,
+                "flash_mha_bthd": 0}  # the frozen towers, data-parallel
+    timer = StepTimer(tc, opt, "info_nce")
+    try:
+        out["moe"] = timed_steps("moe", step, moe, timer, want_moe)
+    finally:
+        timer.restore()
+    if not all(math.isfinite(r["balance"]) for r in out["moe"]["steps"]):
+        fail(f"mesh train moe: balance aux {[r['balance'] for r in out['moe']['steps']]}")
+    print(f"mesh train moe: {MOE_EXPERTS} experts over model {mp}; balance aux "
+          f"{[round(r['balance'], 4) for r in out['moe']['steps']]}; tokens past capacity "
+          f"{[int(r['dropped']) for r in out['moe']['steps']]} of {TRAIN_B} a step", flush=True)
+    del frozen, moe, opt, step, timer
+    fresh()
+
+    # (f) save_params -> load_params(shardings=): every block its leaf's slice
+    base = init_imagebind(cfg, dev, dtype=torch.float32, seed=10)
+    specs = pm.param_shardings(base, mesh)
+    params = pm.shard_tree(base, specs, mesh)
+    del base
+    with tempfile.TemporaryDirectory() as work:
+        path = os.path.join(work, "imagebind_huge_sharded.pt")
+        t0 = time.perf_counter()
+        ck.save_params(path, params)
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        loaded = ck.load_params(path, shardings=specs, mesh=mesh)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        saved = torch.load(path, map_location="cpu", weights_only=True)
+    blocks, differ = 0, []
+    for k, leaf in ck.flatten_params(loaded).items():
+        whole = saved[k].to(dev)
+        for (_, bidx), t in leaf.blocks.items():
+            blocks += 1
+            if not torch.equal(t, whole[leaf.block_slices(bidx)]):
+                differ.append(k)
+    if differ:
+        fail(f"mesh train checkpoint: blocks differ from their leaf's slice: {differ[:5]}")
+    out["checkpoint"] = {"save_s": save_s, "load_s": load_s, "blocks": blocks}
+    print(f"mesh train checkpoint: saved in {save_s:.2f} s, loaded into {blocks} blocks by the specs in "
+          f"{load_s:.2f} s, every block equal to its leaf's slice", flush=True)
+    del params, loaded, saved
+    fresh()
+    return out
 
 
 class CliSpies:
@@ -2133,21 +2454,26 @@ def main() -> int:
     rows = {
         # ImageBind vision, audio trunk (bias_kv), Whisper encoder (4 chunks)
         # ... and the training step's vision tower (16 pairs)
-        # ... and on one of phase 11's 4 shards (SHARD_SHAPES)
+        # ... and on one of phase 11's 4 shards (SHARD_SHAPES), and of phase
+        # 12's (TRAIN_SHARD_SHAPES)
         "flash_mha": [check_attention(fa, s, gen) for s in (
             (32, 16, 257, 257, 80), (96, 12, 229, 230, 64), (4, 20, 1500, 1500, 64),
-            (16, 16, 257, 257, 80)) + SHARD_SHAPES["flash_mha"]],
+            (16, 16, 257, 257, 80)) + SHARD_SHAPES["flash_mha"] + TRAIN_SHARD_SHAPES["flash_mha"]],
         # ... and the text tower: one question (77 rows), a batch of 8 (616)
         # ... and the training step's towers (16 pairs: 4112 vision rows,
         # 1232 text rows); then the shard shapes
         "fused_mlp": [check_mlp_kernel(fm, s, gen, False) for s in (
             (8224, 1280, 5120), (21984, 768, 3072), (6000, 1280, 5120), (77, 1024, 4096),
-            (616, 1024, 4096), (4112, 1280, 5120), (1232, 1024, 4096)) + SHARD_SHAPES["fused_mlp"]],
+            (616, 1024, 4096), (4112, 1280, 5120), (1232, 1024, 4096)) + SHARD_SHAPES["fused_mlp"]
+            + TRAIN_SHARD_SHAPES["fused_mlp"]],
         "fused_ln_mlp_residual": [check_mlp_kernel(fm, s, gen, True) for s in (
             (8224, 1280, 5120), (21984, 768, 3072), (77, 1024, 4096), (616, 1024, 4096),
-            (4112, 1280, 5120), (1232, 1024, 4096)) + SHARD_SHAPES["fused_ln_mlp_residual"]],
+            (4112, 1280, 5120), (1232, 1024, 4096)) + SHARD_SHAPES["fused_ln_mlp_residual"]
+            + TRAIN_SHARD_SHAPES["fused_ln_mlp_residual"]]
+        + [check_mlp_kernel(fm, s, gen, True, residual=False) for s in TRAIN_SHARD_SHAPES["fused_ln_mlp_residual"]],
         "flash_mha_bthd": [check_attention_bthd(fa, s, gen) for s in (
-            (32, 257, 16, 80), (16, 257, 16, 80)) + SHARD_SHAPES["flash_mha_bthd"]],
+            (32, 257, 16, 80), (16, 257, 16, 80)) + SHARD_SHAPES["flash_mha_bthd"]
+            + TRAIN_SHARD_SHAPES["flash_mha_bthd"]],
         # the JAX package's store scale, search's first round, and 1e6 rows
         # at the kernel's k limit; then an ascending-sorted 2e5 store
         # (reported: the filter's worst case); then the shard shapes
@@ -2166,7 +2492,8 @@ def main() -> int:
                      f"{ {k: round(v, 2) for k, v in (r['device_us'] or {}).items()} }, "
                      f"host µs per call {r['host_us']:.1f}"
                      if "plan" in r else "")
-            print(f"{name} {r['shape']}{' ascending' if r.get('ascending') else ''}: "
+            print(f"{name} {r['shape']}{' ascending' if r.get('ascending') else ''}"
+                  f"{' without residual' if r.get('residual') is False else ''}: "
                   f"err {r['max_abs_err']:.3g} kernel {r['ms']:.4f} ms "
                   f"plain {r['plain_ms']:.4f} ms library {r['library_ms']:.4f} ms "
                   f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}), {r['pct_of_bound']:.1f} % of "
@@ -2419,7 +2746,12 @@ def main() -> int:
     report["serve"] = serve_phase(dict(counters, top_k_cosine=ttk.top_k_cosine_kernel), depths)
 
     # 10. contrastive training at full ImageBind-Huge width
-    report["train"] = train_phase(fa, fm, counters)
+    carry, report["train"] = train_phase(fa, fm, counters)
+
+    # 12. the training half of the parallel layer on a mesh of 4 shards on
+    # the card, held to phase 10's one-device step
+    report["mesh_train"] = mesh_train_phase(fa, fm, counters, carry, card)
+    del carry
 
     sources = {"flash_mha": "hippomm_tpu_torch/csrc/flash_mha.cu",
                "fused_mlp": "hippomm_tpu_torch/csrc/fused_mlp.cu",
@@ -2447,6 +2779,9 @@ def main() -> int:
     # one training step in each configuration
     by_path["train_default"] = report["train"]["launches"]["default"]
     by_path["train_fused"] = report["train"]["launches"]["fused"]
+    # phase 12: one step of each mesh path
+    for name, counts in report["mesh_train"]["launches"].items():
+        by_path[f"mesh_train_{name}"] = counts
     # each kernel's own path: K1/K2 the default ingest, K3/K4 the fused one, K5 the query path
     own_path = {"flash_mha": "ingest_default", "fused_mlp": "ingest_default",
                 "fused_ln_mlp_residual": "ingest_fused", "flash_mha_bthd": "ingest_fused",

@@ -439,10 +439,12 @@ int gemm(const void* a, const void* b, const GemmArgs& args, cudaStream_t stream
   return (int)cudaGetLastError();
 }
 
-// the whole MLP; gamma != nullptr makes it K3 (normed is then t's workspace)
+// the whole MLP; gamma != nullptr makes it K3 (normed is then t's workspace),
+// resid != nullptr adds that (n, d) bf16 residual in pass 2's epilogue
 int mlp(const void* x, const float* gamma, const float* beta, float eps, void* normed,
-        const void* w1, const float* b1, const void* w2, const float* b2, void* out, void* hidden,
-        void* partial, int n, int d, int f, int bn1, int splits, void* stream_) {
+        const void* w1, const float* b1, const void* w2, const float* b2, const void* resid_,
+        void* out, void* hidden, void* partial, int n, int d, int f, int bn1, int splits,
+        void* stream_) {
   if (n < 8 || d % 128 || f % 128 || (bn1 != 128 && bn1 != 32) || splits < 1 || (f / kBK) % splits ||
       (splits > 1 && partial == nullptr))
     return (int)cudaErrorInvalidValue;
@@ -462,7 +464,7 @@ int mlp(const void* x, const float* gamma, const float* beta, float eps, void* n
                       : gemm<32, kGelu>(a, w1, args1, stream);
   if (rc != 0) return rc;
   // pass 2: out = hidden·W2ᵀ + b2 (+ x), or fp32 partials of its K slices
-  const __nv_bfloat16* resid = gamma != nullptr ? xb : nullptr;
+  const __nv_bfloat16* resid = static_cast<const __nv_bfloat16*>(resid_);
   if (splits == 1) {
     const GemmArgs args2{n, d, f, 1, b2, resid, out};
     return resid != nullptr ? gemm<kBN2, kBiasResidual>(hidden, w2, args2, stream)
@@ -493,19 +495,22 @@ int hmm_fused_mlp_bf16(const void* x, const void* w1, const void* b1, const void
                        const void* b2, void* out, void* hidden, void* partial, int n, int d, int f,
                        int bn1, int splits, void* stream) {
   return mlp(x, nullptr, nullptr, 0.0f, nullptr, w1, static_cast<const float*>(b1), w2,
-             static_cast<const float*>(b2), out, hidden, partial, n, d, f, bn1, splits, stream);
+             static_cast<const float*>(b2), nullptr, out, hidden, partial, n, d, f, bn1, splits,
+             stream);
 }
 
-// K3. As K2, plus gamma/beta (d,) fp32, eps and normed (n, d) bf16, the
-// workspace of t = LN(x): out = x + K2(t).
+// K3. As K2, plus gamma/beta (d,) fp32, eps, resid (n, d) bf16 and normed
+// (n, d) bf16, the workspace of t = LN(x): out = resid + K2(t), or K2(t) when
+// resid is null (a tensor-parallel shard other than the first, whose sum
+// with the first's adds the residual once).
 int hmm_fused_ln_mlp_residual_bf16(const void* x, const void* gamma, const void* beta,
                                    const void* w1, const void* b1, const void* w2, const void* b2,
-                                   void* out, void* normed, void* hidden, void* partial, int n,
-                                   int d, int f, int bn1, int splits, float eps,
-                                   void* stream) {
+                                   const void* resid, void* out, void* normed, void* hidden,
+                                   void* partial, int n, int d, int f, int bn1, int splits,
+                                   float eps, void* stream) {
   return mlp(x, static_cast<const float*>(gamma), static_cast<const float*>(beta), eps, normed, w1,
-             static_cast<const float*>(b1), w2, static_cast<const float*>(b2), out, hidden, partial,
-             n, d, f, bn1, splits, stream);
+             static_cast<const float*>(b1), w2, static_cast<const float*>(b2), resid, out, hidden,
+             partial, n, d, f, bn1, splits, stream);
 }
 
 // dynamic shared memory of one GEMM block at tile width bn (ring, barriers,

@@ -21,6 +21,7 @@ import numpy as np
 
 from hippomm_tpu_torch.memory.schema import ShortTermMemory
 from hippomm_tpu_torch.ops.similarity import select_keyframes
+from hippomm_tpu_torch.utils.device import resolve_device
 
 logger = logging.getLogger(__name__)
 
@@ -28,13 +29,15 @@ logger = logging.getLogger(__name__)
 def consolidate_short_term_memory(
     stms: List[ShortTermMemory],
     keyframe_threshold: float = 0.9,
-    device="cpu",
+    device=None,
 ) -> Optional[Dict]:
-    """All STMs of one video -> consolidated dict (pre-ThetaEvent).
+    """All STMs of one video -> consolidated dict (pre-ThetaEvent). The
+    key-frame dedup runs on `device` (None: resolve_device, CUDA).
 
     Returns {features, feature_times, frames, frame_times, audio_times,
     audio_transcription, modalities, start_time, end_time, keyframe_indices}.
     """
+    device = resolve_device(device)
     if not stms:
         return None
     stms = sorted(stms, key=lambda m: m.segment_info.get("start_time", m.source_time))

@@ -55,6 +55,31 @@ CAPTION_PROMPT = "Describe this image in one concise sentence."
 AUDIO_CHUNK = 32  # segments per audio-trunk forward
 
 
+def process_frame_with_api(frame, index, model_name=None, config=None):
+    """Caption one frame file through the configured frame-captioning
+    endpoint: (index, "Frame {index+1}: <caption>"), or the reference's
+    error placeholders, as hippomm_tpu.memory.engine.process_frame_with_api.
+    `config` is a Config or a dict of its sections; `model_name` is accepted
+    for the reference's signature (the endpoint's config names the model)."""
+    try:
+        if not os.path.exists(frame):
+            return index, f"[Error: Image file not found: {frame}]"
+        with open(frame, "rb") as f:
+            jpeg = f.read()
+        if isinstance(config, Config):
+            cfg = config
+        else:
+            from hippomm_tpu_torch.config import _update_dataclass
+
+            cfg = _update_dataclass(Config(), dict(config or {}))
+        client = make_client(cfg.api.frame_processing, cfg.api.mode, purpose="frame-captioning")
+        caption = client.caption_images([jpeg], CAPTION_PROMPT)[0]
+        return index, f"Frame {index + 1}: {caption}"
+    except Exception:
+        logger.exception("Error processing image %s", frame)
+        return index, f"[Error processing image {frame}]"
+
+
 class HippocampalMemory:
     def __init__(
         self,

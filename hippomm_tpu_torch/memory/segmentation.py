@@ -33,11 +33,13 @@ CHUNK = 32
 
 
 @torch.no_grad()
-def adjacent_frame_similarity(frames_rgb: np.ndarray, device="cpu") -> np.ndarray:
+def adjacent_frame_similarity(frames_rgb: np.ndarray, device=None) -> np.ndarray:
     """(T, H, W, 3) uint8 -> (T-1,) SSIM between consecutive frames, one
-    resize→gray→SSIM pass per 32-frame chunk on `device`. Chunks overlap by
-    one frame so every adjacent pair is scored; short chunks are padded by
-    repeating the last frame (pad pairs score 1 and are dropped)."""
+    resize→gray→SSIM pass per 32-frame chunk on `device` (None:
+    resolve_device, CUDA). Chunks overlap by one frame so every adjacent pair
+    is scored; short chunks are padded by repeating the last frame (pad pairs
+    score 1 and are dropped)."""
+    device = resolve_device(device)
     frames_rgb = np.asarray(frames_rgb)
     t = frames_rgb.shape[0]
     if t < 2:
@@ -152,10 +154,12 @@ def segment_sequence(
     silence_db: float = -40.0,
     duration: Optional[float] = None,
     precomputed_ssim: Optional[np.ndarray] = None,
-    device="cpu",
+    device=None,
 ) -> List[SequenceSegment]:
     """Full temporal pattern separation -> SequenceSegments with sliced frames
-    and audio (reference: _segment_sequence, hippocampal_memory.py:1002-1114)."""
+    and audio (reference: _segment_sequence, hippocampal_memory.py:1002-1114).
+    The SSIM runs on `device` (None: resolve_device, CUDA)."""
+    device = resolve_device(device)
     frame_times = list(map(float, frame_times))
     if duration is None:
         candidates = []

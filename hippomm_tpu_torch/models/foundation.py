@@ -487,28 +487,86 @@ class QwenVL:
         self.client: ChatClient = make_client(cfg.api.qwen, cfg.api.mode, purpose="qwen-vl")
         self.model_name = model_name or cfg.api.qwen.model_name
 
+    def _expand_video_items(self, messages: List[Dict]) -> List[Dict]:
+        """Expand {"type": "video", "video": <path or frame-path list>,
+        "fps": f} content items into up to max(1, int(8·f)) inline base64
+        JPEG frames, as the JAX package's QwenVL does: a path is sampled
+        uniformly through the port's readers; a list of frame files is
+        subsampled to the same cap (unreadable files are skipped)."""
+        out = []
+        for msg in messages:
+            content = msg.get("content")
+            if not isinstance(content, list):
+                out.append(msg)
+                continue
+            new_content: List[Dict] = []
+            for item in content:
+                if not (isinstance(item, dict) and item.get("type") == "video"):
+                    new_content.append(item)
+                    continue
+                src = item.get("video")
+                max_frames = max(1, int(item.get("fps", 1.0) * 8))
+                if isinstance(src, list):
+                    if len(src) > max_frames:
+                        pick = np.linspace(0, len(src) - 1, max_frames).astype(int)
+                        src = [src[i] for i in sorted(set(int(i) for i in pick))]
+                    jpegs = []
+                    for p in src:
+                        try:
+                            with open(p, "rb") as f:
+                                jpegs.append(f.read())
+                        except OSError:
+                            continue
+                else:
+                    jpegs = self._load_video_frames(str(src), max_frames=max_frames)
+                new_content += [_image_item(data) for data in jpegs]
+            out.append({**msg, "content": new_content})
+        return out
+
+    def _load_video_frames(self, video_path: str, max_frames: int = 8) -> List[bytes]:
+        """Uniformly sampled frames of a video file as JPEG bytes (the port's
+        readers: .y4m, MJPEG .avi, and the libav containers where its shim
+        loads)."""
+        from hippomm_tpu_torch.media.io import jpeg_encode, open_video
+
+        r = open_video(video_path)
+        try:
+            n = r.info.num_frames
+            idx = sorted(set(np.linspace(0, n - 1, min(max_frames, n)).astype(int)))
+            frames = r.read_rgb(idx)
+        finally:
+            r.close()
+        return [jpeg_encode(f) for f in frames]
+
     def generate(
         self,
         prompt: Union[str, List[Dict]],
         images: Optional[Sequence[bytes]] = None,
+        video_frames: Optional[np.ndarray] = None,
         max_tokens: int = 512,
         max_new_tokens: Optional[int] = None,
     ) -> str:
-        """Text (+ optional jpeg images) -> completion. Accepts the
-        reference's generate(messages, max_new_tokens=...) convention for
-        messages without video items (those need the media shim)."""
+        """Text (+ optional JPEG images / raw (N, H, W, 3) uint8 frames, each
+        JPEG-encoded) -> completion. Accepts the reference's
+        generate(messages, max_new_tokens=...) convention, including
+        {"type": "video", ...} items, which `_expand_video_items` turns into
+        inline base64 frames."""
         if max_new_tokens is not None:
             max_tokens = max_new_tokens
         if isinstance(prompt, list):
-            return self.client.chat(prompt, max_tokens=max_tokens)
+            return self.client.chat(self._expand_video_items(prompt), max_tokens=max_tokens)
         content: List[Dict] = [{"type": "text", "text": prompt}]
-        import base64 as b64
+        jpegs: List[bytes] = list(images or [])
+        if video_frames is not None:
+            from hippomm_tpu_torch.media.io import jpeg_encode
 
-        for data in images or []:
-            content.append(
-                {
-                    "type": "image_url",
-                    "image_url": {"url": "data:image/jpeg;base64," + b64.b64encode(data).decode()},
-                }
-            )
+            jpegs += [jpeg_encode(f) for f in np.asarray(video_frames)]
+        content += [_image_item(data) for data in jpegs]
         return self.client.chat([{"role": "user", "content": content}], max_tokens=max_tokens)
+
+
+def _image_item(jpeg: bytes) -> Dict:
+    """An OpenAI-style inline image content item."""
+    import base64
+
+    return {"type": "image_url", "image_url": {"url": "data:image/jpeg;base64," + base64.b64encode(jpeg).decode()}}

@@ -225,20 +225,36 @@ def audio_forward(params: Dict, mel: torch.Tensor, cfg: ImageBindConfig, dtype=t
     return x
 
 
-def text_forward(params: Dict, tokens: torch.Tensor, cfg: ImageBindConfig, dtype=torch.bfloat16) -> torch.Tensor:
-    """tokens: (B, context) int, 0-padded after EOS -> (B, 1024) L2-normalized
-    × exp(logit_scale).
-
-    EOS pooling follows CLIP: the position of each row's largest token id
-    (EOS has the largest id of the vocabulary)."""
+def text_embed(params: Dict, tokens: torch.Tensor, cfg: ImageBindConfig) -> torch.Tensor:
+    """Token + position embeddings: (B, context) int -> (B, context, W) fp32."""
     p = params["text"]
-    tokens = tokens.long()
-    b, t = tokens.shape
-    x = p["token_embedding"][tokens].float() + p["pos_embed"][:, :t].float()
-    causal = torch.triu(torch.full((t, t), float("-inf"), device=x.device), diagonal=1)
-    x = L.stacked_blocks(p["blocks"], x, cfg.text.heads, mask=causal, eps=cfg.text.eps, dtype=dtype)
+    t = tokens.shape[1]
+    return p["token_embedding"][tokens.long()].float() + p["pos_embed"][:, :t].float()
+
+
+def causal_mask(t: int, device) -> torch.Tensor:
+    """Additive (t, t) fp32 mask: -inf above the diagonal."""
+    return torch.triu(torch.full((t, t), float("-inf"), device=device), diagonal=1)
+
+
+def text_head(params: Dict, x: torch.Tensor, tokens: torch.Tensor, cfg: ImageBindConfig,
+              dtype=torch.bfloat16) -> torch.Tensor:
+    """Final LN, EOS pooling and projection: (B, context, W) -> (B, 1024)
+    L2-normalized × exp(logit_scale). EOS pooling follows CLIP: the position
+    of each row's largest token id (EOS has the largest id of the
+    vocabulary)."""
+    p = params["text"]
     x = L.layer_norm(p["final_ln"], x, cfg.text.eps)
-    eos = torch.argmax(tokens, dim=-1)
-    x = x[torch.arange(b, device=x.device), eos]
+    eos = torch.argmax(tokens.long(), dim=-1)
+    x = x[torch.arange(x.shape[0], device=x.device), eos]
     x = L.matmul_f32(x.to(dtype), p["head_proj"]["weight"].to(dtype))
     return _l2norm(x) * torch.exp(p["logit_scale"].float())
+
+
+def text_forward(params: Dict, tokens: torch.Tensor, cfg: ImageBindConfig, dtype=torch.bfloat16) -> torch.Tensor:
+    """tokens: (B, context) int, 0-padded after EOS -> (B, 1024) L2-normalized
+    × exp(logit_scale)."""
+    x = text_embed(params, tokens, cfg)
+    mask = causal_mask(tokens.shape[1], x.device)
+    x = L.stacked_blocks(params["text"]["blocks"], x, cfg.text.heads, mask=mask, eps=cfg.text.eps, dtype=dtype)
+    return text_head(params, x, tokens, cfg, dtype)

@@ -73,6 +73,7 @@ def attention(
     num_heads: int = 8,
     mask: Optional[torch.Tensor] = None,
     dtype=torch.bfloat16,
+    kv_rows: Optional[int] = None,
 ) -> torch.Tensor:
     """Multi-head attention with torch packed-in_proj convention.
 
@@ -80,16 +81,20 @@ def attention(
     or separate {"q_proj","k_proj","v_proj","out_proj"} (Whisper/HF style).
     x_q: (B, Tq, D); x_kv: (B, Tk, D) for cross-attention (defaults to x_q).
     mask: additive fp32 (Tq, Tk) or (B, 1, Tq, Tk); -inf for masked.
+    kv_rows: keys and values from the first kv_rows positions only — the
+    same result as a -inf mask on the others, on every route (the padded
+    tokens of parallel/megatron).
     """
     self_attn = x_kv is None
     if x_kv is None:
         x_kv = x_q
-    d = x_q.shape[-1]
-    hd = d // num_heads
 
     if "in_proj" in p:
         w = p["in_proj"]["weight"].to(dtype)
         b = p["in_proj"].get("bias")
+        # the projection's width: x's width, or the local heads' (3·D/mp
+        # rows) of a tensor-parallel shard (parallel/tensor_parallel)
+        d = w.shape[0] // 3
         if self_attn:
             # one (D, 3D) product; slicing columns equals three products, and
             # casting before slicing equals casting each slice: q/k/v stay
@@ -112,6 +117,10 @@ def attention(
         k = linear(p["k_proj"], x_kv, dtype)
         v = linear(p["v_proj"], x_kv, dtype)
     q, k, v = q.to(dtype), k.to(dtype), v.to(dtype)
+    if kv_rows is not None:
+        k, v = k[:, :kv_rows], v[:, :kv_rows]
+    d = q.shape[-1]
+    hd = d // num_heads
 
     if "bias_k" in p:
         # torch MultiheadAttention add_bias_kv=True (ImageBind audio trunk):

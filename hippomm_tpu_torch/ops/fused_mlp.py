@@ -158,13 +158,15 @@ def _current_stream() -> int:
     return torch.cuda.current_stream().cuda_stream
 
 
-def _launch(entry: str, x, vectors, w1, b1, w2, b2, eps=None, own_out: bool = False) -> torch.Tensor:
+def _launch(entry: str, x, vectors, w1, b1, w2, b2, eps=None, own_out: bool = False,
+            resid=None) -> torch.Tensor:
     """Allocate one workspace for `_plan`'s passes with the (N, D) bf16
     output at its head, launch `entry` on the current stream and return the
     output. `vectors` are the fp32 (D,) operands that precede W1 in the C
-    signature (K3's gamma and beta); K3 also takes eps and a workspace for
-    LN(x). A text-tower call is host-bound, so this path keeps its tensor
-    calls few: one allocation, the output a view of it. `own_out` gives the
+    signature (K3's gamma and beta); K3 also takes eps, its residual `resid`
+    (None: no residual) and a workspace for LN(x). A text-tower call is
+    host-bound, so this path keeps its tensor calls few: one allocation, the
+    output a view of it. `own_out` gives the
     output an allocation of its own instead, so that a caller that keeps it
     (autograd saves it as the next block's input) does not keep the hidden
     workspace alive with it."""
@@ -180,6 +182,8 @@ def _launch(entry: str, x, vectors, w1, b1, w2, b2, eps=None, own_out: bool = Fa
         if ptr % 16 or not t.is_contiguous():
             raise ValueError(f"{entry} takes contiguous, 16-byte aligned operands")
         args.append(ptr)
+    if eps is not None:
+        args.append(None if resid is None else resid.data_ptr())
     plan, (hidden, normed, partial), length = _workspace(n, d, f, eps is not None)
     # the output heads the workspace, which lives as long as the output
     # does; an own output leaves that slot unused
@@ -284,31 +288,38 @@ def _ref_ln(x, gamma, beta, eps: float) -> torch.Tensor:
     return y * gamma.float() + beta.float()
 
 
-def fused_ln_mlp_residual_ref(x, gamma, beta, w1, b1, w2, b2, eps: float = 1e-6) -> torch.Tensor:
+def fused_ln_mlp_residual_ref(x, gamma, beta, w1, b1, w2, b2, eps: float = 1e-6,
+                              residual: bool = True) -> torch.Tensor:
     """Plain PyTorch half-block in the op order of the JAX
-    _ref_ln_mlp_residual: t = cast(LN(x)); x + fused_mlp_ref(t) in x.dtype."""
+    _ref_ln_mlp_residual: t = cast(LN(x)); x + fused_mlp_ref(t) in x.dtype
+    (without the x when `residual` is False)."""
     t = _ref_ln(x, gamma, beta, eps).to(x.dtype)
-    return x + fused_mlp_ref(t, w1, b1, w2, b2)
+    y = fused_mlp_ref(t, w1, b1, w2, b2)
+    return x + y if residual else y
 
 
-def fused_ln_mlp_residual(x, gamma, beta, w1, b1, w2, b2, eps: float = 1e-6) -> torch.Tensor:
+def fused_ln_mlp_residual(x, gamma, beta, w1, b1, w2, b2, eps: float = 1e-6,
+                          residual: bool = True) -> torch.Tensor:
     """x + mlp(LN(x)) for x (N, D) in the stream dtype: the CUDA kernels for
     CUDA tensors (bf16), the plain version for CPU tensors; differentiable
-    (`_Recompute`). Counts calls that launch the kernels in
-    `fused_ln_mlp_residual.launches`."""
+    (`_Recompute`). residual=False leaves the x out: mlp(LN(x)) alone, the
+    share of a tensor-parallel shard whose sum with the first shard's (which
+    adds x and b2) is the half-block. Counts calls that launch the kernels
+    in `fused_ln_mlp_residual.launches`."""
     if needs_grad(x, gamma, beta, w1, b1, w2, b2):
         return _Recompute.apply(
-            functools.partial(_fused_ln_mlp_residual_forward, eps=eps, own_out=True),
-            functools.partial(fused_ln_mlp_residual_ref, eps=eps), x, gamma, beta, w1, b1, w2, b2)
-    return _fused_ln_mlp_residual_forward(x, gamma, beta, w1, b1, w2, b2, eps)
+            functools.partial(_fused_ln_mlp_residual_forward, eps=eps, own_out=True, residual=residual),
+            functools.partial(fused_ln_mlp_residual_ref, eps=eps, residual=residual),
+            x, gamma, beta, w1, b1, w2, b2)
+    return _fused_ln_mlp_residual_forward(x, gamma, beta, w1, b1, w2, b2, eps, residual=residual)
 
 
 def _fused_ln_mlp_residual_forward(x, gamma, beta, w1, b1, w2, b2, eps: float = 1e-6,
-                                   own_out: bool = False) -> torch.Tensor:
+                                   own_out: bool = False, residual: bool = True) -> torch.Tensor:
     if not _check_operands("fused_ln_mlp_residual", x, w1, b1, w2, b2, gamma, beta):
-        return fused_ln_mlp_residual_ref(x, gamma, beta, w1, b1, w2, b2, eps)
+        return fused_ln_mlp_residual_ref(x, gamma, beta, w1, b1, w2, b2, eps, residual=residual)
     out = _launch("hmm_fused_ln_mlp_residual_bf16", x, (gamma, beta), w1, b1, w2, b2, eps=eps,
-                  own_out=own_out)
+                  own_out=own_out, resid=x if residual else None)
     _native.count_launch(fused_ln_mlp_residual)
     return out
 

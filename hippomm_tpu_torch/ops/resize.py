@@ -9,6 +9,10 @@ Counterpart of hippomm_tpu/ops/resize.py:
     triangle-kernel weights, computed on the host in fp32) applied with
     fp32 matmuls; F.interpolate(antialias=True) does not promise the same
     weights.
+  * `resize_normalize` — the one-call (B, H, W, 3) → normalized (B, 3, S, S)
+    preprocess: jax.image.resize's antialiased bicubic (Keys cubic, a = -0.5)
+    short-side resize by the same separable matrices, center crop, CLIP
+    normalization.
 """
 
 from __future__ import annotations
@@ -83,18 +87,31 @@ def resize_crop_u8(frames, size: int = 224) -> np.ndarray:
     return out
 
 
-@functools.lru_cache(maxsize=16)
-def _triangle_weights(in_size: int, out_size: int) -> np.ndarray:
+def _triangle(x: np.ndarray) -> np.ndarray:
+    return np.maximum(np.float32(0.0), np.float32(1.0) - np.abs(x))
+
+
+def _keys_cubic(x: np.ndarray) -> np.ndarray:
+    """jax._src.image.scale._fill_keys_cubic_kernel on |x|, in fp32."""
+    f32 = np.float32
+    out = ((f32(1.5) * x - f32(2.5)) * x) * x + f32(1.0)
+    out = np.where(x >= f32(1.0), ((f32(-0.5) * x + f32(2.5)) * x - f32(4.0)) * x + f32(2.0), out)
+    return np.where(x >= f32(2.0), f32(0.0), out).astype(f32)
+
+
+@functools.lru_cache(maxsize=32)
+def _resample_weights(in_size: int, out_size: int, kernel: str = "triangle") -> np.ndarray:
     """(in_size, out_size) fp32 resampling matrix of jax.image.resize
-    'bilinear' with antialias=True (jax._src.image.scale.compute_weight_mat,
-    translation 0), evaluated in fp32 as JAX does."""
+    ('bilinear' for the triangle kernel, 'bicubic' for Keys cubic) with
+    antialias=True (jax._src.image.scale.compute_weight_mat, translation 0),
+    evaluated in fp32 as JAX does."""
     f32 = np.float32
     # JAX takes the scale as a Python (double) ratio and inverts it in double
     inv_scale = f32(1.0 / (out_size / in_size))
     kernel_scale = max(inv_scale, f32(1.0))
     sample_f = (np.arange(out_size, dtype=f32) + f32(0.5)) * inv_scale - f32(0.5)
     x = np.abs(sample_f[None, :] - np.arange(in_size, dtype=f32)[:, None]) / kernel_scale
-    weights = np.maximum(f32(0.0), f32(1.0) - np.abs(x)).astype(f32)
+    weights = {"triangle": _triangle, "cubic": _keys_cubic}[kernel](x.astype(f32)).astype(f32)
     total = np.sum(weights, axis=0, keepdims=True, dtype=f32)
     weights = np.where(
         np.abs(total) > f32(1000.0) * np.finfo(np.float32).eps,
@@ -105,13 +122,38 @@ def _triangle_weights(in_size: int, out_size: int) -> np.ndarray:
     return np.where(inside[None, :], weights, f32(0.0)).astype(f32)
 
 
+def resize_normalize(frames, size: int = 224) -> torch.Tensor:
+    """uint8/float (B, H, W, 3) RGB (a tensor, on its device, or an array)
+    -> CLIP-normalized (B, 3, size, size) fp32, as
+    hippomm_tpu.ops.resize.resize_normalize: the short side resized to
+    `size` (the long side by int() truncation, torchvision's rule) with the
+    antialiased bicubic weights, center crop, [0, 1] scaling and the CLIP
+    mean/std."""
+    x = torch.as_tensor(frames)
+    _, h, w, _ = x.shape
+    if h <= w:
+        nh, nw = size, max(size, int(w * size / h))
+    else:
+        nh, nw = max(size, int(h * size / w)), size
+    top, left = (nh - size) // 2, (nw - size) // 2
+    # the crop's rows and columns of the weight matrices only
+    wh = torch.from_numpy(_resample_weights(h, nh, "cubic")[:, top:top + size]).to(x.device)
+    ww = torch.from_numpy(_resample_weights(w, nw, "cubic")[:, left:left + size]).to(x.device)
+    x = x.float() / 255.0
+    x = torch.einsum("bhwc,ho->bowc", x, wh)
+    x = torch.einsum("bowc,wp->bopc", x, ww)
+    mean = torch.tensor(CLIP_MEAN, dtype=torch.float32, device=x.device)
+    std = torch.tensor(CLIP_STD, dtype=torch.float32, device=x.device)
+    return ((x - mean) / std).permute(0, 3, 1, 2)
+
+
 def resize_frames(frames: torch.Tensor, height: int, width: int) -> torch.Tensor:
     """Antialiased bilinear uint8 frame resize (B, H, W, C) -> (B, height,
     width, C), as hippomm_tpu.ops.resize.resize_frames: separable fp32
     resampling, round, clip to uint8."""
     _, h, w, _ = frames.shape
-    wh = torch.from_numpy(_triangle_weights(h, height)).to(frames.device)
-    ww = torch.from_numpy(_triangle_weights(w, width)).to(frames.device)
+    wh = torch.from_numpy(_resample_weights(h, height)).to(frames.device)
+    ww = torch.from_numpy(_resample_weights(w, width)).to(frames.device)
     x = frames.float()
     x = torch.einsum("bhwc,ho->bowc", x, wh)
     x = torch.einsum("bowc,wp->bopc", x, ww)

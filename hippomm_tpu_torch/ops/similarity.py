@@ -1,6 +1,8 @@
 """Cosine similarity, top-k search and greedy key-frame dedup.
 
 Counterpart of hippomm_tpu/ops/similarity.py:
+  * `top_k_cosine` — both sides normalized per call (the JAX package's
+    public search op), in plain torch ops;
   * `top_k_cosine_prenorm` — normalize + matmul + top-k in plain torch ops
     (XLA ran it with no hand kernel): the batched search route of
     retrieval/search.FeatureSearchIndex and its route for k > 128. Its tie
@@ -17,6 +19,7 @@ import numpy as np
 import torch
 
 from hippomm_tpu_torch.ops.bucketing import bucket_size
+from hippomm_tpu_torch.utils.device import resolve_device
 
 _EPS = 1e-8
 _HOST_DEDUP_MAX_N = 256
@@ -32,6 +35,19 @@ def cosine_sim_matrix(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     a = l2_normalize(a.float())
     b = l2_normalize(b.float())
     return a @ b.t()
+
+
+def top_k_cosine(query: torch.Tensor, feats: torch.Tensor, k: int):
+    """Normalize both sides + matmul + top-k, as
+    hippomm_tpu.ops.similarity.top_k_cosine: query (D,) or (Q, D), feats
+    (N, D) → (values, indices), each (..., k), sorted descending, in fp32 on
+    the tensors' device. Ties follow torch.topk (see top_k_cosine_prenorm)."""
+    q = l2_normalize(torch.atleast_2d(query.float()))
+    sims = q @ l2_normalize(feats.float()).t()
+    vals, idx = torch.topk(sims, k, dim=-1)
+    if query.dim() == 1:
+        return vals[0], idx[0]
+    return vals, idx
 
 
 def top_k_cosine_prenorm(query: torch.Tensor, feats_unit: torch.Tensor, k: int):
@@ -85,8 +101,11 @@ def _select_keyframes_host(features: np.ndarray, threshold: float) -> np.ndarray
     return np.asarray(selected, dtype=np.int64)
 
 
-def select_keyframes(features: np.ndarray, threshold: float = 0.9, device="cpu") -> np.ndarray:
-    """Host wrapper: returns selected indices (ascending), like the reference."""
+def select_keyframes(features: np.ndarray, threshold: float = 0.9, device=None) -> np.ndarray:
+    """Host wrapper: returns selected indices (ascending), like the reference.
+    Above the host threshold the scan runs on `device` (None:
+    resolve_device, CUDA)."""
+    device = resolve_device(device)
     features = np.asarray(features, dtype=np.float32)
     n = features.shape[0]
     if n == 0:

@@ -14,6 +14,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from hippomm_tpu_torch.utils.device import fetch, resolve_device
+
 WIN = 7
 
 
@@ -80,6 +82,19 @@ def ssim_pairs(a: torch.Tensor, b: torch.Tensor, data_range: float = 255.0) -> t
         (ux * ux + uy * uy + c1) * (vx + vy + c2)
     )
     return s.mean(dim=(1, 2))
+
+
+def batched_ssim(frames_a: np.ndarray, frames_b: np.ndarray, data_range: float = 255.0,
+                 device=None) -> np.ndarray:
+    """Host wrapper over (B, H, W) (or one (H, W)) grayscale frame stacks ->
+    np.ndarray (B,) fp32, as hippomm_tpu.ops.ssim.batched_ssim; the SSIM runs
+    on `device` (None: resolve_device, CUDA)."""
+    device = resolve_device(device)
+    a, b = np.asarray(frames_a), np.asarray(frames_b)
+    if a.ndim == 2:
+        a, b = a[None], b[None]
+    return fetch(ssim_pairs(torch.from_numpy(a).to(device), torch.from_numpy(b).to(device),
+                            data_range=float(data_range)))
 
 
 def adjacent_ssim(frames: torch.Tensor, data_range: float = 255.0) -> torch.Tensor:

@@ -1,2 +1,5 @@
-"""The parallel layer: device meshes (mesh.py) and the row-sharded feature
-store (sharded_store.py) of the data-parallel serving path."""
+"""The parallel layer: device meshes, sharding rules and sharded tensors
+(mesh.py), the row-sharded feature store of the serving path
+(sharded_store.py), the collectives over a mesh axis (collectives.py), the
+towers' tensor parallelism (tensor_parallel.py), Megatron TP+SP and the
+GPipe pipeline (megatron.py), and the expert-parallel Switch MoE (moe.py)."""

@@ -1,8 +1,8 @@
-"""Device meshes for data-parallel serving.
+"""Device meshes, sharding rules and sharded tensors.
 
-Counterpart of the serving half of hippomm_tpu/parallel/mesh.py. JAX drives
-every local chip from one process through one `Mesh`; here one process
-drives a grid of torch devices the same way:
+Counterpart of hippomm_tpu/parallel/mesh.py. JAX drives every local chip
+from one process through one `Mesh`; here one process drives a grid of
+torch devices the same way:
 
   * `make_mesh` gives JAX's axis names and shapes: ("data", "model"), with
     a "pipe" axis for pipeline_parallel > 1 and a leading "replica" axis for
@@ -17,13 +17,23 @@ drives a grid of torch devices the same way:
 The serving path has no tensor parallelism: JAX's serving towers replicate
 their weights over the whole mesh, "model" included, so a mesh's model and
 pipe axes only repeat the work. Shards run at index 0 of those axes.
-`param_shardings` and the `zero1_*` rules belong to training and are not
-here. No `torch.distributed` is needed: one process reaches every device.
+
+Training shards its state. A spec is JAX's PartitionSpec as a tuple: one
+entry per dimension, None (whole), an axis name, or a tuple of axis names
+(split over their product, the first outermost). `param_shardings` gives
+JAX's tensor-parallel rules, `zero1_shardings` / `zero1_opt_shardings` its
+ZeRO-1 placement of the AdamW moments, `data_sharding` the batch's spec.
+`Sharded` holds one tensor per (device, block) that the spec and the mesh
+give: a block that several mesh positions on one device hold is stored once
+(a mesh of shards on one card holds each replicated leaf once), and a block
+held on several devices is a copy on each. `shard_tree` / `unshard_tree`
+place a tree of tensors and gather it back. No `torch.distributed` is
+needed: one process reaches every device.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Sequence, Tuple, Union
+from typing import Any, Dict, Iterator, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -178,3 +188,273 @@ def shard_batch(x, mesh: Mesh) -> Optional[List[torch.Tensor]]:
 def gather(parts: Sequence[torch.Tensor], device: torch.device, dim: int = 0) -> torch.Tensor:
     """The shards' results, in shard order, concatenated on `device`."""
     return torch.cat([p.to(device) for p in parts], dim=dim)
+
+
+# ---------------------------------------------------------------------------
+# Sharding rules (tensor parallelism of the transformer stacks, ZeRO-1)
+# ---------------------------------------------------------------------------
+
+Spec = Tuple[Any, ...]
+
+# torch Linear convention W (out, in), as the JAX rules:
+#   fc1 / in_proj / q,k,v: shard the OUT dim  -> heads / hidden split over "model"
+#   fc2 / out_proj:        shard the IN dim   -> a psum after the second product
+# The port's blocks are a per-layer list, so a block leaf has no leading
+# depth axis: its spec is JAX's without the leading None.
+
+
+def _spec_for(path: str, ndim: int) -> Spec:
+    def pad(tail):
+        full = tuple(tail)[:ndim]
+        return full + (None,) * (ndim - len(full))
+
+    if any(k in path for k in ("fc1", "in_proj", "q_proj", "k_proj", "v_proj")):
+        if path.endswith("weight") and ndim >= 2:
+            return pad(("model", None))
+        if path.endswith("bias"):
+            return pad(("model",))
+    if any(k in path for k in ("fc2", "out_proj")):
+        if path.endswith("weight") and ndim >= 2:
+            return pad((None, "model"))
+        if path.endswith("bias"):
+            return pad((None,))
+    # embeddings / norms / convs / heads: replicated
+    return (None,) * ndim
+
+
+def tree_leaves(tree, prefix: str = "") -> Iterator[Tuple[str, Any]]:
+    """(dotted path, leaf) over nested dicts and lists, in order; a leaf is a
+    tensor, a Sharded, an array or a number."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from tree_leaves(v, f"{prefix}.{k}" if prefix else str(k))
+    elif isinstance(tree, (list, tuple)) and not _is_spec(tree):
+        for i, v in enumerate(tree):
+            yield from tree_leaves(v, f"{prefix}.{i}" if prefix else str(i))
+    else:
+        yield prefix, tree
+
+
+def _is_spec(x) -> bool:
+    return isinstance(x, tuple) and all(e is None or isinstance(e, (str, tuple)) for e in x)
+
+
+def _map(tree, fn, prefix: str = ""):
+    """fn(path, leaf) over the leaves of `tree`, keeping its structure."""
+    if isinstance(tree, dict):
+        return {k: _map(v, fn, f"{prefix}.{k}" if prefix else str(k)) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)) and not _is_spec(tree):
+        return type(tree)(_map(v, fn, f"{prefix}.{i}" if prefix else str(i)) for i, v in enumerate(tree))
+    return fn(prefix, tree)
+
+
+def _shape(leaf) -> Tuple[int, ...]:
+    return tuple(leaf.shape) if hasattr(leaf, "shape") else tuple(np.shape(leaf))
+
+
+def param_shardings(params, mesh: Mesh):
+    """The tree of specs of JAX's tensor-parallel rules, with its guard: a
+    leaf whose "model" dimension the model axis does not divide is
+    replicated."""
+    msize = mesh.shape["model"]
+
+    def one(path, leaf):
+        dims = _shape(leaf)
+        spec = _spec_for(path, len(dims))
+        if any(name == "model" and dims[i] % msize for i, name in enumerate(spec)):
+            return (None,) * len(dims)
+        return spec
+
+    return _map(params, one)
+
+
+def zero1_shardings(params, mesh: Mesh):
+    """ZeRO-1 specs of the AdamW moments: each leaf keeps its TP spec and
+    splits its first still-unsharded dimension that "data" divides over
+    "data" (never the "replica" axis: moments replicate across slices)."""
+    dsize = mesh.shape["data"]
+    base = param_shardings(params, mesh)
+    flat_base = dict(tree_leaves(base))
+
+    def one(path, leaf):
+        dims = _shape(leaf)
+        spec = list(flat_base[path]) + [None] * (len(dims) - len(flat_base[path]))
+        for i, d in enumerate(dims):
+            if spec[i] is None and d % dsize == 0 and d >= dsize:
+                spec[i] = "data"
+                break
+        return tuple(spec)
+
+    return _map(params, one)
+
+
+def zero1_opt_shardings(opt_state, params, mesh: Mesh):
+    """Specs for an optimizer state tree mirroring `zero1_shardings`: a
+    state leaf whose path ends in a parameter's path (the moments,
+    `mu.vision.blocks.0...`) takes that parameter's ZeRO-1 spec; any other
+    leaf (the step count) is replicated, ()."""
+    by_path = dict(tree_leaves(zero1_shardings(params, mesh)))
+
+    def one(path, leaf):
+        keys = path.split(".")
+        for start in range(len(keys)):
+            spec = by_path.get(".".join(keys[start:]))
+            if spec is not None and len(spec) <= len(_shape(leaf)):
+                return spec
+        return ()
+
+    return _map(opt_state, one)
+
+
+def data_sharding(mesh: Mesh, ndim: int) -> Spec:
+    """The batch's spec: the leading axis over "data", or over ("replica",
+    "data") on a multi-slice mesh."""
+    lead = ("replica", "data") if "replica" in mesh.axis_names else "data"
+    return (lead,) + (None,) * (ndim - 1)
+
+
+def replicated(mesh: Mesh) -> Spec:
+    return ()
+
+
+# ---------------------------------------------------------------------------
+# Sharded tensors
+# ---------------------------------------------------------------------------
+
+
+def positions(mesh: Mesh) -> List[Tuple[int, ...]]:
+    """Every mesh position (an index into mesh.devices), in row-major order."""
+    return list(np.ndindex(*mesh.devices.shape))
+
+
+def device_at(mesh: Mesh, pos: Tuple[int, ...]) -> torch.device:
+    return mesh.devices[pos]
+
+
+def _axes(entry) -> Tuple[str, ...]:
+    if entry is None:
+        return ()
+    return (entry,) if isinstance(entry, str) else tuple(entry)
+
+
+class Sharded:
+    """A global tensor of `shape` split over mesh axes by `spec`. `blocks`
+    maps (device, block index) to that block's tensor; a block index holds
+    one chunk number per dimension. Every mesh position holds the block its
+    coordinates give, on its device."""
+
+    def __init__(self, mesh: Mesh, spec: Spec, shape: Sequence[int],
+                 blocks: Dict[Tuple[torch.device, Tuple[int, ...]], torch.Tensor]):
+        self.mesh, self.shape = mesh, tuple(shape)
+        self.spec = tuple(spec) + (None,) * (len(self.shape) - len(spec))
+        self.blocks = blocks
+        for i, e in enumerate(self.spec):
+            n = self.chunks(i)
+            if self.shape[i] % n:
+                raise ValueError(f"spec {self.spec}: dimension {i} of {self.shape} does not split {n} ways")
+
+    def chunks(self, dim: int) -> int:
+        return int(np.prod([self.mesh.shape[a] for a in _axes(self.spec[dim])], dtype=np.int64))
+
+    def block_index(self, pos: Tuple[int, ...]) -> Tuple[int, ...]:
+        coords = dict(zip(self.mesh.axis_names, pos))
+        out = []
+        for e in self.spec:
+            idx = 0
+            for a in _axes(e):
+                idx = idx * self.mesh.shape[a] + coords[a]
+            out.append(idx)
+        return tuple(out)
+
+    def block_slices(self, bidx: Tuple[int, ...]) -> Tuple[slice, ...]:
+        """The global index ranges of block `bidx`."""
+        out = []
+        for i, b in enumerate(bidx):
+            size = self.shape[i] // self.chunks(i)
+            out.append(slice(b * size, (b + 1) * size))
+        return tuple(out)
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return next(iter(self.blocks.values())).dtype
+
+    def local(self, pos: Tuple[int, ...]) -> torch.Tensor:
+        """The block mesh position `pos` holds, on its device."""
+        return self.blocks[(device_at(self.mesh, pos), self.block_index(pos))]
+
+    def _any(self, bidx, device: torch.device) -> torch.Tensor:
+        """Block `bidx`, the copy on `device` where there is one."""
+        t = self.blocks.get((device, bidx))
+        if t is not None:
+            return t
+        return next(v for (d, b), v in self.blocks.items() if b == bidx).to(device)
+
+    def take(self, pos: Tuple[int, ...], dim: int, start: int, stop: int) -> torch.Tensor:
+        """Global indices [start, stop) of `dim`, and `pos`'s block of every
+        other dimension, on `pos`'s device, cut from the blocks that hold
+        them (differentiable)."""
+        dev = device_at(self.mesh, pos)
+        bidx = list(self.block_index(pos))
+        size = self.shape[dim] // self.chunks(dim)
+        pieces = []
+        for b in range(start // size, (stop - 1) // size + 1):
+            bidx[dim] = b
+            block = self._any(tuple(bidx), dev)
+            lo, hi = max(start, b * size) - b * size, min(stop, (b + 1) * size) - b * size
+            pieces.append(block.narrow(dim, lo, hi - lo))
+        return pieces[0] if len(pieces) == 1 else torch.cat(pieces, dim=dim)
+
+    def full(self, device: DeviceSpec) -> torch.Tensor:
+        """The whole tensor on `device`, concatenated from the blocks
+        (differentiable)."""
+        device = canonical_device(device)
+        counts = [self.chunks(i) for i in range(len(self.shape))]
+
+        def build(prefix):
+            dim = len(prefix)
+            if dim == len(self.shape):
+                return self._any(tuple(prefix), device)
+            parts = [build(prefix + [b]) for b in range(counts[dim])]
+            return parts[0] if len(parts) == 1 else torch.cat(parts, dim=dim)
+
+        return build([])
+
+    def __repr__(self) -> str:
+        return f"Sharded({self.shape}, {self.spec}, {len(self.blocks)} blocks)"
+
+    @staticmethod
+    def _filled(shape: Sequence[int], spec: Spec, mesh: Mesh, make) -> "Sharded":
+        """make(device, block slices) once per (device, block) of the mesh."""
+        out = Sharded(mesh, spec, shape, {})
+        for pos in positions(mesh):
+            key = (device_at(mesh, pos), out.block_index(pos))
+            if key not in out.blocks:
+                out.blocks[key] = make(key[0], out.block_slices(key[1]))
+        return out
+
+    @staticmethod
+    def place(x: torch.Tensor, spec: Spec, mesh: Mesh, requires_grad: bool = False) -> "Sharded":
+        """Split `x` by `spec` over `mesh`: each (device, block) its own
+        contiguous copy."""
+        return Sharded._filled(x.shape, spec, mesh, lambda dev, sl: (
+            x[sl].detach().to(dev, copy=True).contiguous().requires_grad_(requires_grad)))
+
+    @staticmethod
+    def zeros(shape: Sequence[int], spec: Spec, mesh: Mesh, dtype=torch.float32) -> "Sharded":
+        """A Sharded of zeros, each block made on its device."""
+        return Sharded._filled(shape, spec, mesh, lambda dev, sl: torch.zeros(
+            [s.stop - s.start for s in sl], dtype=dtype, device=dev))
+
+
+def shard_tree(tree, specs, mesh: Mesh, requires_grad: bool = False):
+    """Place every tensor leaf of `tree` by the spec at the same path of
+    `specs` (a tree of specs, as param_shardings gives)."""
+    flat = dict(tree_leaves(specs))
+    return _map(tree, lambda path, leaf: Sharded.place(torch.as_tensor(leaf), flat[path], mesh,
+                                                       requires_grad=requires_grad))
+
+
+def unshard_tree(tree, device: DeviceSpec):
+    """Every Sharded leaf of `tree` gathered whole on `device`; other leaves
+    as they are."""
+    return _map(tree, lambda path, leaf: leaf.full(device) if isinstance(leaf, Sharded) else leaf)

@@ -5,6 +5,10 @@ directories; the port imports neither orbax nor jax, so it cannot read them.
 Parameters cross between the packages as numpy trees instead
 (models/imagebind/carry.params_from_jax).
 
+A tree of Sharded leaves (parallel/mesh) is saved whole: each leaf gathered
+from its blocks. `load_params(shardings=specs, mesh=mesh)` places what it
+reads by the specs on the mesh, as orbax restores into NamedShardings.
+
 The file is the state dict of the nested parameter tree: dotted paths
 ("vision.blocks.0.attn.in_proj.weight") to tensors, saved with torch.save
 and read back with weights_only=True. A dict whose keys are 0 .. n-1 is a
@@ -18,13 +22,14 @@ from typing import Any, Dict, Optional
 
 import torch
 
+from hippomm_tpu_torch.parallel.mesh import Mesh, Sharded, shard_tree
 from hippomm_tpu_torch.utils.device import DeviceLike, resolve_device
 
 
 def flatten_params(tree: Any, prefix: str = "") -> Dict[str, torch.Tensor]:
-    """The nested tree (dicts, per-layer lists, tensor leaves) as
+    """The nested tree (dicts, per-layer lists, tensor or Sharded leaves) as
     {dotted path: leaf}, in the tree's order."""
-    if isinstance(tree, torch.Tensor):
+    if isinstance(tree, (torch.Tensor, Sharded)):
         return {prefix: tree}
     items = tree.items() if isinstance(tree, dict) else enumerate(tree)
     out: Dict[str, torch.Tensor] = {}
@@ -55,24 +60,32 @@ def unflatten_params(flat: Dict[str, torch.Tensor]) -> Dict:
 
 
 def save_params(path: str, params: Any) -> None:
-    """Write the tree's leaves (detached) to `path` as one torch file."""
+    """Write the tree's leaves (detached; a Sharded leaf gathered whole on
+    the host) to `path` as one torch file."""
     path = os.path.abspath(path)
     os.makedirs(os.path.dirname(path), exist_ok=True)
-    torch.save({k: v.detach() for k, v in flatten_params(params).items()}, path)
+    flat = {}
+    for k, v in flatten_params(params).items():
+        flat[k] = (v.full("cpu") if isinstance(v, Sharded) else v).detach()
+    torch.save(flat, path)
 
 
 def load_params(path: str, like: Optional[Any] = None, device: DeviceLike = None,
-                shardings: Optional[Any] = None) -> Dict:
+                shardings: Optional[Any] = None, mesh: Optional[Mesh] = None) -> Dict:
     """Read a `save_params` file. `like` fixes the structure, shapes, dtypes,
     devices and requires_grad of the result, and a mismatch raises
     ValueError; without it the leaves go to `device` (CUDA unless the caller
-    asks for the CPU). `shardings` needs the parallel layer, which the port
-    does not have yet (ROADMAP.md, queue 1 item 7)."""
-    if shardings is not None:
-        raise NotImplementedError("load_params(shardings=...) needs the port's parallel layer "
-                                  "(ROADMAP.md, queue 1 item 7)")
+    asks for the CPU). `shardings` (a tree of specs, as
+    parallel/mesh.param_shardings gives) places every leaf by its spec on
+    `mesh` instead; a `like` of Sharded leaves gives their specs and
+    requires_grad."""
     flat = torch.load(os.path.abspath(path), map_location="cpu", weights_only=True)
+    if shardings is not None and mesh is None:
+        raise ValueError("load_params(shardings=...) needs the mesh the specs name: pass mesh=")
     if like is None:
+        tree = unflatten_params(flat)
+        if shardings is not None:
+            return shard_tree(tree, shardings, mesh)
         dev = resolve_device(device)
         return unflatten_params({k: v.to(dev) for k, v in flat.items()})
     want = flatten_params(like)
@@ -83,8 +96,17 @@ def load_params(path: str, like: Optional[Any] = None, device: DeviceLike = None
     out = {}
     for key, ref in want.items():
         got = flat[key]
-        if got.shape != ref.shape or got.dtype != ref.dtype:
+        if tuple(got.shape) != tuple(ref.shape) or got.dtype != ref.dtype:
             raise ValueError(f"checkpoint leaf {key}: {tuple(got.shape)} {got.dtype}, "
                              f"`like` has {tuple(ref.shape)} {ref.dtype}")
-        out[key] = got.to(ref.device).requires_grad_(ref.requires_grad)
-    return unflatten_params(out)
+        if isinstance(ref, Sharded):
+            grad = any(t.requires_grad for t in ref.blocks.values())
+            out[key] = Sharded.place(got, ref.spec, ref.mesh, requires_grad=grad)
+        elif shardings is None:
+            out[key] = got.to(ref.device).requires_grad_(ref.requires_grad)
+        else:
+            out[key] = got
+    tree = unflatten_params(out)
+    if shardings is not None and not any(isinstance(v, Sharded) for v in want.values()):
+        tree = shard_tree(tree, shardings, mesh)
+    return tree

@@ -57,6 +57,13 @@ _MODULES = [
     "hippomm_tpu_torch.parallel",
     "hippomm_tpu_torch.parallel.mesh",
     "hippomm_tpu_torch.parallel.sharded_store",
+    "hippomm_tpu_torch.parallel.collectives",
+    "hippomm_tpu_torch.parallel.tensor_parallel",
+    "hippomm_tpu_torch.parallel.megatron",
+    "hippomm_tpu_torch.parallel.moe",
+    "hippomm_tpu_torch.graft_entry",
+    "hippomm_tpu_torch.ops",
+    "hippomm_tpu_torch.media",
 ]
 
 _PROBE = """

@@ -1,0 +1,220 @@
+"""The port's public surface against the JAX package's: the package, ops and
+media re-exports, memory/engine.process_frame_with_api,
+ops/similarity.top_k_cosine, ops/ssim.batched_ssim and
+ops/resize.resize_normalize; the library functions that run on CUDA unless
+the caller asks for the CPU; QwenVL's video items and video_frames=
+expanded as the JAX package expands them; and graft_entry's entry and
+multi-device dry run on eight CPU entries."""
+
+import base64
+import os
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import hippomm_tpu
+import hippomm_tpu.media as jmedia
+import hippomm_tpu.ops as jops
+import hippomm_tpu_torch
+import hippomm_tpu_torch.media as tmedia
+import hippomm_tpu_torch.ops as tops
+from hippomm_tpu.config import Config as JConfig
+from hippomm_tpu.media import io as jio
+from hippomm_tpu.memory import engine as jengine
+from hippomm_tpu.models.foundation import QwenVL as JQwenVL
+from hippomm_tpu.ops import resize as jresize
+from hippomm_tpu.ops import similarity as jsim
+from hippomm_tpu.ops import ssim as jssim
+from hippomm_tpu_torch.config import Config as TConfig
+from hippomm_tpu_torch.media import io as tio
+from hippomm_tpu_torch.memory import consolidation as tcons
+from hippomm_tpu_torch.memory import engine as tengine
+from hippomm_tpu_torch.memory import segmentation as tseg
+from hippomm_tpu_torch.memory.schema import ShortTermMemory
+from hippomm_tpu_torch.models.foundation import QwenVL as TQwenVL
+from hippomm_tpu_torch.ops import resize as tresize
+from hippomm_tpu_torch.ops import similarity as tsim
+from hippomm_tpu_torch.ops import ssim as tssim
+from torch_parity import assert_close
+
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: these shapes are tiny, and the suite's workers
+    share the host's cores with JAX's thread pools."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+def _public(mod):
+    return {n for n in vars(mod) if not n.startswith("_") and n not in ("annotations",)
+            and not isinstance(vars(mod)[n], type(os))}
+
+
+@pytest.mark.parametrize("jmod,tmod", [(hippomm_tpu, hippomm_tpu_torch), (jops, tops), (jmedia, tmedia)])
+def test_reexports_match_jax(jmod, tmod):
+    """Every name the JAX package, its ops and its media export, the port's
+    counterpart exports too."""
+    missing = sorted(_public(jmod) - _public(tmod))
+    assert not missing, missing
+    assert isinstance(hippomm_tpu_torch.load_config(None), TConfig)
+    assert hippomm_tpu_torch.ThetaEvent is tengine.ThetaEvent
+
+
+@pytest.mark.parametrize("q_shape", [(24,), (5, 24)])
+def test_top_k_cosine_matches_jax(request, q_shape):
+    rng = np.random.default_rng(1)
+    feats = rng.normal(size=(300, 24)).astype(np.float32)
+    q = rng.normal(size=q_shape).astype(np.float32)
+    jv, ji = jsim.top_k_cosine(jnp.asarray(q), jnp.asarray(feats), 7)
+    tv, ti = tsim.top_k_cosine(torch.from_numpy(q), torch.from_numpy(feats), 7)
+    assert_close(request, tv.numpy(), np.asarray(jv), 1e-5, f"top_k_cosine_values{len(q_shape)}")
+    np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
+
+
+@pytest.mark.parametrize("single", [False, True])
+def test_batched_ssim_matches_jax(request, single):
+    rng = np.random.default_rng(2)
+    a = rng.integers(0, 256, size=(4, 40, 56)).astype(np.uint8)
+    b = np.clip(a.astype(int) + rng.integers(-30, 30, size=a.shape), 0, 255).astype(np.uint8)
+    if single:
+        a, b = a[0], b[0]
+    want = jssim.batched_ssim(a, b)
+    got = tssim.batched_ssim(a, b, device="cpu")
+    assert got.shape == want.shape and got.dtype == np.float32
+    assert_close(request, got, want, 1e-5, f"batched_ssim_single{single}")
+
+
+@pytest.mark.parametrize("hw", [(90, 160), (120, 96), (224, 224)])
+def test_resize_normalize_matches_jax(request, hw):
+    """The antialiased bicubic short-side resize + center crop + CLIP
+    normalization: within 1e-4 of JAX's (fp32 resampling sums in another
+    order)."""
+    rng = np.random.default_rng(3)
+    frames = rng.integers(0, 256, size=(2, *hw, 3)).astype(np.uint8)
+    want = np.asarray(jresize.resize_normalize(jnp.asarray(frames), size=56))
+    got = tresize.resize_normalize(frames, size=56).numpy()
+    assert got.shape == want.shape == (2, 3, 56, 56)
+    assert_close(request, got, want, 1e-4, f"resize_normalize_{hw[0]}x{hw[1]}")
+
+
+def test_process_frame_with_api_matches_jax(tmp_path):
+    """The module-level captioner through the stub endpoint, a missing file
+    and a dict config, as the JAX package's."""
+    frame = str(tmp_path / "f.jpg")
+    tio.write_jpeg(frame, np.full((24, 32, 3), 128, np.uint8))
+    jcfg, tcfg = JConfig(), TConfig()
+    jcfg.api.mode = tcfg.api.mode = "stub"
+    for args in ((frame, 3), (str(tmp_path / "none.jpg"), 0)):
+        assert tengine.process_frame_with_api(*args, config=tcfg) == jengine.process_frame_with_api(*args, config=jcfg)
+    assert (tengine.process_frame_with_api(frame, 1, config={"api": {"mode": "stub"}})
+            == jengine.process_frame_with_api(frame, 1, config={"api": {"mode": "stub"}}))
+
+
+def test_library_functions_default_to_cuda(monkeypatch):
+    """adjacent_frame_similarity, segment_sequence,
+    consolidate_short_term_memory and select_keyframes resolve a missing
+    device to CUDA: without it they raise, and device="cpu" runs them."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    frames = np.random.default_rng(4).integers(0, 256, size=(3, 24, 32, 3)).astype(np.uint8)
+    feats = np.random.default_rng(5).normal(size=(4, 1024)).astype(np.float32)
+    stm = ShortTermMemory(features={"vision": feats}, modalities=["vision"],
+                          segment_info={"start_time": 0.0, "end_time": 4.0, "frame_times": [0, 1, 2, 3]})
+    calls = {
+        "adjacent_frame_similarity": lambda **kw: tseg.adjacent_frame_similarity(frames, **kw),
+        "segment_sequence": lambda **kw: tseg.segment_sequence(["a", "b", "c"], [0.0, 1.0, 2.0], frames, None, **kw),
+        "consolidate_short_term_memory": lambda **kw: tcons.consolidate_short_term_memory([stm], **kw),
+        "select_keyframes": lambda **kw: tsim.select_keyframes(feats, **kw),
+    }
+    for name, call in calls.items():
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+        assert call(device="cpu") is not None, name
+
+
+class _Recorder:
+    """A chat client that records the messages it is sent."""
+
+    def __init__(self):
+        self.messages = []
+
+    def chat(self, messages, max_tokens=512, temperature=0.0):
+        self.messages.append(messages)
+        return "ok"
+
+
+def _images(messages):
+    """The decoded frames of every inline image item, in order."""
+    out = []
+    for msg in messages:
+        for item in msg["content"] if isinstance(msg.get("content"), list) else []:
+            if item.get("type") == "image_url":
+                url = item["image_url"]["url"]
+                assert url.startswith("data:image/jpeg;base64,")
+                out.append(tio.jpeg_decode(base64.b64decode(url.split(",", 1)[1])))
+    return out
+
+
+def test_qwenvl_expands_video_items_as_jax(tmp_path):
+    """A {"type": "video"} item (a Y4M clip at fps 0.5 → 4 frames, and a
+    list of JPEG paths subsampled to the same cap) and video_frames= go to
+    the endpoint as inline base64 JPEG frames: the same message layout,
+    frame count and order as the JAX package's, the decoded pixels within
+    ±1."""
+    rng = np.random.default_rng(6)
+    clip = rng.integers(0, 256, size=(20, 48, 64, 3)).astype(np.uint8)
+    path = str(tmp_path / "clip.y4m")
+    jio.write_y4m(path, clip, fps=4.0)
+    jpgs = []
+    for i in range(12):
+        jpgs.append(str(tmp_path / f"{i}.jpg"))
+        jio.write_jpeg(jpgs[-1], clip[i])
+    jcfg, tcfg = JConfig(), TConfig()
+    jcfg.api.mode = tcfg.api.mode = "stub"
+    messages = [{"role": "system", "content": "You describe videos."},
+                {"role": "user", "content": [{"type": "text", "text": "What happens?"},
+                                             {"type": "video", "video": path, "fps": 0.5},
+                                             {"type": "video", "video": jpgs, "fps": 0.25}]}]
+    sent = {}
+    for name, cls, cfg in (("jax", JQwenVL, jcfg), ("port", TQwenVL, tcfg)):
+        vl = cls(config=cfg)
+        vl.client = _Recorder()
+        assert vl.generate(messages, max_new_tokens=8) == "ok"
+        assert vl.generate("Describe.", video_frames=clip[:3]) == "ok"
+        sent[name] = vl.client.messages
+    for want, got in zip(sent["jax"], sent["port"]):
+        strip = [[{k: v for k, v in item.items() if k != "image_url"} for item in m["content"]]
+                 if isinstance(m["content"], list) else m["content"] for m in want]
+        assert strip == [[{k: v for k, v in item.items() if k != "image_url"} for item in m["content"]]
+                         if isinstance(m["content"], list) else m["content"] for m in got]
+        a, b = _images(want), _images(got)
+        assert len(a) == len(b) > 0
+        for x, y in zip(a, b):
+            assert x.shape == y.shape and np.abs(x.astype(int) - y.astype(int)).max() <= 1
+    assert len(_images(sent["port"][0])) == 4 + 2 and len(_images(sent["port"][1])) == 3
+
+
+def test_graft_entry_dryrun_prints_every_field(capsys, monkeypatch):
+    """dryrun_multichip over eight CPU entries runs every parallel path and
+    prints the JAX dry run's fields; entry gives the vision tower's forward
+    at a batch of 32 (the tiny tower in place of huge_config's here)."""
+    from hippomm_tpu_torch import graft_entry
+    from hippomm_tpu_torch.models.imagebind import model as tmodel
+
+    out = graft_entry.dryrun_multichip(8, devices=["cpu"] * 8)
+    line = capsys.readouterr().out.strip().splitlines()[-1]
+    for field in ("dryrun_multichip ok: mesh={'data': 4, 'model': 2}", "train loss=", "zero1 ok (moments sharded data=4",
+                  "replica-mesh ok ({'replica': 2, 'data': 2, 'model': 2}", "pp train loss=", "retrieval top1 sim=1.0000"):
+        assert field in line, (field, line)
+    assert all(np.isfinite(out[k]) for k in ("loss", "zero1_loss", "replica_loss", "pp_loss", "moe_loss", "moe_balance"))
+    monkeypatch.setattr(tmodel, "huge_config", tmodel.tiny_config)
+    fn, (params, images) = graft_entry.entry(device="cpu")
+    emb = fn(params, images)
+    assert images.shape == (32, 3, 56, 56) and emb.shape == (32, 1024) and torch.isfinite(emb).all()
+    with torch.no_grad():
+        want = tmodel.vision_forward(params, images, tmodel.tiny_config(), torch.bfloat16)
+    assert torch.equal(emb, want)

@@ -284,10 +284,12 @@ def test_adamw_matches_optax(request):
 
 @pytest.mark.parametrize("kwargs", [{"mesh": object()}, {"zero1": True}])
 def test_parallel_options_raise(kwargs):
-    """A mesh or ZeRO-1 needs the parallel layer: refused, never ignored."""
-    with pytest.raises(NotImplementedError, match="parallel layer"):
+    """A mesh that is not a parallel.mesh.Mesh, and ZeRO-1 without a mesh
+    (it splits the moments over the mesh's data axis), are refused, never
+    ignored; so is a mesh step over a one-device train state."""
+    with pytest.raises(TypeError if "mesh" in kwargs else ValueError, match="mesh"):
         tc.init_train_state(tmodel.tiny_config(), device="cpu", **kwargs)
     params, opt = tc.init_train_state(tmodel.tiny_config(), device="cpu")
     if "mesh" in kwargs:
-        with pytest.raises(NotImplementedError, match="parallel layer"):
+        with pytest.raises(ValueError, match="init_train_state"):
             tc.make_train_step(tmodel.tiny_config(), opt, mesh=kwargs["mesh"])
