@@ -8,7 +8,13 @@ Phases (any failure exits non-zero and prints no result line):
      and K4 (attention in the (B, T, H, hd) layout) against their plain
      PyTorch versions at every shape the ingest and query paths give them,
      in bf16, and K5 (cosine top-k) in fp32 at stores of 2e5 and 1e6 rows
-     and an ascending-sorted 2e5 store;
+     and an ascending-sorted 2e5 store, and at 2e5 rows of D 6 and D 1026
+     and a D 1024 store view one element into its buffer; then the fp32
+     kernels of K1-K4 (csrc/*_f32.cu) against their plain versions in full
+     fp32 (TF32 off) at the ingest, Whisper, text and training shapes:
+     K1/K4 within 5e-5 abs, K2/K3 within 5e-5 of max |out|, the library
+     calls SDPA and F.linear → F.gelu → F.linear at fp32, the bound at
+     67 TF/s fp32;
      kernel, plain and library-call times (CUDA events) beside each bound
      and its share of it; K2/K3 and their library calls timed over rotating
      weight sets that overflow the L2 (as each encoder block finds its
@@ -131,8 +137,26 @@ Phases (any failure exits non-zero and prints no result line):
      events), pairs/s and max memory allocated beside phase 10's, with the
      card's name and power limit. Phase 2 checks the per-shard shapes
      (TRAIN_SHARD_SHAPES), K3 also without its residual
+ 13. fp32   — (runs after phase 12, whose state it frees first) the JAX
+     package's fp32 paths through the fp32 kernels. (a) A new engine with
+     models.compute_dtype float32 (ImageBind-Huge in fp32; Whisper
+     distil-large-v3 stays bf16, as the engine builds it) ingests phase 4's
+     120 s clip in the default and the fused configuration and once with
+     the kernels routed out: exact K1-K4 launches by the phase-4/5 formula,
+     the ImageBind ones all fp32; features within 1e-3 of max |feature| of
+     the routed-out run (cosine ≥ 0.99999) and at cosine ≥ 0.999 to phase
+     4/5's bf16 features; wall and stage seconds. (b) Phase 10's seeded 16
+     pairs at full width in fp32: one step's gradients through the kernels
+     against the kernels routed out, per leaf within 1e-3 relative L2; 3
+     steps from the seed (exact fp32 K1/K2 launches, a finite loss that
+     falls), step ms split into forward, backward and optimizer, max
+     memory. (c) graft_entry.dryrun_multichip(4, devices=[cuda:0] * 4),
+     which trains in fp32: its line, every loss finite, and every kernel
+     launch an fp32 one
 
-Prints the card's name and power limit, a `{"kernels": [...]}` line, and as
+Prints the card's name and power limit, a `{"kernels": [...]}` line (the
+fp32 kernels as entries of their own, `<name>_f32`, with phase 13's
+launches), and as
 its last line `{"ok": true, "device": {...}}`. Writes the same numbers to
 chiprun_out/chip_smoke.json. Needs no network and no checkpoint.
 Phase 9 writes its own checkpoint file from a seed.
@@ -234,20 +258,24 @@ def check_attention(fa, shape, gen):
                          (tq, tk, hd))
 
 
-def attention_row(fa, shape, err, kernel, plain, library, b_ms, b_by, plan_shape):
+def attention_row(fa, shape, err, kernel, plain, library, b_ms, b_by, plan_shape, f32: bool = False):
     """K1/K4's phase-2 readings: kernel, plain and library ms, the bound and
-    its share, the tile plan, CUDA kernels per call, device µs per kernel
-    (torch.profiler) and host µs to enqueue a call."""
-    plan = fa._attn_plan(*plan_shape)
+    its share, the tile plan (the fp32 kernel's with `f32`), CUDA kernels
+    per call, device µs per kernel (torch.profiler) and host µs to enqueue
+    a call."""
+    if f32:
+        p32 = fa._attn_plan_f32(*plan_shape)
+        plan = {"q_tiles": len(p32.q_tiles), "key_tiles": len(p32.key_tiles), "nc": p32.nc}
+    else:
+        p16 = fa._attn_plan(*plan_shape)
+        plan = {"q_tiles": len(p16.q_tiles), "key_tiles": [w for _, w in p16.key_tiles],
+                "panels": [w for _, _, w in p16.panels]}
     row = {
         "shape": list(shape), "max_abs_err": err,
         "ms": cuda_ms(kernel, iters=20, repeats=5),
         "plain_ms": cuda_ms(plain, iters=3, warmup=1),
         "library_ms": cuda_ms(library, iters=20, repeats=5),
-        "bound_ms": b_ms, "bound_by": b_by,
-        "plan": {"q_tiles": len(plan.q_tiles), "key_tiles": [w for _, w in plan.key_tiles],
-                 "panels": [w for _, _, w in plan.panels]},
-        "kernels_per_call": 1,
+        "bound_ms": b_ms, "bound_by": b_by, "plan": plan, "kernels_per_call": 1,
     }
     row["pct_of_bound"] = 100.0 * b_ms / row["ms"]
     row["device_us"] = device_us([kernel])
@@ -255,60 +283,70 @@ def attention_row(fa, shape, err, kernel, plain, library, b_ms, b_by, plan_shape
     return row
 
 
-def mlp_operands(shape, gen, ln: bool):
-    """x, (gamma, beta,) w1, b1, w2, b2 of one K2 (ln False) or K3 call."""
+def mlp_operands(shape, gen, ln: bool, dtype=None):
+    """x, (gamma, beta,) w1, b1, w2, b2 of one K2 (ln False) or K3 call; x
+    and the weights in `dtype` (bf16 by default)."""
     import torch
 
+    dtype = dtype or torch.bfloat16
     n, d, f = shape
     dev = torch.device("cuda")
-    x = torch.randn((n, d), generator=gen, device=dev).to(torch.bfloat16)
+    x = torch.randn((n, d), generator=gen, device=dev).to(dtype)
     norm = (1.0 + 0.1 * torch.randn((d,), generator=gen, device=dev),
             0.1 * torch.randn((d,), generator=gen, device=dev)) if ln else ()
-    w1 = (torch.randn((f, d), generator=gen, device=dev) / math.sqrt(d)).to(torch.bfloat16)
+    w1 = (torch.randn((f, d), generator=gen, device=dev) / math.sqrt(d)).to(dtype)
     b1 = 0.1 * torch.randn((f,), generator=gen, device=dev)
-    w2 = (torch.randn((d, f), generator=gen, device=dev) / math.sqrt(f)).to(torch.bfloat16)
+    w2 = (torch.randn((d, f), generator=gen, device=dev) / math.sqrt(f)).to(dtype)
     b2 = 0.1 * torch.randn((d,), generator=gen, device=dev)
     return (x, *norm, w1, b1, w2, b2)
 
 
-def check_mlp_kernel(fm, shape, gen, ln: bool, residual: bool = True):
+def check_mlp_kernel(fm, shape, gen, ln: bool, residual: bool = True, f32: bool = False):
     """K2 (ln False) or K3 against its plain version on one operand set,
     then kernel, plain and library times cycling through weight sets that
     overflow the L2 (each launch finds its weights cold, as on the path).
     residual=False: K3 without its residual (a tensor-parallel shard's
-    call other than the first)."""
+    call other than the first). f32: the fp32 kernels on fp32 operands,
+    held to the plain version in full fp32 (TF32 off) within 5e-5 of max
+    |out|, with fp32's library chain and bound (67 TF/s)."""
     import functools
 
     import torch
     import torch.nn.functional as F
 
     n, d, f = shape
-    name = "fused_ln_mlp_residual" if ln else "fused_mlp"
-    kernel = fm.fused_ln_mlp_residual if ln else fm.fused_mlp
-    plain = fm.fused_ln_mlp_residual_ref if ln else fm.fused_mlp_ref
+    name = ("fused_ln_mlp_residual" if ln else "fused_mlp") + ("_f32" if f32 else "")
+    counter = fm.fused_ln_mlp_residual if ln else fm.fused_mlp
+    kernel, plain = counter, (fm.fused_ln_mlp_residual_ref if ln else fm.fused_mlp_ref)
     if not residual:
         kernel, plain = (functools.partial(fn, residual=False) for fn in (kernel, plain))
     tail = (1e-6,) if ln else ()
-    sets = operand_sets(lambda: mlp_operands(shape, gen, ln), 4 * d * f)
+    dtype, esize, tol = (torch.float32, 4, F32_MLP_TOL) if f32 else (torch.bfloat16, 2, 2e-2)
+    sets = operand_sets(lambda: mlp_operands(shape, gen, ln, dtype), 2 * esize * d * f)
+    before = counter.launches_f32
     out = kernel(*sets[0], *tail)
     torch.cuda.synchronize()
+    if counter.launches_f32 - before != int(f32) or out.dtype != dtype:
+        fail(f"{name} {shape}: {counter.launches_f32 - before} fp32 launches, output {out.dtype}")
     ref = plain(*sets[0], *tail)
     err = (out.float() - ref.float()).abs().max().item()
     rel = err / max(ref.float().abs().max().item(), 1e-30)
-    if not math.isfinite(rel) or rel > 2e-2:
-        fail(f"{name} {shape}: max abs err {err} is {rel:.3g} of max|out| > 2e-2")
+    if not math.isfinite(rel) or rel > tol:
+        fail(f"{name} {shape}: max abs err {err} is {rel:.3g} of max|out| > {tol}")
 
     def library(x, *rest):
-        # the cuBLAS chain in bf16 (biases and the LN affine cast to bf16)
+        # the cuBLAS chain in the operands' dtype (bf16: biases and the LN
+        # affine cast to bf16; fp32: TF32 off)
         g16, bt16, w1, b1h, w2, b2h = rest if ln else (None, None, *rest)
         h = F.layer_norm(x, (d,), g16, bt16, 1e-6) if ln else x
         y = F.linear(F.gelu(F.linear(h, w1, b1h)), w2, b2h)
         return x + y if ln and residual else y
 
-    lib_args = [tuple(t.to(torch.bfloat16) if t.dtype == torch.float32 else t for t in s) for s in sets]
+    lib_args = [tuple(t.to(dtype) if t.dtype == torch.float32 else t for t in s) for s in sets]
     # x read and out written once, W1 and W2 once, the (D,)/(F,) vectors once
-    b_ms, b_by = bound(2 * (2 * n * d + 2 * d * f) + 4 * (f + (3 if ln else 1) * d), 4 * n * d * f)
-    plan = fm._plan(n, d, f)
+    b_ms, b_by = bound(esize * (2 * n * d + 2 * d * f) + 4 * (f + (3 if ln else 1) * d), 4 * n * d * f,
+                       PEAK_FP32_FLOP_S if f32 else PEAK_BF16_FLOP_S)
+    plan = fm._plan_f32(n, d, f) if f32 else fm._plan(n, d, f)
     row = {
         "shape": list(shape), "max_abs_err": err, "rel_err": rel, "operand_sets": len(sets),
         **({} if residual else {"residual": False}),
@@ -399,6 +437,47 @@ def check_attention_bthd(fa, shape, gen):
                          (t, t, hd))
 
 
+F32_ATTN_TOL = 5e-5  # fp32 K1/K4 against the plain version in full fp32, max abs
+F32_MLP_TOL = 5e-5  # fp32 K2/K3, of max |out|
+
+
+def check_attention_f32(fa, shape, gen, bthd: bool):
+    """The fp32 K1 (B, H, T, hd) or K4 (B, T, H, hd slices of one packed
+    (B, T, 3D) projection) against its plain version in full fp32 (TF32
+    off), then the readings of attention_row; the library call is SDPA at
+    fp32; the bound is fp32's (67 TF/s)."""
+    import torch
+    import torch.nn.functional as F
+
+    dev = torch.device("cuda")
+    if bthd:
+        b, t, h, hd = shape
+        tq = tk = t
+        d = h * hd
+        qkv = torch.randn((b, t, 3 * d), generator=gen, device=dev)
+        q, k, v = (qkv[..., i * d : (i + 1) * d].reshape(b, t, h, hd) for i in range(3))
+        kernel_fn, plain_fn = fa.flash_mha_bthd, fa.flash_mha_bthd_ref
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    else:
+        b, h, tq, tk, hd = shape
+        q, k, v = (torch.randn((b, h, t, hd), generator=gen, device=dev) for t in (tq, tk, tk))
+        kernel_fn, plain_fn = fa.flash_mha, fa.flash_mha_ref
+        qt, kt, vt = q, k, v
+    scale = 1.0 / math.sqrt(hd)
+    before = kernel_fn.launches_f32
+    out = kernel_fn(q, k, v, scale)
+    torch.cuda.synchronize()
+    if kernel_fn.launches_f32 != before + 1 or out.dtype != torch.float32:
+        fail(f"{kernel_fn.__name__} fp32 {shape}: not one fp32 kernel launch")
+    err = (out - plain_fn(q, k, v, scale)).abs().max().item()
+    if not math.isfinite(err) or err > F32_ATTN_TOL:
+        fail(f"{kernel_fn.__name__} fp32 {shape}: max abs err {err} > {F32_ATTN_TOL}")
+    b_ms, b_by = bound(4 * b * h * hd * (2 * tq + 2 * tk), 4 * b * h * tq * tk * hd, PEAK_FP32_FLOP_S)
+    return attention_row(fa, shape, err, lambda: kernel_fn(q, k, v, scale), lambda: plain_fn(q, k, v, scale),
+                         lambda: F.scaled_dot_product_attention(qt, kt, vt, scale=scale), b_ms, b_by,
+                         (tq, tk, hd), f32=True)
+
+
 def topk_mismatch(vals, idx, rvals, ridx, tol: float = 1e-5):
     """None when the two top-k results agree: values within tol, indices
     equal except where the plain version's neighbouring values are closer
@@ -416,18 +495,20 @@ def topk_mismatch(vals, idx, rvals, ridx, tol: float = 1e-5):
     return None
 
 
-def check_topk(ttk, shape, gen, ascending: bool = False):
+def check_topk(ttk, shape, gen, ascending: bool = False, offset: int = 0):
     """K5 over a store of unit rows (as the search route normalizes it once
     at upload) and a random query; with `ascending`, the rows sorted by
     their similarity to it, lowest first (every row beats each block's
-    running threshold: the filter's worst case). Kernel, plain and library
-    ms, its plan, CUDA kernels per call, device µs per kernel
-    (torch.profiler) and host µs to enqueue a call."""
+    running threshold: the filter's worst case); with `offset`, the store a
+    view starting that many elements into its buffer (not 16-byte aligned).
+    Kernel, plain and library ms, its plan, CUDA kernels per call, device
+    µs per kernel (torch.profiler) and host µs to enqueue a call."""
     import torch
 
     n, d, k = shape
     dev = torch.device("cuda")
-    feats = torch.randn((n, d), generator=gen, device=dev)
+    flat = torch.randn((n * d + offset,), generator=gen, device=dev)
+    feats = flat[offset:].view(n, d)
     feats /= feats.norm(dim=1, keepdim=True)
     q = torch.randn((d,), generator=gen, device=dev)
     qn = q / q.norm().clamp_min(1e-8)
@@ -438,19 +519,21 @@ def check_topk(ttk, shape, gen, ascending: bool = False):
     rvals, ridx = ttk.top_k_cosine_ref(q, feats, k)
     bad = topk_mismatch(vals, idx, rvals, ridx)
     if bad:
-        fail(f"top_k_cosine {shape}{' ascending' if ascending else ''}: {bad}")
+        fail(f"top_k_cosine {shape}{' ascending' if ascending else ''} offset {offset}: {bad}")
     # the store read once, q read and k values + k indices written once;
     # 4 flops per element (dot and sum of squares) on the fp32 CUDA cores
     b_ms, b_by = bound(4 * n * d + 4 * d + 8 * k, 4 * n * d, PEAK_FP32_FLOP_S)
     kernel = lambda: ttk.top_k_cosine_kernel(q, feats, k)  # noqa: E731
     us, per_call = profile_kernels([kernel])
     row = {
-        "shape": list(shape), "ascending": ascending, "max_abs_err": (vals - rvals).abs().max().item(),
+        "shape": list(shape), "ascending": ascending, "offset": offset,
+        "max_abs_err": (vals - rvals).abs().max().item(),
         "ms": cuda_ms(kernel, iters=20, repeats=5),
         "plain_ms": cuda_ms(lambda: ttk.top_k_cosine_ref(q, feats, k), iters=3, warmup=1),
         "library_ms": cuda_ms(lambda: torch.topk(feats @ qn, k), iters=20, repeats=5),
         "bound_ms": b_ms, "bound_by": b_by,
-        "plan": ttk._topk_plan(n, d, k, torch.cuda.get_device_properties(0).multi_processor_count)._asdict(),
+        "plan": ttk._topk_plan(n, d, k, torch.cuda.get_device_properties(0).multi_processor_count,
+                               feats.data_ptr() % 16 // 4)._asdict(),
         "kernels_per_call": per_call, "device_us": us, "host_us": host_us([kernel]),
     }
     # the trace may drop an event (a reading under one is the profiler's);
@@ -461,6 +544,7 @@ def check_topk(ttk, shape, gen, ascending: bool = False):
 
 
 _EPILOGUES = {"0": "gelu", "1": "bias", "2": "bias+residual", "3": "fp32 partial"}
+_EPILOGUES_F32 = {"0": "gelu", "1": "bias", "2": "bias+residual"}
 
 
 def build_report(native, topk_plan):
@@ -471,24 +555,35 @@ def build_report(native, topk_plan):
     import re
 
     out = []
-    for source in ("flash_mha.cu", "fused_mlp.cu", "topk_cosine.cu"):
+    for source in native.KERNEL_SOURCES:
         log = native.build_log.split(f"== {source}\n", 1)[-1].split("\n== ", 1)[0]
         for block in log.split("Compiling entry function '")[1:]:
             mangled = block.split("'", 1)[0]
             attn = re.search(r"flash_mha_kernelILi(\d+)E", mangled)
+            attn32 = re.search(r"flash_mha_f32_kernelILi(\d+)E", mangled)
             gemm = re.search(r"gemm_tnILi(\d+)ELi(\d+)E", mangled)
-            kind = re.search(r"\d+(layer_norm_rows|splitk_reduce)E", mangled)
+            gemm32 = re.search(r"gemm_f32ILi(\d+)ELi(\d+)ELi(\d+)E", mangled)
+            kind = re.search(r"\d+(layer_norm_rows_f32|layer_norm_rows|splitk_reduce)E", mangled)
             used = re.search(r"Used (\d+) registers", block)
             spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", block)
             smem = re.search(r"(\d+) bytes smem", block)
             if attn:
                 name, dyn = f"flash_mha_kernel<hd {attn.group(1)}>", native.kernels().hmm_flash_mha_smem_bytes(
                     int(attn.group(1)))
+            elif attn32:
+                nc = int(attn32.group(1))
+                name = f"flash_mha_f32_kernel<hd {16 * nc}>"
+                dyn = native.kernels().hmm_flash_mha_f32_smem_bytes(nc)
             elif gemm:
                 name = f"gemm_tn<BN {gemm.group(1)}, {_EPILOGUES[gemm.group(2)]}>"
                 dyn = native.kernels().hmm_fused_mlp_smem_bytes(int(gemm.group(1)))
+            elif gemm32:
+                name = f"gemm_f32<{gemm32.group(1)} x {gemm32.group(2)}, {_EPILOGUES_F32[gemm32.group(3)]}>"
+                dyn = 0
             elif "topk_cosine" in mangled:
-                name, dyn = "topk_cosine", topk_plan["smem_bytes"]
+                vec = "ILb1E" in mangled
+                name = f"topk_cosine<{'float4' if vec else 'element-wise'}>"
+                dyn = topk_plan["smem_bytes"] if vec else None
             else:
                 name, dyn = (kind.group(1) if kind else mangled), 0
             out.append({
@@ -502,6 +597,32 @@ def build_report(native, topk_plan):
                 "wgmma_serialized_notes": sum(1 for ln in log.splitlines() if "C7515" in ln and mangled in ln),
             })
     return out
+
+
+def ingest_expect(stms, ib_cfg, wh_blocks: int, fused: bool):
+    """The K1-K4 launches of one process_sequence by the phase-4/5 formula:
+    the vision tower's blocks once per vision chunk (128 frames, or 32 for
+    the rest), the audio tower's once per 32 audio segments, and
+    `wh_blocks` Whisper encoder blocks (K1 and K2 each); the fused
+    configuration puts every ImageBind block on K3 and the vision blocks
+    (H 16) on K4. Returns them with the frames, vision chunks and audio
+    segments counted."""
+    n_frames = sum(len(s.segment_info["frames"]) for s in stms)
+    n_vis_chunks, lo = 0, 0
+    while lo < n_frames:
+        lo += 128 if n_frames - lo >= 128 else 32
+        n_vis_chunks += 1
+    n_aud = sum(1 for s in stms if "audio" in s.features)
+    vis_blocks = n_vis_chunks * ib_cfg.vision.depth
+    aud_blocks = math.ceil(n_aud / 32) * ib_cfg.audio.depth
+    if fused:
+        expect = {"flash_mha": aud_blocks + wh_blocks, "fused_mlp": wh_blocks,
+                  "fused_ln_mlp_residual": vis_blocks + aud_blocks, "flash_mha_bthd": vis_blocks}
+    else:
+        expect = {"flash_mha": vis_blocks + aud_blocks + wh_blocks,
+                  "fused_mlp": vis_blocks + aud_blocks + wh_blocks,
+                  "fused_ln_mlp_residual": 0, "flash_mha_bthd": 0}
+    return expect, n_frames, n_vis_chunks, n_aud
 
 
 def set_fused_flags(fa, fm, on: bool) -> None:
@@ -1629,6 +1750,23 @@ def profile_step(fn, top: int = 12):
             "kernels": len(spans), "top": [{"name": k[:90], "us": us, "count": n} for k, (us, n) in kernels]}
 
 
+def train_batch(cfg):
+    """The training phases' fixed seeded batch of TRAIN_B pairs:
+    normalized-image-like pixels, and captions of seeded lengths ending in
+    EOS (the largest id), zero-padded as the tokenizer pads them."""
+    import torch
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(10)
+    images = torch.randn((TRAIN_B, 3, cfg.image_size, cfg.image_size), generator=gen, device=dev)
+    t = cfg.context_length
+    tokens = torch.randint(1, cfg.vocab_size - 1, (TRAIN_B, t), generator=gen, device=dev)
+    lengths = torch.randint(8, t, (TRAIN_B,), generator=gen, device=dev)
+    tokens = torch.where(torch.arange(t, device=dev) < lengths[:, None], tokens, 0)
+    tokens[torch.arange(TRAIN_B, device=dev), lengths] = cfg.vocab_size - 1
+    return images, tokens
+
+
 def train_phase(fa, fm, counters):
     """10. contrastive training at full ImageBind-Huge width (see the
     module doc)."""
@@ -1646,22 +1784,12 @@ def train_phase(fa, fm, counters):
     torch.cuda.reset_peak_memory_stats()
     live_before = torch.cuda.memory_allocated()
     cfg = huge_config()
-    dev = torch.device("cuda")
     t0 = time.perf_counter()
     params, opt = tc.init_train_state(cfg, learning_rate=TRAIN_LR, seed=10)  # CUDA by default
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     n_params = sum(p.numel() for p in ck.flatten_params(params).values())
-    # a fixed seeded batch: normalized-image-like pixels, and captions of
-    # seeded lengths ending in EOS (the largest id), zero-padded as the
-    # tokenizer pads them
-    gen = torch.Generator(device=dev).manual_seed(10)
-    images = torch.randn((TRAIN_B, 3, cfg.image_size, cfg.image_size), generator=gen, device=dev)
-    t = cfg.context_length
-    tokens = torch.randint(1, cfg.vocab_size - 1, (TRAIN_B, t), generator=gen, device=dev)
-    lengths = torch.randint(8, t, (TRAIN_B,), generator=gen, device=dev)
-    tokens = torch.where(torch.arange(t, device=dev) < lengths[:, None], tokens, 0)
-    tokens[torch.arange(TRAIN_B, device=dev), lengths] = cfg.vocab_size - 1
+    images, tokens = train_batch(cfg)
     vis, txt = cfg.vision.depth, cfg.text.depth
     expect = {False: {"flash_mha": vis, "fused_mlp": vis + txt, "fused_ln_mlp_residual": 0, "flash_mha_bthd": 0},
               True: {"flash_mha": 0, "fused_mlp": 0, "fused_ln_mlp_residual": vis + txt, "flash_mha_bthd": vis}}
@@ -2097,6 +2225,196 @@ def mesh_train_phase(fa, fm, counters, carry, card):
     return out
 
 
+F32_FEATURE_TOL, F32_FEATURE_COS = 1e-3, 0.99999  # fp32 kernels vs fp32 plain, of max |feature|
+F32_BF16_COS = 0.999  # fp32 features vs phase 4/5's bf16 ones
+F32_GRAD_TOL = 1e-3  # fp32 kernel step vs fp32 plain step, relative L2 per leaf
+
+
+def _reset_counts(counters):
+    for c in counters.values():
+        c.launches = 0
+        c.launches_f32 = 0
+
+
+def _min_cosine(a, b):
+    import numpy as np
+
+    return float((np.sum(a * b, 1) / (np.linalg.norm(a, axis=1) * np.linalg.norm(b, axis=1))).min())
+
+
+def fp32_phase(cfg, clip, bf16_features, counters, fa, fm):
+    """13. the fp32 paths (see the module doc): (a) the ingest with
+    models.compute_dtype float32, (b) a contrastive training step and 3
+    steps in fp32, (c) the multi-device dry run, which trains in fp32."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from hippomm_tpu_torch import graft_entry
+    from hippomm_tpu_torch.memory.engine import HippocampalMemory
+    from hippomm_tpu_torch.models import layers
+    from hippomm_tpu_torch.models.imagebind.model import huge_config
+    from hippomm_tpu_torch.train import contrastive as tc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = {}
+
+    def routed_out(fn):
+        """fn() with the kernels' shape gates shut: the plain route."""
+        gates = (layers.flash_supported, layers.fused_mlp_supported, fa.bthd_supported)
+        layers.flash_supported = layers.fused_mlp_supported = fa.bthd_supported = lambda *a: False
+        try:
+            return fn()
+        finally:
+            layers.flash_supported, layers.fused_mlp_supported, fa.bthd_supported = gates
+
+    # (a) the ingest at full width with ImageBind in fp32 (the engine builds
+    # Whisper in bf16 whatever compute_dtype says, as the JAX engine does)
+    cfg32 = copy.deepcopy(cfg)
+    cfg32.models.compute_dtype = "float32"
+    runs, feats = {}, {}
+    with tempfile.TemporaryDirectory() as store_dir:
+        cfg32.storage.base_dir = store_dir
+        t0 = time.perf_counter()
+        mem = HippocampalMemory(cfg32)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        ib, wcfg = mem.imagebind, mem.whisper.cfg
+        if ib.dtype != torch.float32 or ib.params["vision"]["blocks"][0]["mlp"]["fc1"]["weight"].dtype != torch.float32:
+            fail("fp32 ingest: the engine did not build ImageBind in fp32")
+        wh_blocks = math.ceil(math.ceil(len(clip.audio) / (30 * 16000)) / 32) * wcfg.encoder_layers
+        for name, fused, plain in (("default", False, False), ("fused", True, False), ("plain", False, True)):
+            vid = f"clip32_{name}"
+            set_fused_flags(fa, fm, fused)
+            _reset_counts(counters)
+            before = dict(mem.timers.totals)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            try:
+                run = lambda: mem.process_sequence(  # noqa: E731
+                    vid, frame_paths=[f"frames/{vid}/{i:05d}.jpg" for i in range(len(clip.frames))],
+                    frame_times=clip.frame_times, frames_rgb=clip.frames, audio_data=clip.audio)
+                stms = routed_out(run) if plain else run()
+                torch.cuda.synchronize()
+            finally:
+                set_fused_flags(fa, fm, False)
+            wall = time.perf_counter() - t0
+            launches = {n: c.launches for n, c in counters.items()}
+            launches_f32 = {n: c.launches_f32 for n, c in counters.items()}
+            expect, n_frames, n_vis_chunks, n_aud = ingest_expect(stms, ib.cfg, wh_blocks, fused)
+            expect_f32 = ingest_expect(stms, ib.cfg, 0, fused)[0]
+            if plain:  # every gate shut, Whisper's too
+                expect = expect_f32 = dict.fromkeys(expect, 0)
+            stages = {k: v - before.get(k, 0.0) for k, v in mem.timers.totals.items()}
+            print(f"fp32 ingest {name}: {len(stms)} segments, {n_frames} frames in {n_vis_chunks} vision chunks, "
+                  f"{n_aud} audio segments; launches {launches} (expected {expect}), fp32 {launches_f32} "
+                  f"(expected {expect_f32}); wall {wall:.2f} s; stages "
+                  f"{json.dumps({k: round(v, 4) for k, v in stages.items()})}", flush=True)
+            if launches != expect or launches_f32 != expect_f32:
+                fail(f"fp32 ingest {name}: launches {launches}, fp32 {launches_f32}: not {expect}, {expect_f32}")
+            feats[name] = {mod: np.concatenate([s.features[mod] for s in stms if mod in s.features])
+                           for mod in ("vision", "audio")}
+            runs[name] = {"wall_s": wall, "stages_s": stages, "segments": len(stms), "frames": n_frames,
+                          "launches": launches, "launches_f32": launches_f32}
+        del mem, ib
+    agree = {}
+    for name in ("default", "fused"):
+        for mod in ("vision", "audio"):
+            a, b, b16 = feats[name][mod], feats["plain"][mod], bf16_features[name][mod]
+            if not a.shape == b.shape == b16.shape:
+                fail(f"fp32 ingest {name} {mod}: features {a.shape}, plain {b.shape}, bf16 {b16.shape}")
+            err = float(np.abs(a - b).max() / np.abs(b).max())
+            cos, cos16 = _min_cosine(a, b), _min_cosine(a, b16)
+            agree[f"{name}_{mod}"] = {"rel_max_abs_err": err, "min_cosine": cos, "min_cosine_vs_bf16": cos16}
+            print(f"fp32 ingest {name} {mod}: vs the kernels routed out max abs {err:.3g} of max |feature| "
+                  f"(limit {F32_FEATURE_TOL}), min cosine {cos:.7f} (limit {F32_FEATURE_COS}); vs phase "
+                  f"{'5' if name == 'fused' else '4'}'s bf16 features min cosine {cos16:.6f} (limit "
+                  f"{F32_BF16_COS})", flush=True)
+            if not (math.isfinite(err) and err <= F32_FEATURE_TOL and cos >= F32_FEATURE_COS):
+                fail(f"fp32 ingest {name} {mod}: kernels vs plain {err}, cos {cos}")
+            if not cos16 >= F32_BF16_COS:
+                fail(f"fp32 ingest {name} {mod}: vs bf16 features cos {cos16}")
+    out["ingest"] = {"init_s": init_s, "runs": runs, "agree": agree, "media_s": float(len(clip.audio) / 16000)}
+    del feats
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b) training in fp32 through the kernels (K1/K2) at full width
+    hcfg = huge_config()
+    params, opt = tc.init_train_state(hcfg, learning_rate=TRAIN_LR, seed=10)
+    images, tokens = train_batch(hcfg)
+    vis, txt = hcfg.vision.depth, hcfg.text.depth
+    expect = {"flash_mha": vis, "fused_mlp": vis + txt, "fused_ln_mlp_residual": 0, "flash_mha_bthd": 0}
+    _reset_counts(counters)
+    t0 = time.perf_counter()
+    loss_k, gk = tc.loss_and_grads(params, images, tokens, hcfg, torch.float32)
+    launched = {n: c.launches_f32 for n, c in counters.items()}
+    if launched != expect:
+        fail(f"fp32 train: the gradient step launched {launched} fp32 kernels, not {expect}")
+    loss_p, gp = routed_out(lambda: tc.loss_and_grads(params, images, tokens, hcfg, torch.float32))
+    errs = {k: ((gk[k] - r).norm() / r.norm().clamp_min(1e-30)).item() for k, r in gp.items() if r is not None}
+    grad_s = time.perf_counter() - t0
+    del gk, gp
+    worst = max(errs.items(), key=lambda kv: kv[1])
+    med = float(sorted(errs.values())[len(errs) // 2])
+    print(f"fp32 train gradients through the kernels vs routed out: {len(errs)} leaves, relative L2 median "
+          f"{med:.3g}, max {worst[1]:.3g} ({worst[0]}; limit {F32_GRAD_TOL}); losses "
+          f"{float(loss_k['loss']):.7f} / {float(loss_p['loss']):.7f}; {grad_s:.1f} s", flush=True)
+    if not worst[1] <= F32_GRAD_TOL:
+        fail(f"fp32 train: {sum(e > F32_GRAD_TOL for e in errs.values())} leaves' gradients past "
+             f"{F32_GRAD_TOL} of the plain fp32 step: worst {worst}")
+    torch.cuda.reset_peak_memory_stats()
+    step = tc.make_train_step(hcfg, opt, dtype=torch.float32)
+    timer = StepTimer(tc, opt)
+    steps = []
+    try:
+        for i in range(TRAIN_STEPS):
+            _reset_counts(counters)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            timer.start()
+            metrics = step(params, images, tokens)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+            launched = {n: c.launches_f32 for n, c in counters.items()}
+            loss = metrics["loss"].item()
+            if launched != expect or not math.isfinite(loss):
+                fail(f"fp32 train step {i}: fp32 launches {launched} (expected {expect}), loss {loss}")
+            steps.append({"step": i, "loss": loss, "wall_ms": wall, "ms": timer.read(), "launches_f32": launched})
+            print(f"fp32 train step {i}: loss {loss:.6f}; wall {wall:.1f} ms (forward "
+                  f"{steps[-1]['ms']['forward']:.1f}, backward {steps[-1]['ms']['backward']:.1f}, optimizer "
+                  f"{steps[-1]['ms']['optimizer']:.1f}); fp32 launches {launched}", flush=True)
+    finally:
+        timer.restore()
+    peak = torch.cuda.max_memory_allocated()
+    losses = [r["loss"] for r in steps]
+    print(f"fp32 train: losses {losses}; max memory allocated {peak / 2**30:.2f} GiB", flush=True)
+    if not losses[-1] < losses[0]:
+        fail(f"fp32 train: the loss did not fall over {TRAIN_STEPS} steps: {losses}")
+    out["train"] = {"grad_rel_err": {"median": med, "max": worst[1], "leaf": worst[0], "leaves": len(errs)},
+                    "steps": steps, "max_memory_allocated": peak, "launches": steps[0]["launches_f32"]}
+    del params, opt, step, images, tokens
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (c) the dry run on a mesh of 4 shards on the card, in fp32
+    _reset_counts(counters)
+    t0 = time.perf_counter()
+    dry = graft_entry.dryrun_multichip(4, devices=[torch.device("cuda", 0)] * 4)
+    torch.cuda.synchronize()
+    dry_s = time.perf_counter() - t0
+    launched = {n: c.launches_f32 for n, c in counters.items()}
+    print(f"fp32 dry run: {dry['line']}; {dry_s:.1f} s; fp32 launches {launched}", flush=True)
+    if sum(launched.values()) == 0 or sum(c.launches for c in counters.values()) != sum(launched.values()):
+        fail(f"fp32 dry run: fp32 launches {launched}, all launches "
+             f"{ {n: c.launches for n, c in counters.items()} }: not every one an fp32 kernel's")
+    out["dryrun"] = {"line": dry["line"], "s": dry_s, "launches_f32": launched,
+                     **{k: v for k, v in dry.items() if k.endswith("loss")}}
+    return out
+
+
 class CliSpies:
     """What the ingest CLI does on the card: every key-frame scanner's fed
     luma, times and mask handles, the seconds of each mask read (and how
@@ -2480,7 +2798,26 @@ def main() -> int:
         "top_k_cosine": [check_topk(ttk, s, gen) for s in (
             (200_000, 1024, 20), (200_000, 1024, 40), (1_000_000, 1024, 128))]
         + [check_topk(ttk, (200_000, 1024, 20), gen, ascending=True)]
-        + [check_topk(ttk, s, gen) for s in SHARD_SHAPES["top_k_cosine"]],
+        + [check_topk(ttk, s, gen) for s in SHARD_SHAPES["top_k_cosine"]]
+        # ... and rows of any width (D 6, 1026: the element-wise instance)
+        # and a store view one element into its buffer
+        + [check_topk(ttk, s, gen, offset=o) for s, o in (
+            ((200_000, 6, 20), 0), ((200_000, 1026, 20), 0), ((200_000, 1024, 20), 1))],
+        # the fp32 kernels (phase 13's paths, as the JAX package computes
+        # them in fp32): K1 at the ingest, Whisper and training shapes
+        "flash_mha_f32": [check_attention_f32(fa, s, gen, False) for s in (
+            (32, 16, 257, 257, 80), (96, 12, 229, 230, 64), (4, 20, 1500, 1500, 64), (16, 16, 257, 257, 80))],
+        # ... K2/K3 at the ingest, Whisper, text (1 and 8 questions) and
+        # training shapes
+        "fused_mlp_f32": [check_mlp_kernel(fm, s, gen, False, f32=True) for s in (
+            (8224, 1280, 5120), (21984, 768, 3072), (6000, 1280, 5120), (77, 1024, 4096),
+            (616, 1024, 4096), (4112, 1280, 5120), (1232, 1024, 4096))],
+        "fused_ln_mlp_residual_f32": [check_mlp_kernel(fm, s, gen, True, f32=True) for s in (
+            (8224, 1280, 5120), (21984, 768, 3072), (77, 1024, 4096), (616, 1024, 4096),
+            (4112, 1280, 5120), (1232, 1024, 4096))],
+        # ... K4 on the vision tower's packed projection, ingest and training
+        "flash_mha_bthd_f32": [check_attention_f32(fa, s, gen, True) for s in (
+            (32, 257, 16, 80), (16, 257, 16, 80))],
     }
     torch.cuda.empty_cache()
     for name, rs in rows.items():
@@ -2492,7 +2829,8 @@ def main() -> int:
                      f"{ {k: round(v, 2) for k, v in (r['device_us'] or {}).items()} }, "
                      f"host µs per call {r['host_us']:.1f}"
                      if "plan" in r else "")
-            print(f"{name} {r['shape']}{' ascending' if r.get('ascending') else ''}"
+            off = f" offset {r['offset']}" if r.get("offset") else ""
+            print(f"{name} {r['shape']}{' ascending' if r.get('ascending') else ''}{off}"
                   f"{' without residual' if r.get('residual') is False else ''}: "
                   f"err {r['max_abs_err']:.3g} kernel {r['ms']:.4f} ms "
                   f"plain {r['plain_ms']:.4f} ms library {r['library_ms']:.4f} ms "
@@ -2615,23 +2953,8 @@ def main() -> int:
                 torch.cuda.synchronize()
                 wall = time.perf_counter() - t0
                 launches = {name: c.launches for name, c in counters.items()}
-                n_frames = sum(len(s.segment_info["frames"]) for s in stms)
-                n_vis_chunks, lo = 0, 0
-                while lo < n_frames:
-                    lo += 128 if n_frames - lo >= 128 else 32
-                    n_vis_chunks += 1
-                n_aud = sum(1 for s in stms if "audio" in s.features)
-                vis_blocks = n_vis_chunks * ib.cfg.vision.depth
-                aud_blocks = math.ceil(n_aud / 32) * ib.cfg.audio.depth
-                wh_blocks = enc_batches * wcfg.encoder_layers
-                if fused:  # K3 every ImageBind block, K4 the vision blocks (H 16)
-                    expect = {"flash_mha": aud_blocks + wh_blocks, "fused_mlp": wh_blocks,
-                              "fused_ln_mlp_residual": vis_blocks + aud_blocks,
-                              "flash_mha_bthd": vis_blocks}
-                else:
-                    expect = {"flash_mha": vis_blocks + aud_blocks + wh_blocks,
-                              "fused_mlp": vis_blocks + aud_blocks + wh_blocks,
-                              "fused_ln_mlp_residual": 0, "flash_mha_bthd": 0}
+                expect, n_frames, n_vis_chunks, n_aud = ingest_expect(
+                    stms, ib.cfg, enc_batches * wcfg.encoder_layers, fused)
                 if len(decodes) != enc_batches:
                     fail(f"{phase}: {len(decodes)} Whisper decodes for {enc_batches} encoder batches")
                 plen = len(wt._prompt()[0])
@@ -2753,16 +3076,27 @@ def main() -> int:
     report["mesh_train"] = mesh_train_phase(fa, fm, counters, carry, card)
     del carry
 
+    # 13. the fp32 paths: the ingest with ImageBind in fp32 (held to phase
+    # 4/5's bf16 features), fp32 training, the dry run
+    report["fp32"] = fp32_phase(cfg, clip, one_device, counters, fa, fm)
+    del one_device
+
     sources = {"flash_mha": "hippomm_tpu_torch/csrc/flash_mha.cu",
                "fused_mlp": "hippomm_tpu_torch/csrc/fused_mlp.cu",
                "fused_ln_mlp_residual": "hippomm_tpu_torch/csrc/fused_mlp.cu",
                "flash_mha_bthd": "hippomm_tpu_torch/csrc/flash_mha.cu",
-               "top_k_cosine": "hippomm_tpu_torch/csrc/topk_cosine.cu"}
+               "top_k_cosine": "hippomm_tpu_torch/csrc/topk_cosine.cu",
+               "flash_mha_f32": "hippomm_tpu_torch/csrc/flash_mha_f32.cu",
+               "fused_mlp_f32": "hippomm_tpu_torch/csrc/fused_mlp_f32.cu",
+               "fused_ln_mlp_residual_f32": "hippomm_tpu_torch/csrc/fused_mlp_f32.cu",
+               "flash_mha_bthd_f32": "hippomm_tpu_torch/csrc/flash_mha_f32.cu"}
     replaces = {"flash_mha": "hippomm_tpu/ops/flash_attention.py:80",
                 "fused_mlp": "hippomm_tpu/ops/fused_mlp.py:123",
                 "fused_ln_mlp_residual": "hippomm_tpu/ops/fused_mlp.py:153",
                 "flash_mha_bthd": "hippomm_tpu/ops/flash_attention.py:319",
                 "top_k_cosine": "hippomm_tpu/ops/pallas_topk.py:46"}
+    for name in ("flash_mha", "fused_mlp", "fused_ln_mlp_residual", "flash_mha_bthd"):
+        replaces[f"{name}_f32"] = replaces[name]
     # launches per path, each read from counts set to 0 just before it
     by_path = {f"ingest_{ph}": paths[ph]["launches"] for ph in paths}
     by_path["cli"] = report["cli"]["launches"]
@@ -2782,17 +3116,27 @@ def main() -> int:
     # phase 12: one step of each mesh path
     for name, counts in report["mesh_train"]["launches"].items():
         by_path[f"mesh_train_{name}"] = counts
-    # each kernel's own path: K1/K2 the default ingest, K3/K4 the fused one, K5 the query path
+    # the fp32 kernels' launches per phase-13 path, each read from counts
+    # set to 0 just before it
+    by_path_f32 = {f"fp32_ingest_{ph}": report["fp32"]["ingest"]["runs"][ph]["launches_f32"]
+                   for ph in ("default", "fused")}
+    by_path_f32["fp32_train"] = report["fp32"]["train"]["launches"]
+    by_path_f32["fp32_dryrun"] = report["fp32"]["dryrun"]["launches_f32"]
+    # each kernel's own path: K1/K2 the default ingest, K3/K4 the fused one,
+    # K5 the query path; the fp32 kernels the same in phase 13
     own_path = {"flash_mha": "ingest_default", "fused_mlp": "ingest_default",
                 "fused_ln_mlp_residual": "ingest_fused", "flash_mha_bthd": "ingest_fused",
                 "top_k_cosine": "query"}
     kernels = []
     for name, rs in rows.items():
         head = rs[0]  # the first shape: vision tower (K1-K4), the JAX store scale (K5)
+        base = name.removesuffix("_f32")
+        paths_of = by_path_f32 if name != base else by_path
+        own = own_path[base] if name == base else f"fp32_{own_path[base]}"
         kernels.append({
             "name": name, "route": "cuda", "source": sources[name], "replaces": replaces[name],
-            "launches": by_path[own_path[name]][name],
-            "launches_by_path": {ph: counts.get(name, 0) for ph, counts in by_path.items()},
+            "launches": paths_of[own][base],
+            "launches_by_path": {ph: counts.get(base, 0) for ph, counts in paths_of.items()},
             "max_abs_err": max(r["max_abs_err"] for r in rs),
             "ms": head["ms"], "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
             "bound_by": head["bound_by"], "library_ms": head["library_ms"],

@@ -45,13 +45,23 @@
 // kernel: rows by rsqrt(max(Σf², 1e-16)), the query by 1 / max(‖q‖, 1e-8).
 // Row offsets are 64-bit (N·D ≥ 2³¹ is fine); rows themselves are int32.
 //
+// Any D and any 4-byte aligned store (a view at any element offset): a
+// chunk's bulk copy takes its 16-byte aligned interior, and the producer
+// warp reads the at most 3 elements before it and 3 after it with ordinary
+// loads into the same slot, before the slot's barrier arrival releases
+// them; the slot keeps the store's alignment (the chunk starts at element
+// (base + first) % 4 of it), so no copy of the store is made. Rows are then
+// read one element a lane. Where D % 4 == 0 and the base is 16-byte aligned
+// (`kVec`, the search path's stores), every chunk is aligned, and rows are
+// read as float4 — that instance has no head or tail code.
+//
 // Bound on the H100: N·D·4 bytes read once against 4·N·D fp32 flops — one
 // flop per byte, far below the ~20 of fp32 CUDA cores per byte of HBM:
 // memory-bound. The store's one read is the only large traffic; the sorts
 // work in shared memory, and the merge reads blocks × k × 8 bytes from L2.
 //
-// Requirements (checked by the wrapper and here): 1 ≤ k ≤ 128, k ≤ n, D a
-// multiple of 4, feats fp32 contiguous and 16-byte aligned; q fp32 (D,).
+// Requirements (checked by the wrapper and here): 1 ≤ k ≤ 128, k ≤ n, D ≥ 1,
+// feats fp32 contiguous (4-byte aligned, as any fp32 tensor); q fp32 (D,).
 
 #include <climits>
 #include <cmath>
@@ -127,15 +137,22 @@ struct Shared {
   float red[kConsumerWarps];
 };
 
+constexpr int kMergeMin = 4096;  // entries the merge needs in the ring's shared memory
+
 // The byte layout of the dynamic shared memory, as ops/topk._topk_plan
-// computes it: the ring (reused by the merge), q, the list and buffer, one
-// count per block (the merge), the ring's full and empty barriers.
+// computes it: the ring of `stages` slots of `slot` floats (a chunk, and
+// up to 3 floats before it and after it where the chunks are not aligned;
+// at least the merge's 4096 entries, which reuse it), q, the list and
+// buffer, one count per block (the merge), the ring's full and empty
+// barriers.
 struct Layout {
-  int ring, q, list, lens, bars, total;
-  __host__ __device__ Layout(int d, int chunk_rows, int stages, int blocks) {
+  int slot, ring, q, list, lens, bars, total;
+  __host__ __device__ Layout(int d, int chunk_rows, int stages, int blocks, bool vec) {
+    slot = vec ? chunk_rows * d : (chunk_rows * d + 3 + 3) / 4 * 4;
+    ring = (stages * slot * 4 + 127) / 128 * 128;
+    q = ring > 8 * kMergeMin ? ring : 8 * kMergeMin;
     ring = 0;
-    q = (stages * chunk_rows * 4 * d + 127) / 128 * 128;
-    list = q + 4 * d;
+    list = q + (4 * d + 15) / 16 * 16;
     lens = list + 8 * kList;
     bars = lens + (4 * (blocks + 1) + 15) / 16 * 16;
     total = bars + 16 * stages;
@@ -171,13 +188,17 @@ struct TopkArgs {
   int* out_i;
 };
 
+template <bool kVec>
 __global__ void __launch_bounds__(kThreads, 2)
 topk_cosine(const TopkArgs a) {
   extern __shared__ __align__(128) unsigned char smem[];
   __shared__ Shared sh;
   const int d = a.d, k = a.k, rows_per_chunk = a.chunk_rows, stages = a.stages;
   const int nb = gridDim.x;
-  const Layout lay(d, rows_per_chunk, stages, nb);
+  const Layout lay(d, rows_per_chunk, stages, nb, kVec);
+  const int slot = lay.slot;
+  // the store's first element's position in its 16 bytes (0 for kVec)
+  const int mis = kVec ? 0 : (int)((reinterpret_cast<uintptr_t>(a.feats) >> 2) & 3);
   float* ring = reinterpret_cast<float*>(smem + lay.ring);
   float* qs = reinterpret_cast<float*>(smem + lay.q);
   float* lv = reinterpret_cast<float*>(smem + lay.list);
@@ -207,12 +228,32 @@ topk_cosine(const TopkArgs a) {
     for (int c = 0; c < chunks; ++c) {
       const int s = c % stages;
       if (c >= stages) mbar_wait(empty + 8 * s, ((c / stages) - 1) & 1);
-      if (lane == 0) {
-        const int r_in = min(rows_per_chunk, rows - c * rows_per_chunk);
-        const uint32_t bytes = (uint32_t)r_in * (uint32_t)d * 4u;
-        mbar_expect_tx(full + 8 * s, bytes);
-        bulk_load(smem_u32(ring + (size_t)s * rows_per_chunk * d),
-                  a.feats + (row0 + (int64_t)c * rows_per_chunk) * d, bytes, full + 8 * s);
+      const int r_in = min(rows_per_chunk, rows - c * rows_per_chunk);
+      const int64_t first = (row0 + (int64_t)c * rows_per_chunk) * d;
+      if (kVec) {
+        if (lane == 0) {
+          const uint32_t bytes = (uint32_t)r_in * (uint32_t)d * 4u;
+          mbar_expect_tx(full + 8 * s, bytes);
+          bulk_load(smem_u32(ring + (size_t)s * slot), a.feats + first, bytes, full + 8 * s);
+        }
+      } else {
+        // the chunk [first, first + len) at element `off` of its slot: the
+        // head up to the next 16 bytes and the tail past the last by
+        // ordinary loads (lanes 0-2 and 4-6), the aligned body in bulk
+        const int len = r_in * d;
+        const int off = (int)((mis + first) & 3);
+        const int head = min((4 - off) & 3, len);
+        const int body = (len - head) & ~3;
+        const int tail = len - head - body;
+        float* dst = ring + (size_t)s * slot + off;
+        if (lane < head) dst[lane] = __ldg(a.feats + first + lane);
+        if (lane >= 4 && lane < 4 + tail) dst[head + body + lane - 4] = __ldg(a.feats + first + head + body + lane - 4);
+        __syncwarp();
+        if (lane == 0) {
+          // the arrival releases the head and tail stores to the consumers
+          mbar_expect_tx(full + 8 * s, (uint32_t)body * 4u);
+          if (body > 0) bulk_load(smem_u32(dst + head), a.feats + first + head, (uint32_t)body * 4u, full + 8 * s);
+        }
       }
       __syncwarp();
     }
@@ -256,7 +297,7 @@ topk_cosine(const TopkArgs a) {
       const int ti = sh.thr_i;
       const int first = (int)(row0 + (int64_t)c * rows_per_chunk);
       mbar_wait(full + 8 * s, (c / stages) & 1);
-      const float* tile = ring + (size_t)s * rows_per_chunk * d;
+      const float* tile = ring + (size_t)s * slot + (kVec ? 0 : (int)((mis + (int64_t)first * d) & 3));
       // warp w takes rows w, w + 8, ...; 32 of them at a time, lane j
       // keeping the j-th one's similarity for the ballot
       for (int r0 = warp; r0 < r_in; r0 += 32 * kConsumerWarps) {
@@ -265,14 +306,24 @@ topk_cosine(const TopkArgs a) {
         for (int j = 0; j < 32; ++j) {
           const int r = r0 + j * kConsumerWarps;
           if (r >= r_in) break;
-          const float4* f4 = reinterpret_cast<const float4*>(tile + (size_t)r * d);
           float dot = 0.0f, ss = 0.0f;
+          if (kVec) {
+            const float4* f4 = reinterpret_cast<const float4*>(tile + (size_t)r * d);
 #pragma unroll 8
-          for (int e = lane; e < d4; e += 32) {
-            const float4 f = f4[e];
-            const float4 qv = q4[e];
-            dot += f.x * qv.x + f.y * qv.y + f.z * qv.z + f.w * qv.w;
-            ss += f.x * f.x + f.y * f.y + f.z * f.z + f.w * f.w;
+            for (int e = lane; e < d4; e += 32) {
+              const float4 f = f4[e];
+              const float4 qv = q4[e];
+              dot += f.x * qv.x + f.y * qv.y + f.z * qv.z + f.w * qv.w;
+              ss += f.x * f.x + f.y * f.y + f.z * f.z + f.w * f.w;
+            }
+          } else {
+            const float* fr = tile + (size_t)r * d;
+#pragma unroll 4
+            for (int e = lane; e < d; e += 32) {
+              const float f = fr[e];
+              dot += f * qs[e];
+              ss += f * f;
+            }
           }
           dot = warp_sum(dot);
           ss = warp_sum(ss);
@@ -316,7 +367,7 @@ topk_cosine(const TopkArgs a) {
 
   // The last block merges every block's list, with all its threads, in the
   // ring's shared memory (no chunk is in flight any more).
-  int cap = 4096;
+  int cap = kMergeMin;
   while (2 * cap * 8 <= lay.q) cap *= 2;
   float* mv = ring;
   int* mi = reinterpret_cast<int*>(ring + cap);
@@ -432,8 +483,10 @@ topk_cosine(const TopkArgs a) {
 
 extern "C" {
 
-// q (d,) fp32; feats (n, d) fp32 contiguous, 16-byte aligned, d % 4 == 0;
-// the plan of ops/topk._topk_plan (blocks, chunk_rows, stages, smem_bytes);
+// q (d,) fp32; feats (n, d) fp32 contiguous, any d ≥ 1 and any 4-byte
+// aligned base (the float4 instance where d % 4 == 0 and the base is 16-byte
+// aligned); the plan of ops/topk._topk_plan (blocks, chunk_rows, stages,
+// smem_bytes, for the same d and the base's element offset mod 4);
 // scratch int32 of 4 + 2 · blocks · k, zero at the first call (each call
 // leaves it so); out (2, k) int32: the values' bits, then the rows.
 // 1 ≤ k ≤ 128, k ≤ n. One launch on `stream`; returns the CUDA error code
@@ -441,30 +494,32 @@ extern "C" {
 int hmm_topk_cosine_f32(const void* q, const void* feats, int n, int d, int k, int blocks,
                         int chunk_rows, int stages, int smem_bytes, void* scratch, void* out,
                         void* stream) {
-  if (n <= 0 || d <= 0 || d % 4 || k < 1 || k > kMaxK || k > n || blocks < 1 || chunk_rows < 1 ||
-      chunk_rows > kList - kMaxK || stages < 2 || stages > kMaxStages)
+  if (n <= 0 || d <= 0 || k < 1 || k > kMaxK || k > n || blocks < 1 || chunk_rows < 1 ||
+      chunk_rows > kList - kMaxK || stages < 2 || stages > kMaxStages ||
+      reinterpret_cast<uintptr_t>(feats) % 4)
     return (int)cudaErrorInvalidValue;
-  const Layout lay(d, chunk_rows, stages, blocks);
-  // the merge works in the ring's shared memory: at least 4096 entries,
-  // which hold the lists' heads and a group of prefixes behind k
-  if (smem_bytes != lay.total || lay.q < 8 * 4096 ||
-      pow2_at_least(blocks * ((k + blocks - 1) / blocks)) > 4096)
+  const bool vec = d % 4 == 0 && reinterpret_cast<uintptr_t>(feats) % 16 == 0;
+  const Layout lay(d, chunk_rows, stages, blocks, vec);
+  // the merge works in the ring's shared memory (at least 4096 entries),
+  // which holds the lists' heads and a group of prefixes behind k
+  if (smem_bytes != lay.total || pow2_at_least(blocks * ((k + blocks - 1) / blocks)) > kMergeMin)
     return (int)cudaErrorInvalidValue;
   // the most dynamic shared memory a block may take beside the kernel's
-  // static shared memory, set once per device
-  static int most[kMaxDevices] = {};
+  // static shared memory, set once per device and instance
+  static int most[2][kMaxDevices] = {};
   int dev = 0;
   if (cudaGetDevice(&dev) != cudaSuccess || dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
-  if (most[dev] == 0) {
+  const auto fn = vec ? topk_cosine<true> : topk_cosine<false>;
+  if (most[vec][dev] == 0) {
     cudaFuncAttributes attr;
-    cudaError_t err = cudaFuncGetAttributes(&attr, topk_cosine);
+    cudaError_t err = cudaFuncGetAttributes(&attr, fn);
     if (err != cudaSuccess) return (int)err;
     const int dyn = kSmemBlock - (int)attr.sharedSizeBytes;
-    err = cudaFuncSetAttribute(topk_cosine, cudaFuncAttributeMaxDynamicSharedMemorySize, dyn);
+    err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, dyn);
     if (err != cudaSuccess) return (int)err;
-    most[dev] = dyn;
+    most[vec][dev] = dyn;
   }
-  if (smem_bytes > most[dev]) return (int)cudaErrorInvalidValue;
+  if (smem_bytes > most[vec][dev]) return (int)cudaErrorInvalidValue;
   TopkArgs args;
   args.q = static_cast<const float*>(q);
   args.feats = static_cast<const float*>(feats);
@@ -476,7 +531,7 @@ int hmm_topk_cosine_f32(const void* q, const void* feats, int n, int d, int k, i
   args.scratch = static_cast<int*>(scratch);
   args.out_v = static_cast<float*>(out);
   args.out_i = static_cast<int*>(out) + k;
-  topk_cosine<<<blocks, kThreads, smem_bytes, static_cast<cudaStream_t>(stream)>>>(args);
+  fn<<<blocks, kThreads, smem_bytes, static_cast<cudaStream_t>(stream)>>>(args);
   return (int)cudaGetLastError();
 }
 

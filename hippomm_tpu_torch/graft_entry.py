@@ -52,8 +52,8 @@ def _batch(rng, cfg, b: int):
 def dryrun_multichip(n_devices: int, devices: Optional[Sequence[DeviceSpec]] = None) -> Dict:
     """One train step of each parallel path over the first `n_devices` of
     `devices` (default: every CUDA device of this host), on tiny shapes, in
-    fp32 on CPU devices and bf16 on CUDA (the kernels' dtype). Asserts every
-    result finite, prints one line and returns its numbers."""
+    fp32 on every device type, as the JAX package's dry run trains. Asserts
+    every result finite, prints one line and returns its numbers."""
     from hippomm_tpu_torch.memory.schema import ThetaEvent
     from hippomm_tpu_torch.models.foundation import ImageBind
     from hippomm_tpu_torch.models.imagebind.model import tiny_config
@@ -69,7 +69,7 @@ def dryrun_multichip(n_devices: int, devices: Optional[Sequence[DeviceSpec]] = N
     devices = [canonical_device(d) for d in devices][:n_devices]
     if len(devices) < n_devices:
         raise ValueError(f"dryrun_multichip({n_devices}) got {len(devices)} devices")
-    dtype = torch.float32 if devices[0].type == "cpu" else torch.bfloat16
+    dtype = torch.float32
     out: Dict = {}
     model_parallel = 2 if n_devices % 2 == 0 and n_devices >= 2 else 1
     mesh = make_mesh(devices=devices, model_parallel=model_parallel)

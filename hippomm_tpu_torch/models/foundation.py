@@ -82,11 +82,6 @@ class ImageBind:
     ):
         self.mesh = mesh
         self.device = resolve_device(_home_device(device, mesh))
-        if self.device.type == "cuda" and dtype != torch.bfloat16:
-            # every encoder block runs K1/K2, whose CUDA kernels are bf16 only
-            raise NotImplementedError(
-                f"ImageBind on CUDA runs in bfloat16 (models.compute_dtype); got {dtype}"
-            )
         self.cfg = ib_model.get_config(variant)
         self.dtype = dtype
         ckpt = None
@@ -370,7 +365,7 @@ class Whisper:
     at the variant's full width, and the default without a checkpoint falls
     back to the stub. `params` (e.g. from whisper.carry.params_from_jax)
     replaces the random init. The tower runs on CUDA unless `device` says
-    otherwise; on CUDA in bfloat16 only (its encoder blocks run K1/K2).
+    otherwise.
     With a `mesh` the chunk batches shard over it (WhisperTranscriber)."""
 
     def __init__(
@@ -412,8 +407,6 @@ class Whisper:
             self._impl = StubWhisperSegments()
         elif ckpt or params is not None or variant == "tiny" or random_init:
             self.device = resolve_device(_home_device(device, mesh))
-            if self.device.type == "cuda" and dtype != torch.bfloat16:
-                raise NotImplementedError(f"Whisper on CUDA runs in bfloat16; got {dtype}")
             self.cfg = wh_model.get_config(variant)
             if ckpt:
                 from hippomm_tpu_torch.models.whisper.convert import load_whisper

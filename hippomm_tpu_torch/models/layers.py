@@ -20,8 +20,9 @@ the dtype:
     HIPPOMM_FUSED_BLOCK=1 (`_mlp_halfblock`), else `mlp(cast_out=True)` → K2
     `fused_mlp` (ops/fused_mlp) under `fused_mlp_default()`
     (HIPPOMM_FUSED_MLP=0 takes the plain torch ops).
-On CPU tensors the kernel wrappers run their plain versions; on CUDA a call
-the kernels cannot take (fp32) raises NotImplementedError. A flag at 0 is
+On CPU tensors the kernel wrappers run their plain versions; on CUDA their
+bf16 or fp32 kernels (the compute dtype's), and a call the kernels cannot
+take raises. A flag at 0 is
 the user's choice of the plain ops, not a fallback. Every route is
 differentiable: the kernel wrappers carry the JAX package's custom_vjp
 backward (plain PyTorch recomputes), so training runs through the kernels.

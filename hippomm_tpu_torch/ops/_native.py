@@ -2,7 +2,8 @@
 
 Four shared libraries with plain C interfaces, loaded with ctypes:
 
-  * the Hopper kernels (csrc/*.cu → one .so): every `.cu` source compiles
+  * the Hopper kernels (csrc/*.cu → one .so; K1/K4 and K2/K3 have a bf16
+    source and an fp32 one): every `.cu` source compiles
     with its own `nvcc` process, all started together, then one link step.
     Targets sm_90a. Needs `nvcc` (PATH or /usr/local/cuda/bin) — there is no
     fallback: a wrapper handed a CUDA tensor launches its kernel or raises.
@@ -42,7 +43,7 @@ logger = logging.getLogger(__name__)
 
 _CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_CSRC), "_build")
-KERNEL_SOURCES = ("flash_mha.cu", "fused_mlp.cu", "topk_cosine.cu")
+KERNEL_SOURCES = ("flash_mha.cu", "flash_mha_f32.cu", "fused_mlp.cu", "fused_mlp_f32.cu", "topk_cosine.cu")
 KERNEL_HEADERS = ("hopper.cuh",)
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -88,12 +89,15 @@ def bind_thread(device) -> None:
         bound.add(device.index)
 
 
-def count_launch(fn) -> None:
-    """Add one to a kernel wrapper's `launches` count. Under a lock: the
-    ingest launches kernels from more than one thread (the vision stream's
-    worker beside the engine), and a bare `+=` can lose a count."""
+def count_launch(fn, fp32: bool = False) -> None:
+    """Add one to a kernel wrapper's `launches` count, and for its fp32
+    kernel to `launches_f32` too. Under a lock: the ingest launches kernels
+    from more than one thread (the vision stream's worker beside the
+    engine), and a bare `+=` can lose a count."""
     with _count_lock:
         fn.launches += 1
+        if fp32:
+            fn.launches_f32 += 1
 
 
 def _nvcc() -> str:
@@ -157,12 +161,20 @@ def kernels() -> ctypes.CDLL:
         lib.hmm_flash_mha_bthd_bf16.restype = i32
         lib.hmm_flash_mha_smem_bytes.argtypes = [i32]
         lib.hmm_flash_mha_smem_bytes.restype = i32
+        lib.hmm_flash_mha_f32.argtypes = [vp, vp, vp, vp, *[i32] * 5, *[i64] * 12, i32, i32, i32, f32, vp]
+        lib.hmm_flash_mha_f32.restype = i32
+        lib.hmm_flash_mha_f32_smem_bytes.argtypes = [i32]
+        lib.hmm_flash_mha_f32_smem_bytes.restype = i32
         lib.hmm_fused_mlp_bf16.argtypes = [*[vp] * 8, *[i32] * 5, vp]
         lib.hmm_fused_mlp_bf16.restype = i32
         lib.hmm_fused_ln_mlp_residual_bf16.argtypes = [*[vp] * 12, *[i32] * 5, f32, vp]
         lib.hmm_fused_ln_mlp_residual_bf16.restype = i32
         lib.hmm_fused_mlp_smem_bytes.argtypes = [i32]
         lib.hmm_fused_mlp_smem_bytes.restype = i32
+        lib.hmm_fused_mlp_f32.argtypes = [*[vp] * 7, *[i32] * 5, vp]
+        lib.hmm_fused_mlp_f32.restype = i32
+        lib.hmm_fused_ln_mlp_residual_f32.argtypes = [*[vp] * 11, *[i32] * 5, f32, vp]
+        lib.hmm_fused_ln_mlp_residual_f32.restype = i32
         lib.hmm_topk_cosine_f32.argtypes = [vp, vp, *[i32] * 7, vp, vp, vp]
         lib.hmm_topk_cosine_f32.restype = i32
         _kernels = lib

@@ -10,19 +10,23 @@ Counterpart of hippomm_tpu/ops/flash_attention.py:
     admits the shape (H = 16, the ImageBind vision tower; H = 12 and H = 20
     keep K1).
 
-Both are one CUDA C++ kernel over element strides, csrc/flash_mha.cu: TMA
-loads into a shared-memory ring, wgmma for q·kᵀ and for p·v (p from
-registers), a producer warp and two consumer warpgroups whose softmax runs
-under each other's products. `_attn_plan` chooses its tiles from the shape.
-K4 reads strided views, such as the q slice of a packed (B, T, 3D)
-projection, without a copy. `flash_mha_ref` / `flash_mha_bthd_ref` are the
-same functions in plain PyTorch, in the JAX op order:
+For bf16 operands both are one CUDA C++ kernel over element strides,
+csrc/flash_mha.cu: TMA loads into a shared-memory ring, wgmma for q·kᵀ and
+for p·v (p from registers), a producer warp and two consumer warpgroups
+whose softmax runs under each other's products. `_attn_plan` chooses its
+tiles from the shape. For fp32 operands (the fp32 towers and training, as
+the JAX package computes them in the operand dtype) both are
+csrc/flash_mha_f32.cu, fp32 FMA on the CUDA cores over shared-memory tiles
+(`_attn_plan_f32`). K4 reads strided views, such as the q slice of a packed
+(B, T, 3D) projection, without a copy. `flash_mha_ref` / `flash_mha_bthd_ref`
+are the same functions in plain PyTorch, in the JAX op order:
 
     softmax(q·kᵀ·scale) in fp32 → cast to q.dtype → ·v, fp32 accumulation
     → q.dtype
 
-Each wrapper runs the kernel for a CUDA tensor and the plain version for a
-CPU tensor — nothing else: a CUDA call that the kernel cannot take raises.
+Each wrapper runs a kernel for a CUDA tensor (bf16 or fp32) and the plain
+version for a CPU tensor — nothing else: a CUDA call that the kernels cannot
+take (another dtype, a shape past the gate) raises.
 Both wrappers are differentiable, as the JAX package's custom_vjp wrappers
 are: when an operand requires grad they run under `_Attention`, whose
 backward is the JAX `_bwd` / `_bthd_bwd` recompute in plain PyTorch (the
@@ -95,6 +99,65 @@ def _attn_plan(tq: int, tk: int, hd: int) -> AttnPlan:
     return AttnPlan(q_tiles, keys, panels, hdp, n_full, tail)
 
 
+# The fp32 kernel's tiles (csrc/flash_mha_f32.cu): 64 query rows of one
+# head a block, keys in tiles of 64 (the last may be short), hd rounded up
+# to 16 (zero columns in shared memory only: no copy pads the operands).
+_F32_Q_ROWS = 64
+_F32_KEY_TILE = 64
+
+
+class AttnPlanF32(NamedTuple):
+    """Tiles of one fp32 kernel call: (start, length) of each query tile and
+    key tile (the last of each may run past the end: rows past tq are not
+    written, keys past tk are masked), and `nc`, the head dim rounded up to
+    16, over 16 (the kernel's template instance)."""
+
+    q_tiles: Tuple[Tuple[int, int], ...]
+    key_tiles: Tuple[Tuple[int, int], ...]
+    nc: int
+
+
+def _attn_plan_f32(tq: int, tk: int, hd: int) -> AttnPlanF32:
+    """The fp32 kernel's tile plan for q (.., tq, hd) against k/v (.., tk, hd)."""
+    if tq < 1 or tk < 1 or not 1 <= hd <= _MAX_HD:
+        raise ValueError(f"no fp32 attention plan for tq={tq} tk={tk} hd={hd}")
+    return AttnPlanF32(tuple((r, _F32_Q_ROWS) for r in range(0, tq, _F32_Q_ROWS)),
+                       tuple((j, _F32_KEY_TILE) for j in range(0, tk, _F32_KEY_TILE)), -(-hd // 16))
+
+
+def _flash_f32(counter, q, k, v, scale: float, bthd: bool) -> torch.Tensor:
+    """Launch csrc/flash_mha_f32.cu on fp32 CUDA q, k, v: (B, H, T, hd)
+    (K1) or (B, T, H, hd) views (K4), any strides with a contiguous hd axis;
+    a contiguous output in the same layout. Counts the launch on `counter`
+    (its fp32 count too)."""
+    if bthd:
+        b, tq, h, hd = q.shape
+        tk = k.shape[1]
+        strides = _bht_strides
+    else:
+        b, h, tq, hd = q.shape
+        tk = k.shape[2]
+        strides = lambda t: (t.stride(0), t.stride(1), t.stride(2))  # noqa: E731
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.stride(3) != 1:
+            raise ValueError(f"the fp32 attention kernel takes {name} with a contiguous hd axis; "
+                             f"got strides {t.stride()}")
+    plan = _attn_plan_f32(tq, tk, hd)
+    out = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+    lib = _native.kernels()
+    _native.bind_thread(q.device)
+    with torch.cuda.device(q.device):
+        rc = lib.hmm_flash_mha_f32(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, h, tq, tk, hd,
+            *strides(q), *strides(k), *strides(v), *strides(out), len(plan.q_tiles),
+            len(plan.key_tiles), plan.nc, float(scale), torch.cuda.current_stream(q.device).cuda_stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"hmm_flash_mha_f32 kernel launch failed: CUDA error {rc}")
+    _native.count_launch(counter, fp32=True)
+    return out
+
+
 def flash_supported(tq: int, tk: int, hd: int) -> bool:
     """Static shape gate, as hippomm_tpu.ops.flash_attention.flash_supported."""
     return hd <= _MAX_HD and tk <= _MAX_TK and tq >= 1
@@ -149,9 +212,10 @@ class _Attention(torch.autograd.Function):
 
 
 def flash_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float) -> torch.Tensor:
-    """Fused attention: the CUDA kernel for CUDA tensors (bf16, contiguous),
-    the plain version for CPU tensors; differentiable (`_Attention`). Counts
-    kernel launches in `flash_mha.launches`."""
+    """Fused attention: a CUDA kernel for CUDA tensors (bf16, contiguous; or
+    fp32, a contiguous hd axis), the plain version for CPU tensors;
+    differentiable (`_Attention`). Counts kernel launches in
+    `flash_mha.launches`, the fp32 kernel's also in `flash_mha.launches_f32`."""
     if needs_grad(q, k, v):
         return _Attention.apply(q, k, v, scale, _flash_mha_forward, False)
     return _flash_mha_forward(q, k, v, scale)
@@ -170,10 +234,12 @@ def _flash_mha_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale:
         return flash_mha_ref(q, k, v, scale)
     if q.device.type != "cuda":
         raise ValueError(f"flash_mha: unsupported device {q.device}")
-    if q.dtype != torch.bfloat16:
-        raise NotImplementedError(f"the flash_mha CUDA kernel takes bfloat16 only, got {q.dtype}")
+    if q.dtype not in (torch.bfloat16, torch.float32):
+        raise NotImplementedError(f"the flash_mha CUDA kernels take bfloat16 or float32, got {q.dtype}")
     if not flash_supported(tq, tk, hd):
         raise ValueError(f"flash_mha kernel does not take tq={tq} tk={tk} hd={hd}")
+    if q.dtype == torch.float32:
+        return _flash_f32(flash_mha, q, k, v, scale, bthd=False)
     if any(not t.is_contiguous() or t.data_ptr() % 16 for t in (q, k, v)):
         raise ValueError("flash_mha kernel takes contiguous, 16-byte aligned q, k, v")
     plan = _attn_plan(tq, tk, hd)
@@ -197,6 +263,7 @@ def _flash_mha_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale:
 
 
 flash_mha.launches = 0
+flash_mha.launches_f32 = 0
 
 
 # ---------------------------------------------------------------------------
@@ -257,12 +324,13 @@ def _bht_strides(t: torch.Tensor):
 
 
 def flash_mha_bthd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float) -> torch.Tensor:
-    """Fused attention in the native (B, T, H, hd) layout: the CUDA kernel
-    for CUDA tensors (bf16; strided views with a contiguous hd axis, every
-    stride a multiple of 8 elements, 16-byte aligned), the plain version for
-    CPU tensors; differentiable (`_Attention`). Returns a contiguous
-    (B, Tq, H, hd) tensor on CUDA. Counts kernel launches in
-    `flash_mha_bthd.launches`."""
+    """Fused attention in the native (B, T, H, hd) layout: a CUDA kernel for
+    CUDA tensors (strided views with a contiguous hd axis; bf16 with every
+    stride a multiple of 8 elements and a 16-byte aligned start, or fp32),
+    the plain version for CPU tensors; differentiable (`_Attention`).
+    Returns a contiguous (B, Tq, H, hd) tensor on CUDA. Counts kernel
+    launches in `flash_mha_bthd.launches`, the fp32 kernel's also in
+    `flash_mha_bthd.launches_f32`."""
     if needs_grad(q, k, v):
         return _Attention.apply(q, k, v, scale, _flash_mha_bthd_forward, True)
     return _flash_mha_bthd_forward(q, k, v, scale)
@@ -283,10 +351,12 @@ def _flash_mha_bthd_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, s
         return flash_mha_bthd_ref(q, k, v, scale)
     if q.device.type != "cuda":
         raise ValueError(f"flash_mha_bthd: unsupported device {q.device}")
-    if q.dtype != torch.bfloat16:
-        raise NotImplementedError(f"the flash_mha_bthd CUDA kernel takes bfloat16 only, got {q.dtype}")
+    if q.dtype not in (torch.bfloat16, torch.float32):
+        raise NotImplementedError(f"the flash_mha_bthd CUDA kernels take bfloat16 or float32, got {q.dtype}")
     if hd > _MAX_HD:
         raise ValueError(f"flash_mha_bthd kernel takes hd <= {_MAX_HD}, got {hd}")
+    if q.dtype == torch.float32:
+        return _flash_f32(flash_mha_bthd, q, k, v, scale, bthd=True)
     plan = _attn_plan(tq, tk, hd)
     hdp = plan.hd_padded
     if hdp != hd:
@@ -315,3 +385,4 @@ def _flash_mha_bthd_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, s
 
 
 flash_mha_bthd.launches = 0
+flash_mha_bthd.launches_f32 = 0

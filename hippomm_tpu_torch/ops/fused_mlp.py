@@ -10,20 +10,26 @@ Counterpart of hippomm_tpu/ops/fused_mlp.py:
     add in the stream dtype. Routed by `models/layers._mlp_halfblock` (every
     ImageBind encoder block) when HIPPOMM_FUSED_BLOCK=1 (`fused_block_default`).
 
-Both are CUDA C++ in csrc/fused_mlp.cu: two GEMM passes per call, each a
+For bf16 operands both are CUDA C++ in csrc/fused_mlp.cu: two GEMM passes
+per call, each a
 persistent, warp-specialised TMA + wgmma kernel with the MLP's elementwise
 work fused into its epilogue (pass 1: x·W1ᵀ + b1 → GELU into an (N, F) bf16
 hidden workspace; pass 2: hidden·W2ᵀ + b2, and for K3 the residual). K3 first
 writes t = cast(LN(x)) with a row kernel. At small N (the text tower) pass 2
 splits K over F and a reduce kernel finishes it. `_plan` picks the tile
-widths and the split from (N, D, F). `fused_mlp_ref` /
+widths and the split from (N, D, F). For fp32 operands (the fp32 towers and
+training, as the JAX package computes them in the operand dtype) both are
+csrc/fused_mlp_f32.cu: the same two passes as tiled fp32-FMA GEMMs on the
+CUDA cores with the same epilogues (an fp32 hidden), and K3's LN row kernel
+in front; `_plan_f32` picks their tiles. `fused_mlp_ref` /
 `fused_ln_mlp_residual_ref` are the same functions in plain PyTorch, in the
 op order of hippomm_tpu.ops.fused_mlp._ref_mlp / _ref_ln_mlp_residual.
 
 The TPU kernels' Abramowitz–Stegun and polynomial erfs existed only because
 Mosaic has no erf; CUDA has erff, so the kernels are exact-erf like the
-reference. Each wrapper runs the kernel for CUDA tensors and the plain
-version for CPU tensors; a CUDA call that the kernel cannot take raises.
+reference. Each wrapper runs a kernel for CUDA tensors (bf16 or fp32) and
+the plain version for CPU tensors; a CUDA call that the kernels cannot take
+raises.
 Both wrappers are differentiable, as the JAX package's fused_mlp_vjp /
 fused_ln_mlp_residual_vjp are: when an operand requires grad they run under
 `_Recompute`, whose backward is autograd of the plain version recomputed on
@@ -84,10 +90,24 @@ def _pass_tiles(m: int, cols: int, k: int, bn: int, splits: int):
             for s in range(splits) for mt in range(m_tiles) for nt in range(n_tiles)]
 
 
-def kernels_per_call(plan: Plan, ln: bool) -> int:
+class PlanF32(NamedTuple):
+    tile1: int  # pass 1's (fc1's) square output tile: 128 or 64
+    tile2: int  # pass 2's (fc2's)
+
+
+def _plan_f32(n: int, d: int, f: int) -> PlanF32:
+    """The fp32 kernels' tiles for an (N, D, F) call: a pass takes 128 × 128
+    output tiles where that gives at least `_WAVE_TILES` of them (the ingest
+    and training shapes), else 64 × 64 (the text tower's rows), so that a
+    small pass still spreads over the card."""
+    bands = -(-n // 128)
+    return PlanF32(*(128 if bands * (cols // 128) >= _WAVE_TILES else 64 for cols in (f, d)))
+
+
+def kernels_per_call(plan, ln: bool) -> int:
     """CUDA kernels one K2 (ln False) or K3 call launches: the LN row kernel
-    (K3), two GEMM passes, and the split-K reduce."""
-    return int(ln) + 2 + int(plan.splits > 1)
+    (K3), two GEMM passes, and (bf16 `Plan`) the split-K reduce."""
+    return int(ln) + 2 + int(getattr(plan, "splits", 1) > 1)
 
 
 def fused_mlp_supported(n: int, d: int, f: int) -> bool:
@@ -126,8 +146,8 @@ def _check_operands(name: str, x, w1, b1, w2, b2, *norm) -> bool:
         return False
     if x.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {x.device}")
-    if x.dtype != torch.bfloat16:
-        raise NotImplementedError(f"the {name} CUDA kernel takes bfloat16 only, got {x.dtype}")
+    if x.dtype not in (torch.bfloat16, torch.float32):
+        raise NotImplementedError(f"the {name} CUDA kernels take bfloat16 or float32, got {x.dtype}")
     if not fused_mlp_supported(n, d, f):
         raise ValueError(f"{name} kernel does not take n={n} d={d} f={f}")
     return True
@@ -210,6 +230,43 @@ def _launch(entry: str, x, vectors, w1, b1, w2, b2, eps=None, own_out: bool = Fa
     return out
 
 
+def _launch_f32(entry: str, x, vectors, w1, b1, w2, b2, eps=None, resid=None) -> torch.Tensor:
+    """Launch `entry` of csrc/fused_mlp_f32.cu on fp32 operands (weights and
+    vectors cast to fp32 as the plain version casts them) with the
+    workspaces it takes: the (N, F) hidden and, for K3, LN(x) (N, D), and
+    return the (N, D) output."""
+    n, d = x.shape
+    f = w1.shape[0]
+    operands = [x, *(t.float() for t in vectors), w1.float(), b1.float(), w2.float(), b2.float()]
+    if eps is not None:
+        operands.append(resid)
+    args = []
+    for t in operands:
+        if t is None:
+            args.append(None)
+        elif t.data_ptr() % 16 or not t.is_contiguous():
+            raise ValueError(f"{entry} takes contiguous, 16-byte aligned operands")
+        else:
+            args.append(t.data_ptr())
+    out = torch.empty((n, d), dtype=torch.float32, device=x.device)
+    hidden = torch.empty((n, f), dtype=torch.float32, device=x.device)
+    args.append(out.data_ptr())
+    if eps is not None:
+        normed = torch.empty((n, d), dtype=torch.float32, device=x.device)
+        args.append(normed.data_ptr())
+    plan = _plan_f32(n, d, f)
+    args += [hidden.data_ptr(), n, d, f, plan.tile1, plan.tile2]
+    if eps is not None:
+        args.append(float(eps))
+    fn = getattr(_native.kernels(), entry)
+    _native.bind_thread(x.device)
+    with torch.cuda.device(x.device):
+        rc = fn(*args, _current_stream())
+    if rc != 0:
+        raise RuntimeError(f"{entry} kernel launch failed: CUDA error {rc}")
+    return out
+
+
 class _Recompute(torch.autograd.Function):
     """`forward(*args)` (K2 or K3, or the plain version on the CPU), with
     the backward of the JAX custom_vjp: autograd of `ref(*args)` recomputed
@@ -234,9 +291,10 @@ class _Recompute(torch.autograd.Function):
 
 
 def fused_mlp(x, w1, b1, w2, b2) -> torch.Tensor:
-    """Fused MLP: the CUDA kernels for CUDA tensors, the plain version for CPU
-    tensors; differentiable (`_Recompute`). Counts calls that launch the
-    kernels in `fused_mlp.launches`."""
+    """Fused MLP: the CUDA kernels for CUDA tensors (bf16 or fp32), the plain
+    version for CPU tensors; differentiable (`_Recompute`). Counts calls
+    that launch the kernels in `fused_mlp.launches`, the fp32 kernels' also
+    in `fused_mlp.launches_f32`."""
     if needs_grad(x, w1, b1, w2, b2):
         return _Recompute.apply(functools.partial(_fused_mlp_forward, own_out=True), fused_mlp_ref,
                                 x, w1, b1, w2, b2)
@@ -246,12 +304,17 @@ def fused_mlp(x, w1, b1, w2, b2) -> torch.Tensor:
 def _fused_mlp_forward(x, w1, b1, w2, b2, own_out: bool = False) -> torch.Tensor:
     if not _check_operands("fused_mlp", x, w1, b1, w2, b2):
         return fused_mlp_ref(x, w1, b1, w2, b2)
+    if x.dtype == torch.float32:
+        out = _launch_f32("hmm_fused_mlp_f32", x, (), w1, b1, w2, b2)
+        _native.count_launch(fused_mlp, fp32=True)
+        return out
     out = _launch("hmm_fused_mlp_bf16", x, (), w1, b1, w2, b2, own_out=own_out)
     _native.count_launch(fused_mlp)
     return out
 
 
 fused_mlp.launches = 0
+fused_mlp.launches_f32 = 0
 
 
 @functools.lru_cache(maxsize=1)
@@ -301,11 +364,12 @@ def fused_ln_mlp_residual_ref(x, gamma, beta, w1, b1, w2, b2, eps: float = 1e-6,
 def fused_ln_mlp_residual(x, gamma, beta, w1, b1, w2, b2, eps: float = 1e-6,
                           residual: bool = True) -> torch.Tensor:
     """x + mlp(LN(x)) for x (N, D) in the stream dtype: the CUDA kernels for
-    CUDA tensors (bf16), the plain version for CPU tensors; differentiable
+    CUDA tensors (bf16 or fp32), the plain version for CPU tensors; differentiable
     (`_Recompute`). residual=False leaves the x out: mlp(LN(x)) alone, the
     share of a tensor-parallel shard whose sum with the first shard's (which
     adds x and b2) is the half-block. Counts calls that launch the kernels
-    in `fused_ln_mlp_residual.launches`."""
+    in `fused_ln_mlp_residual.launches` (the fp32 kernels' also in
+    `launches_f32`)."""
     if needs_grad(x, gamma, beta, w1, b1, w2, b2):
         return _Recompute.apply(
             functools.partial(_fused_ln_mlp_residual_forward, eps=eps, own_out=True, residual=residual),
@@ -318,6 +382,11 @@ def _fused_ln_mlp_residual_forward(x, gamma, beta, w1, b1, w2, b2, eps: float = 
                                    own_out: bool = False, residual: bool = True) -> torch.Tensor:
     if not _check_operands("fused_ln_mlp_residual", x, w1, b1, w2, b2, gamma, beta):
         return fused_ln_mlp_residual_ref(x, gamma, beta, w1, b1, w2, b2, eps, residual=residual)
+    if x.dtype == torch.float32:
+        out = _launch_f32("hmm_fused_ln_mlp_residual_f32", x, (gamma, beta), w1, b1, w2, b2, eps=eps,
+                          resid=x if residual else None)
+        _native.count_launch(fused_ln_mlp_residual, fp32=True)
+        return out
     out = _launch("hmm_fused_ln_mlp_residual_bf16", x, (gamma, beta), w1, b1, w2, b2, eps=eps,
                   own_out=own_out, resid=x if residual else None)
     _native.count_launch(fused_ln_mlp_residual)
@@ -325,3 +394,4 @@ def _fused_ln_mlp_residual_forward(x, gamma, beta, w1, b1, w2, b2, eps: float = 
 
 
 fused_ln_mlp_residual.launches = 0
+fused_ln_mlp_residual.launches_f32 = 0

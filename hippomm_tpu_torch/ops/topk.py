@@ -12,8 +12,11 @@ balanced grid (`_topk_plan`) of blocks that each stream one contiguous row
 range through a shared-memory ring filled by bulk copies, keep their running
 top-k behind a threshold filter, and hand their k candidates to the block
 that finishes last, which merges them. `top_k_cosine_ref` is the same
-function in plain PyTorch. Both order the result by value, then by lower row
-index at equal values — lax.top_k's order, which the JAX product route
+function in plain PyTorch. The kernel takes any D and a store view at any
+element offset: where D % 4 == 0 and the store is 16-byte aligned it reads
+rows as float4, else one element a lane, with each chunk's unaligned head
+and tail read apart from its bulk copy (no copy of the store). Both order
+the result by value, then by lower row index at equal values — lax.top_k's order, which the JAX product route
 (ops/similarity.top_k_cosine) uses; the TPU kernel's own merge let a later
 tile win a tie. k > N raises (the TPU kernel padded with −3e38 / index 0).
 
@@ -49,7 +52,9 @@ _MERGE_MIN = 4096  # entries the merge needs in the ring's shared memory
 class TopkPlan(NamedTuple):
     """One kernel call: `blocks` blocks, block b over rows
     [b·n // blocks, (b+1)·n // blocks) (`_block_rows`), streamed in chunks
-    of `chunk_rows` rows through a ring of `stages` slots; `smem_bytes` of
+    of `chunk_rows` rows through a ring of `stages` slots of `slot_floats`
+    (a chunk, and 3 floats before and after it where chunks are not
+    16-byte aligned: `vec` False); `smem_bytes` of
     dynamic shared memory a block, `blocks_per_sm` of them resident on an
     SM; `scratch_entries` (= blocks · k) candidates handed to the merge."""
 
@@ -60,13 +65,20 @@ class TopkPlan(NamedTuple):
     smem_bytes: int
     blocks_per_sm: int
     scratch_entries: int
+    vec: bool
+    slot_floats: int
 
 
-def _smem_bytes(d: int, chunk_rows: int, stages: int, blocks: int) -> int:
+def _slot_floats(d: int, chunk_rows: int, vec: bool) -> int:
+    return chunk_rows * d if vec else -(-(chunk_rows * d + 3) // 4) * 4
+
+
+def _smem_bytes(d: int, chunk_rows: int, stages: int, blocks: int, vec: bool = True) -> int:
     """The kernel's shared-memory layout (`Layout` in the source): ring
-    (128-byte aligned), q, list and buffer, a count per block, barriers."""
-    ring = -(-stages * chunk_rows * 4 * d // 128) * 128
-    return ring + 4 * d + 8 * _LIST + -(-4 * (blocks + 1) // 16) * 16 + 16 * stages
+    (128-byte aligned, at least the merge's entries), q (16-byte aligned),
+    list and buffer, a count per block, barriers."""
+    ring = max(-(-stages * _slot_floats(d, chunk_rows, vec) * 4 // 128) * 128, 8 * _MERGE_MIN)
+    return ring + -(-4 * d // 16) * 16 + 8 * _LIST + -(-4 * (blocks + 1) // 16) * 16 + 16 * stages
 
 
 def _pow2_at_least(x: int) -> int:
@@ -77,27 +89,30 @@ def _pow2_at_least(x: int) -> int:
 
 
 @functools.lru_cache(maxsize=256)
-def _topk_plan(n: int, d: int, k: int, sm_count: int) -> TopkPlan:
-    """The kernel's plan for a store (n, d) and k on a card of `sm_count`
-    SMs: about 32 KB of whole rows a chunk, a ring of about 96 KB (2-8
-    chunks), as many blocks as fit on an SM up to 2, and min(chunks, SMs ×
-    blocks per SM) blocks with ranges that differ by at most one row."""
-    if n < 1 or d < 4 or d % 4 or not 1 <= k <= min(MAX_K, n) or sm_count < 1:
+def _topk_plan(n: int, d: int, k: int, sm_count: int, offset: int = 0) -> TopkPlan:
+    """The kernel's plan for a store (n, d) whose first element sits
+    `offset` elements past a 16-byte boundary, and k, on a card of
+    `sm_count` SMs: about 32 KB of whole rows a chunk, a ring of about 96 KB
+    (2-8 chunks), as many blocks as fit on an SM up to 2, and min(chunks,
+    SMs × blocks per SM) blocks with ranges that differ by at most one row.
+    The float4 instance (`vec`) where D % 4 == 0 and offset % 4 == 0."""
+    if n < 1 or d < 1 or not 1 <= k <= min(MAX_K, n) or sm_count < 1:
         raise ValueError(f"no top-k plan for n={n} d={d} k={k} sm_count={sm_count}")
+    vec = d % 4 == 0 and offset % 4 == 0
     chunk_rows = max(1, min(_LIST - MAX_K, _CHUNK_BYTES // (4 * d)))
     stages = max(2, min(_MAX_STAGES, _RING_BYTES // (4 * d * chunk_rows)))
-    most = _smem_bytes(d, chunk_rows, stages, _MAX_BLOCKS_PER_SM * sm_count)
+    most = _smem_bytes(d, chunk_rows, stages, _MAX_BLOCKS_PER_SM * sm_count, vec)
     per_sm = min(_MAX_BLOCKS_PER_SM, _SMEM_SM // (most + _SMEM_STATIC + 1024))
     if most + _SMEM_STATIC > _SMEM_BLOCK or per_sm < 1:
         raise ValueError(f"top-k kernel: rows of D={d} do not fit its shared memory")
     blocks = min(-(-n // chunk_rows), sm_count * per_sm)
     # the merge: the lists' heads (at least k of them) and a group behind k
     # rows in the ring's shared memory
-    if (stages * chunk_rows * 4 * d < 8 * _MERGE_MIN
-            or _pow2_at_least(blocks * -(-k // blocks)) > _MERGE_MIN):
+    if _pow2_at_least(blocks * -(-k // blocks)) > _MERGE_MIN:
         raise ValueError(f"no top-k plan for n={n} d={d} k={k} sm_count={sm_count}")
     return TopkPlan(blocks, n // blocks, chunk_rows, stages,
-                    _smem_bytes(d, chunk_rows, stages, blocks), per_sm, blocks * k)
+                    _smem_bytes(d, chunk_rows, stages, blocks, vec), per_sm, blocks * k, vec,
+                    _slot_floats(d, chunk_rows, vec))
 
 
 def _block_rows(n: int, blocks: int, b: int) -> Tuple[int, int]:
@@ -166,16 +181,14 @@ def top_k_cosine_kernel(query: torch.Tensor, feats: torch.Tensor, k: int, packed
     if feats.device.type != "cuda":
         raise ValueError(f"top_k_cosine_kernel: unsupported device {feats.device}")
     n, d = feats.shape
-    if d % 4:
-        raise NotImplementedError(f"the top-k CUDA kernel reads rows as float4: D % 4 == 0, got D={d}")
     feats = feats.float().contiguous()
     q = query.reshape(-1).float().contiguous()
-    if feats.data_ptr() % 16:
-        raise ValueError("top_k_cosine_kernel takes a 16-byte aligned store")
+    if feats.data_ptr() % 4:
+        raise ValueError("top_k_cosine_kernel takes a 4-byte aligned store")
     lib = _native.kernels()
     dev = feats.device
     _native.bind_thread(dev)
-    plan = _topk_plan(n, d, k, _sm_count(dev.index))
+    plan = _topk_plan(n, d, k, _sm_count(dev.index), feats.data_ptr() % 16 // 4)
     out = torch.empty((2, k), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream

@@ -39,3 +39,30 @@ def test_attn_plan_covers_the_shape(b, h, tq, tk, hd):
     assert _cover([(c, n) for c, n, _ in plan.panels], plan.hd_padded)
     assert all(n <= w and w in (16, 32, 64) for _, n, w in plan.panels)
     assert all(n == 64 for _, n, _ in plan.panels[:-1])
+
+
+# the fp32 kernel's path shapes (B, H, Tq, Tk, hd): vision, audio, the
+# Whisper encoder, the training step's vision tower, phase 11's and 12's
+# shards (GPipe's q 258 against k/v 257), the text tower (77 tokens, hd 64)
+# and the tiny towers' hd 16; hd 40 and the gate's largest
+_F32_SHAPES = [(32, 16, 257, 257, 80), (96, 12, 229, 230, 64), (4, 20, 1500, 1500, 64),
+               (16, 16, 257, 257, 80), (8, 16, 257, 257, 80), (24, 12, 229, 230, 64),
+               (1, 20, 1500, 1500, 64), (8, 8, 257, 257, 80), (8, 8, 258, 257, 80),
+               (8, 16, 77, 77, 64), (2, 4, 50, 50, 16), (2, 3, 33, 40, 40), (1, 1, 1, 1, 1),
+               (1, 1, 2048, 2048, 128)]
+
+
+@pytest.mark.parametrize("b,h,tq,tk,hd", _F32_SHAPES)
+def test_attn_plan_f32_covers_the_shape(b, h, tq, tk, hd):
+    """The fp32 kernel's plan (csrc/flash_mha_f32.cu): 64-row query tiles
+    and 64-key tiles that cover each row and key once, none starting past
+    the end (what the C entry point checks), and hd within the template
+    instance's 16·nc columns."""
+    assert tfa.flash_supported(tq, tk, hd)
+    plan = tfa._attn_plan_f32(tq, tk, hd)
+    assert _cover(plan.q_tiles, tq) and _cover(plan.key_tiles, tk)
+    assert all(n == 64 for _, n in plan.q_tiles + plan.key_tiles)
+    assert [s for s, _ in plan.key_tiles] == [64 * j for j in range(len(plan.key_tiles))]
+    assert (len(plan.q_tiles) - 1) * 64 < tq <= len(plan.q_tiles) * 64
+    assert (len(plan.key_tiles) - 1) * 64 < tk <= len(plan.key_tiles) * 64
+    assert 1 <= plan.nc <= 8 and 16 * (plan.nc - 1) < hd <= 16 * plan.nc

@@ -166,25 +166,6 @@ def test_entry_points_default_to_cuda(monkeypatch):
     assert ib.device.type == "cpu"
 
 
-@pytest.mark.parametrize("entry", ["imagebind", "engine"])
-def test_cuda_entry_points_refuse_float32(monkeypatch, tmp_path, entry):
-    """The K1/K2 CUDA kernels are bf16 only: an fp32 tower on the card is
-    refused when it is built, before any weight is allocated."""
-    from hippomm_tpu_torch.config import Config
-    from hippomm_tpu_torch.memory.engine import HippocampalMemory
-
-    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
-    cfg = Config()
-    cfg.api.mode, cfg.models.imagebind_variant = "stub", "tiny"
-    cfg.models.compute_dtype = "float32"
-    cfg.storage.base_dir = str(tmp_path)
-    with pytest.raises(NotImplementedError, match="bfloat16"):
-        if entry == "engine":
-            HippocampalMemory(cfg)
-        else:
-            ImageBind(variant="tiny", dtype=torch.float32)
-
-
 def test_whisper_variants_outside_the_stub_wait_for_their_slice():
     """Their slice has come: the default without a checkpoint is still the
     stub, "tiny" and `random_init` build the Whisper tower, and an explicit

@@ -146,6 +146,31 @@ def test_plan_tiles_cover_every_output_once(n, d, f):
     assert tfm.kernels_per_call(plan, True) == 3 + (plan.splits > 1)
 
 
+@pytest.mark.parametrize("n,d,f", [(8224, 1280, 5120), (21984, 768, 3072), (6000, 1280, 5120),
+                                   (77, 1024, 4096), (616, 1024, 4096), (4112, 1280, 5120),
+                                   (1232, 1024, 4096), (2056, 1280, 2560), (616, 1024, 2048),
+                                   (8, 128, 128), (64, 1408, 5632)])
+def test_plan_f32_tiles_cover_every_output_once(n, d, f):
+    """The fp32 kernels' plan (csrc/fused_mlp_f32.cu) at the path shapes (the
+    ingest, Whisper, text and training shapes, phase 12's shards) and the
+    gate's edges: each pass's square tiles divide its columns and cover
+    every output row and column once; a pass with fewer than a wave of
+    128-wide tiles takes 64-wide ones; K steps of 16 divide D and F."""
+    plan = tfm._plan_f32(n, d, f)
+    for cols, k, tile in ((f, d, plan.tile1), (d, f, plan.tile2)):
+        assert tile in (128, 64) and cols % tile == 0 and k % 16 == 0
+        bands = -(-n // tile)
+        rows = np.zeros(bands * tile, np.int32)
+        for r0 in range(0, n, tile):
+            rows[r0:r0 + tile] += 1
+        assert (rows[:n] == 1).all() and (bands - 1) * tile < n
+        wave = -(-n // 128) * (cols // 128) >= 128
+        assert tile == (128 if wave else 64)
+    if n >= 4112:  # the ingest and training shapes: full 128-wide tiles
+        assert plan == (128, 128)
+    assert tfm.kernels_per_call(plan, False) == 2 and tfm.kernels_per_call(plan, True) == 3
+
+
 @pytest.mark.parametrize("d,heads", [(128, 4), (1408, 11)])
 def test_layers_route_by_the_jax_gates_only(monkeypatch, d, heads):
     """fp32 and D 1408 reach the kernel wrappers just as bf16 and D 128 do;

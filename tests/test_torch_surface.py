@@ -218,3 +218,40 @@ def test_graft_entry_dryrun_prints_every_field(capsys, monkeypatch):
     with torch.no_grad():
         want = tmodel.vision_forward(params, images, tmodel.tiny_config(), torch.bfloat16)
     assert torch.equal(emb, want)
+
+
+class _StopDryRun(Exception):
+    pass
+
+
+@pytest.mark.parametrize("device", ["cpu", "cuda:0"])
+def test_dryrun_trains_in_fp32_on_every_device_type(monkeypatch, device):
+    """The dry run's train step gets fp32 whatever the device type, as the
+    JAX dry run's does (every make_train_step* call of __graft_entry__.py
+    passes dtype=jnp.float32). The mesh and the state are stand-ins and the
+    step stops the run, so no CUDA device is needed to see the dtype."""
+    import re
+
+    from hippomm_tpu_torch import graft_entry
+    from hippomm_tpu_torch.parallel import mesh as tmesh
+    from hippomm_tpu_torch.train import contrastive as tc
+
+    class _Mesh:
+        shape = {"data": 2, "model": 2}
+
+    seen = []
+
+    def step(cfg, opt, dtype=None, mesh=None):
+        seen.append(dtype)
+        raise _StopDryRun
+
+    monkeypatch.setattr(tmesh, "make_mesh", lambda **kw: _Mesh())
+    monkeypatch.setattr(tc, "init_train_state", lambda *a, **kw: (None, None))
+    monkeypatch.setattr(tc, "make_train_step", step)
+    with pytest.raises(_StopDryRun):
+        graft_entry.dryrun_multichip(4, devices=[device] * 4)
+    assert seen == [torch.float32]
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with open(os.path.join(root, "__graft_entry__.py")) as fh:
+        calls = re.findall(r"make_train_step\w*\(([^)]*)\)", fh.read())
+    assert len(calls) >= 4 and all("dtype=jnp.float32" in c for c in calls), calls

@@ -42,6 +42,25 @@ def test_topk_ref_matches_pallas_interpret(request, n, d, k, scale, self_row):
         assert int(got_i[0]) == self_row and float(got_v[0]) > 0.999
 
 
+@pytest.mark.parametrize("d,offset", [(6, 0), (1026, 0), (1024, 1)])
+def test_topk_ref_any_width_and_offset_matches_pallas_interpret(request, d, offset):
+    """Widths that are not a multiple of 4 (6, 1026) and a store view one
+    element into its buffer, which the CUDA kernel takes without a copy:
+    the plain version against the Pallas kernel (any D; it pads only N),
+    from one numpy seed."""
+    n, k = 700, 20
+    rng = np.random.default_rng(d + offset)
+    flat = rng.standard_normal(n * d + offset).astype(np.float32)
+    q = rng.standard_normal(d).astype(np.float32)
+    f = torch.from_numpy(flat)[offset:].view(n, d)
+    assert f.storage_offset() == offset
+    want_v, want_i = pallas_top_k_cosine(jnp.asarray(q), jnp.asarray(f.numpy()), k=k, tile_n=128,
+                                         interpret=True)
+    got_v, got_i = ttk.top_k_cosine_kernel(torch.from_numpy(q), f, k)
+    np.testing.assert_array_equal(got_i.numpy(), np.asarray(want_i))
+    assert_close(request, got_v.numpy(), np.asarray(want_v), 1e-6)
+
+
 def test_topk_ties_follow_lax_top_k():
     """Duplicated rows tie exactly (one-hot rows: each similarity is one
     product, so every summation order gives the same value). Equal values
