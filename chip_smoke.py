@@ -14,7 +14,8 @@ Phases (any failure exits non-zero and prints no result line):
      fp32 (TF32 off) at the ingest, Whisper, text and training shapes:
      K1/K4 within 5e-5 abs, K2/K3 within 5e-5 of max |out|, the library
      calls SDPA and F.linear → F.gelu → F.linear at fp32, the bound at
-     67 TF/s fp32;
+     67 TF/s fp32 (K1/K4) or as 3×TF32 at 495 TF/s, the fp32 one beside it
+     (K2/K3: their products are 3×TF32 wgmma), K3 also without its residual;
      kernel, plain and library-call times (CUDA events) beside each bound
      and its share of it; K2/K3 and their library calls timed over rotating
      weight sets that overflow the L2 (as each encoder block finds its
@@ -178,6 +179,7 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 PEAK_BYTES_S = 3.35e12  # H100 SXM HBM3
 PEAK_BF16_FLOP_S = 989e12  # H100 SXM dense bf16 tensor cores
 PEAK_FP32_FLOP_S = 67e12  # H100 SXM fp32 outside the tensor cores
+PEAK_TF32_FLOP_S = 495e12  # H100 SXM dense TF32 tensor cores
 L2_BYTES = 50e6  # H100 L2 cache
 TEXT_DEPTH = 24  # ImageBind-Huge text blocks: one K2 (or K3) launch each per forward
 WHISPER_DEPTH = 32  # distil-large-v3 encoder blocks: one K1 and one K2 each per batch
@@ -308,7 +310,8 @@ def check_mlp_kernel(fm, shape, gen, ln: bool, residual: bool = True, f32: bool 
     residual=False: K3 without its residual (a tensor-parallel shard's
     call other than the first). f32: the fp32 kernels on fp32 operands,
     held to the plain version in full fp32 (TF32 off) within 5e-5 of max
-    |out|, with fp32's library chain and bound (67 TF/s)."""
+    |out|, with fp32's library chain; their bound is the 3×TF32 one (three
+    TF32 products a product at 495 TF/s), beside the fp32 one (67 TF/s)."""
     import functools
 
     import torch
@@ -344,19 +347,25 @@ def check_mlp_kernel(fm, shape, gen, ln: bool, residual: bool = True, f32: bool 
 
     lib_args = [tuple(t.to(dtype) if t.dtype == torch.float32 else t for t in s) for s in sets]
     # x read and out written once, W1 and W2 once, the (D,)/(F,) vectors once
-    b_ms, b_by = bound(esize * (2 * n * d + 2 * d * f) + 4 * (f + (3 if ln else 1) * d), 4 * n * d * f,
-                       PEAK_FP32_FLOP_S if f32 else PEAK_BF16_FLOP_S)
+    nbytes = esize * (2 * n * d + 2 * d * f) + 4 * (f + (3 if ln else 1) * d)
+    if f32:
+        b_ms, b_by = bound(nbytes, 3 * 4 * n * d * f, PEAK_TF32_FLOP_S)
+        fp32_ms, fp32_by = bound(nbytes, 4 * n * d * f, PEAK_FP32_FLOP_S)
+    else:
+        b_ms, b_by = bound(nbytes, 4 * n * d * f)
     plan = fm._plan_f32(n, d, f) if f32 else fm._plan(n, d, f)
     row = {
         "shape": list(shape), "max_abs_err": err, "rel_err": rel, "operand_sets": len(sets),
         **({} if residual else {"residual": False}),
-        "plan": plan._asdict(), "kernels_per_call": fm.kernels_per_call(plan, ln),
+        "plan": plan._asdict(), "kernels_per_call": fm.kernels_per_call(plan, ln, f32),
         "ms": cuda_ms([lambda s=s: kernel(*s, *tail) for s in sets], repeats=5),
         "plain_ms": cuda_ms([lambda s=s: plain(*s, *tail) for s in sets], iters=3, warmup=1),
         "library_ms": cuda_ms([lambda a=a: library(*a) for a in lib_args], repeats=5),
         "bound_ms": b_ms, "bound_by": b_by,
     }
     row["pct_of_bound"] = 100.0 * b_ms / row["ms"]
+    if f32:
+        row.update(fp32_bound_ms=fp32_ms, fp32_bound_by=fp32_by, pct_of_fp32_bound=100.0 * fp32_ms / row["ms"])
     row["device_us"] = device_us([lambda s=s: kernel(*s, *tail) for s in sets])
     row["host_us"] = host_us([lambda s=s: kernel(*s, *tail) for s in sets])
     return row
@@ -544,7 +553,6 @@ def check_topk(ttk, shape, gen, ascending: bool = False, offset: int = 0):
 
 
 _EPILOGUES = {"0": "gelu", "1": "bias", "2": "bias+residual", "3": "fp32 partial"}
-_EPILOGUES_F32 = {"0": "gelu", "1": "bias", "2": "bias+residual"}
 
 
 def build_report(native, topk_plan):
@@ -562,8 +570,10 @@ def build_report(native, topk_plan):
             attn = re.search(r"flash_mha_kernelILi(\d+)E", mangled)
             attn32 = re.search(r"flash_mha_f32_kernelILi(\d+)E", mangled)
             gemm = re.search(r"gemm_tnILi(\d+)ELi(\d+)E", mangled)
-            gemm32 = re.search(r"gemm_f32ILi(\d+)ELi(\d+)ELi(\d+)E", mangled)
-            kind = re.search(r"\d+(layer_norm_rows_f32|layer_norm_rows|splitk_reduce)E", mangled)
+            gemm32 = re.search(r"gemm_tf32x3ILi(\d+)ELi(\d+)E", mangled)
+            kind = re.search(
+                r"\d+(layer_norm_rows_f32|layer_norm_rows|split_rows_f32|splitk_reduce_f32|splitk_reduce)E",
+                mangled)
             used = re.search(r"Used (\d+) registers", block)
             spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", block)
             smem = re.search(r"(\d+) bytes smem", block)
@@ -578,8 +588,8 @@ def build_report(native, topk_plan):
                 name = f"gemm_tn<BN {gemm.group(1)}, {_EPILOGUES[gemm.group(2)]}>"
                 dyn = native.kernels().hmm_fused_mlp_smem_bytes(int(gemm.group(1)))
             elif gemm32:
-                name = f"gemm_f32<{gemm32.group(1)} x {gemm32.group(2)}, {_EPILOGUES_F32[gemm32.group(3)]}>"
-                dyn = 0
+                name = f"gemm_tf32x3<BN {gemm32.group(1)}, {_EPILOGUES[gemm32.group(2)]}>"
+                dyn = native.kernels().hmm_fused_mlp_f32_smem_bytes(int(gemm32.group(1)))
             elif "topk_cosine" in mangled:
                 vec = "ILb1E" in mangled
                 name = f"topk_cosine<{'float4' if vec else 'element-wise'}>"
@@ -2812,7 +2822,8 @@ def main() -> int:
         "fused_mlp_f32": [check_mlp_kernel(fm, s, gen, False, f32=True) for s in (
             (8224, 1280, 5120), (21984, 768, 3072), (6000, 1280, 5120), (77, 1024, 4096),
             (616, 1024, 4096), (4112, 1280, 5120), (1232, 1024, 4096))],
-        "fused_ln_mlp_residual_f32": [check_mlp_kernel(fm, s, gen, True, f32=True) for s in (
+        "fused_ln_mlp_residual_f32": [check_mlp_kernel(fm, s, gen, True, residual=r, f32=True)
+                                      for r in (True, False) for s in (
             (8224, 1280, 5120), (21984, 768, 3072), (77, 1024, 4096), (616, 1024, 4096),
             (4112, 1280, 5120), (1232, 1024, 4096))],
         # ... K4 on the vision tower's packed projection, ingest and training
@@ -2830,12 +2841,15 @@ def main() -> int:
                      f"host µs per call {r['host_us']:.1f}"
                      if "plan" in r else "")
             off = f" offset {r['offset']}" if r.get("offset") else ""
+            # the fp32 K2/K3 rows: their bound is the 3×TF32 one; the fp32 one beside it
+            fp32 = (f"; fp32 bound {r['fp32_bound_ms']:.4f} ms ({r['fp32_bound_by']}), "
+                    f"{r['pct_of_fp32_bound']:.1f} % of it" if "fp32_bound_ms" in r else "")
             print(f"{name} {r['shape']}{' ascending' if r.get('ascending') else ''}{off}"
                   f"{' without residual' if r.get('residual') is False else ''}: "
                   f"err {r['max_abs_err']:.3g} kernel {r['ms']:.4f} ms "
                   f"plain {r['plain_ms']:.4f} ms library {r['library_ms']:.4f} ms "
                   f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}), {r['pct_of_bound']:.1f} % of "
-                  f"bound{extra}", flush=True)
+                  f"bound{fp32}{extra}", flush=True)
     report["kernel_build"] = build_report(_native, rows["top_k_cosine"][0]["plan"])
     for k in report["kernel_build"]:
         print(f"build {k['source']} {k['kernel']}: {k['registers']} registers, {k['spill_stores']} / "

@@ -171,10 +171,12 @@ def kernels() -> ctypes.CDLL:
         lib.hmm_fused_ln_mlp_residual_bf16.restype = i32
         lib.hmm_fused_mlp_smem_bytes.argtypes = [i32]
         lib.hmm_fused_mlp_smem_bytes.restype = i32
-        lib.hmm_fused_mlp_f32.argtypes = [*[vp] * 7, *[i32] * 5, vp]
+        lib.hmm_fused_mlp_f32.argtypes = [*[vp] * 9, *[i32] * 5, vp]
         lib.hmm_fused_mlp_f32.restype = i32
-        lib.hmm_fused_ln_mlp_residual_f32.argtypes = [*[vp] * 11, *[i32] * 5, f32, vp]
+        lib.hmm_fused_ln_mlp_residual_f32.argtypes = [*[vp] * 12, *[i32] * 5, f32, vp]
         lib.hmm_fused_ln_mlp_residual_f32.restype = i32
+        lib.hmm_fused_mlp_f32_smem_bytes.argtypes = [i32]
+        lib.hmm_fused_mlp_f32_smem_bytes.restype = i32
         lib.hmm_topk_cosine_f32.argtypes = [vp, vp, *[i32] * 7, vp, vp, vp]
         lib.hmm_topk_cosine_f32.restype = i32
         _kernels = lib

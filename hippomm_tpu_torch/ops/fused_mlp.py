@@ -10,18 +10,19 @@ Counterpart of hippomm_tpu/ops/fused_mlp.py:
     add in the stream dtype. Routed by `models/layers._mlp_halfblock` (every
     ImageBind encoder block) when HIPPOMM_FUSED_BLOCK=1 (`fused_block_default`).
 
-For bf16 operands both are CUDA C++ in csrc/fused_mlp.cu: two GEMM passes
-per call, each a
-persistent, warp-specialised TMA + wgmma kernel with the MLP's elementwise
-work fused into its epilogue (pass 1: x·W1ᵀ + b1 → GELU into an (N, F) bf16
-hidden workspace; pass 2: hidden·W2ᵀ + b2, and for K3 the residual). K3 first
+Both are CUDA C++: csrc/fused_mlp.cu for bf16 operands, csrc/fused_mlp_f32.cu
+for fp32 ones (the fp32 towers and training, as the JAX package computes
+them in the operand dtype). Each call is two GEMM passes, each a persistent,
+warp-specialised TMA + wgmma kernel with the MLP's elementwise work fused
+into its epilogue (pass 1: x·W1ᵀ + b1 → GELU into an (N, F) hidden
+workspace; pass 2: hidden·W2ᵀ + b2, and for K3 the residual). K3 first
 writes t = cast(LN(x)) with a row kernel. At small N (the text tower) pass 2
-splits K over F and a reduce kernel finishes it. `_plan` picks the tile
-widths and the split from (N, D, F). For fp32 operands (the fp32 towers and
-training, as the JAX package computes them in the operand dtype) both are
-csrc/fused_mlp_f32.cu: the same two passes as tiled fp32-FMA GEMMs on the
-CUDA cores with the same epilogues (an fp32 hidden), and K3's LN row kernel
-in front; `_plan_f32` picks their tiles. `fused_mlp_ref` /
+splits K over F and a reduce kernel finishes it. The fp32 kernels take their
+products as 3×TF32 on the tensor cores: each operand split into two TF32
+parts, the activations once in device memory (x or LN(x) by a row kernel,
+the hidden by pass 1's epilogue), the weights a tile at a time in shared
+memory. `_plan` (bf16) and `_plan_f32` pick the tile
+widths and the split from (N, D, F). `fused_mlp_ref` /
 `fused_ln_mlp_residual_ref` are the same functions in plain PyTorch, in the
 op order of hippomm_tpu.ops.fused_mlp._ref_mlp / _ref_ln_mlp_residual.
 
@@ -67,16 +68,21 @@ class Plan(NamedTuple):
 
 
 def _plan(n: int, d: int, f: int) -> Plan:
-    """The kernels' tile plan for an (N, D, F) call. Ingest shapes take
-    128 × 128 tiles in both passes; when a pass has fewer than `_WAVE_TILES`
-    tiles (the text tower's 77 rows), pass 1 takes the widest tile that
-    still gives that many (else the narrowest), and pass 2 doubles its K
-    slices while that many are not reached and the slices stay whole
-    64-wide steps."""
+    """The bf16 kernels' tile plan for an (N, D, F) call (`_plan_by` with
+    `_WAVE_TILES` tiles for about one wave, 64-wide K steps)."""
+    return _plan_by(n, d, f, _BN1, _WAVE_TILES, _BK)
+
+
+def _plan_by(n: int, d: int, f: int, widths, wave: int, bk: int) -> Plan:
+    """Ingest shapes take 128 × 128 tiles in both passes; when a pass has
+    fewer than `wave` tiles (the text tower's rows), pass 1 takes the
+    widest of `widths` that still gives that many (else the narrowest), and
+    pass 2 doubles its K slices while that many are not reached and the
+    slices stay whole `bk`-wide steps."""
     bands = -(-n // _BM)
-    bn1 = next((bn for bn in _BN1 if f % bn == 0 and bands * (f // bn) >= _WAVE_TILES), _BN1[-1])
+    bn1 = next((bn for bn in widths if f % bn == 0 and bands * (f // bn) >= wave), widths[-1])
     splits = 1
-    while bands * (d // _BN2) * splits < _WAVE_TILES and (f // _BK) % (2 * splits) == 0:
+    while bands * (d // _BN2) * splits < wave and (f // bk) % (2 * splits) == 0:
         splits *= 2
     return Plan(bn1, _BN2, splits)
 
@@ -90,24 +96,21 @@ def _pass_tiles(m: int, cols: int, k: int, bn: int, splits: int):
             for s in range(splits) for mt in range(m_tiles) for nt in range(n_tiles)]
 
 
-class PlanF32(NamedTuple):
-    tile1: int  # pass 1's (fc1's) square output tile: 128 or 64
-    tile2: int  # pass 2's (fc2's)
+_BK_F32 = 32  # K per pipeline stage of the fp32 kernels
+_SMS = 132  # the H100's SMs: a wave of the fp32 kernels' persistent blocks
 
 
-def _plan_f32(n: int, d: int, f: int) -> PlanF32:
-    """The fp32 kernels' tiles for an (N, D, F) call: a pass takes 128 × 128
-    output tiles where that gives at least `_WAVE_TILES` of them (the ingest
-    and training shapes), else 64 × 64 (the text tower's rows), so that a
-    small pass still spreads over the card."""
-    bands = -(-n // 128)
-    return PlanF32(*(128 if bands * (cols // 128) >= _WAVE_TILES else 64 for cols in (f, d)))
+def _plan_f32(n: int, d: int, f: int) -> Plan:
+    """The fp32 kernels' tile plan (`_plan_by` with a wave of `_SMS` tiles,
+    32-wide K steps, pass 1 tiles down to 32 wide)."""
+    return _plan_by(n, d, f, _BN1, _SMS, _BK_F32)
 
 
-def kernels_per_call(plan, ln: bool) -> int:
+def kernels_per_call(plan: Plan, ln: bool, f32: bool = False) -> int:
     """CUDA kernels one K2 (ln False) or K3 call launches: the LN row kernel
-    (K3), two GEMM passes, and (bf16 `Plan`) the split-K reduce."""
-    return int(ln) + 2 + int(getattr(plan, "splits", 1) > 1)
+    (K3; at fp32 K2's x split in its place), two GEMM passes, and the split-K
+    reduce."""
+    return int(ln or f32) + 2 + int(plan.splits > 1)
 
 
 def fused_mlp_supported(n: int, d: int, f: int) -> bool:
@@ -154,18 +157,21 @@ def _check_operands(name: str, x, w1, b1, w2, b2, *norm) -> bool:
 
 
 @functools.lru_cache(maxsize=64)
-def _workspace(n: int, d: int, f: int, ln: bool):
-    """`_plan(n, d, f)`, the byte offsets in one bf16 workspace of the hidden
-    (N, F) bf16, K3's LN(x) (N, D) bf16 and the split-K partials (splits, N,
-    D) fp32 (None where the call has none), each 256-byte aligned after the
-    (N, D) bf16 output at offset 0, and the workspace's length in bf16
-    elements."""
-    plan = _plan(n, d, f)
-    offsets, at = [], -(-2 * n * d // 256) * 256
-    for nbytes in (2 * n * f, 2 * n * d if ln else 0, 4 * plan.splits * n * d if plan.splits > 1 else 0):
+def _workspace(n: int, d: int, f: int, ln: bool, f32: bool):
+    """The plan (`_plan_f32` with `f32`, else `_plan`), the byte offsets in
+    one workspace of the call's dtype (bf16 or fp32) of the hidden (N, F),
+    K3's LN(x) (N, D) and the split-K partials (splits, N, D) fp32 (None
+    where the call has none), each 256-byte aligned after the (N, D) output
+    at offset 0, and the workspace's length in elements. At fp32 the hidden
+    and pass 1's A (LN(x), or K2's x) are held split, hi then lo: twice
+    (N, F) and (N, D)."""
+    plan, esize = (_plan_f32(n, d, f), 4) if f32 else (_plan(n, d, f), 2)
+    offsets, at = [], -(-esize * n * d // 256) * 256
+    for nbytes in ((1 + f32) * esize * n * f, (1 + f32) * esize * n * d if ln or f32 else 0,
+                   4 * plan.splits * n * d if plan.splits > 1 else 0):
         offsets.append(at if nbytes else None)
         at += -(-nbytes // 256) * 256
-    return plan, offsets, at // 2
+    return plan, offsets, at // esize
 
 
 def _current_stream() -> int:
@@ -180,22 +186,23 @@ def _current_stream() -> int:
 
 def _launch(entry: str, x, vectors, w1, b1, w2, b2, eps=None, own_out: bool = False,
             resid=None) -> torch.Tensor:
-    """Allocate one workspace for `_plan`'s passes with the (N, D) bf16
-    output at its head, launch `entry` on the current stream and return the
-    output. `vectors` are the fp32 (D,) operands that precede W1 in the C
-    signature (K3's gamma and beta); K3 also takes eps, its residual `resid`
-    (None: no residual) and a workspace for LN(x). A text-tower call is
-    host-bound, so this path keeps its tensor calls few: one allocation, the
-    output a view of it. `own_out` gives the
-    output an allocation of its own instead, so that a caller that keeps it
-    (autograd saves it as the next block's input) does not keep the hidden
-    workspace alive with it."""
+    """Allocate one workspace of x.dtype for the plan's passes with the (N,
+    D) output at its head, launch `entry` (the bf16 or fp32 kernels, by
+    x.dtype; the weights cast to it, as the plain version casts them) on the
+    current stream and return the output. `vectors` are the fp32 (D,)
+    operands that precede W1 in the C signature (K3's gamma and beta); K3
+    also takes eps, its residual `resid` (None: no residual) and a
+    workspace for LN(x), which the fp32 K2 takes for its split x. A text-tower call is host-bound, so this path
+    keeps its tensor calls few: one allocation, the output a view of it.
+    `own_out` gives the output an allocation of its own instead, so that a
+    caller that keeps it (autograd saves it as the next block's input) does
+    not keep the hidden workspace alive with it."""
     n, d = x.shape
     f = w1.shape[0]
-    bf16, f32 = torch.bfloat16, torch.float32
+    dt, f32 = x.dtype, torch.float32
     operands = [x, *(t if t.dtype == f32 else t.float() for t in vectors),
-                w1 if w1.dtype == bf16 else w1.to(bf16), b1 if b1.dtype == f32 else b1.float(),
-                w2 if w2.dtype == bf16 else w2.to(bf16), b2 if b2.dtype == f32 else b2.float()]
+                w1 if w1.dtype == dt else w1.to(dt), b1 if b1.dtype == f32 else b1.float(),
+                w2 if w2.dtype == dt else w2.to(dt), b2 if b2.dtype == f32 else b2.float()]
     args = []
     for t in operands:
         ptr = t.data_ptr()
@@ -204,14 +211,14 @@ def _launch(entry: str, x, vectors, w1, b1, w2, b2, eps=None, own_out: bool = Fa
         args.append(ptr)
     if eps is not None:
         args.append(None if resid is None else resid.data_ptr())
-    plan, (hidden, normed, partial), length = _workspace(n, d, f, eps is not None)
+    plan, (hidden, normed, partial), length = _workspace(n, d, f, eps is not None, dt == f32)
     # the output heads the workspace, which lives as long as the output
     # does; an own output leaves that slot unused
-    ws = torch.empty((length,), dtype=bf16, device=x.device)
+    ws = torch.empty((length,), dtype=dt, device=x.device)
     base = ws.data_ptr()
-    out = torch.empty((n, d), dtype=bf16, device=x.device) if own_out else ws[: n * d].view(n, d)
+    out = torch.empty((n, d), dtype=dt, device=x.device) if own_out else ws[: n * d].view(n, d)
     args.append(out.data_ptr())
-    if eps is not None:
+    if normed is not None:
         args.append(base + normed)
     args += [base + hidden, None if partial is None else base + partial, n, d, f, plan.bn1,
              plan.splits]
@@ -227,43 +234,6 @@ def _launch(entry: str, x, vectors, w1, b1, w2, b2, eps=None, own_out: bool = Fa
     if rc != 0:
         raise RuntimeError(f"{entry} kernel launch failed: error {rc} (CUDA error, or 1000 + the "
                            "CUresult of a tensor map that could not be built)")
-    return out
-
-
-def _launch_f32(entry: str, x, vectors, w1, b1, w2, b2, eps=None, resid=None) -> torch.Tensor:
-    """Launch `entry` of csrc/fused_mlp_f32.cu on fp32 operands (weights and
-    vectors cast to fp32 as the plain version casts them) with the
-    workspaces it takes: the (N, F) hidden and, for K3, LN(x) (N, D), and
-    return the (N, D) output."""
-    n, d = x.shape
-    f = w1.shape[0]
-    operands = [x, *(t.float() for t in vectors), w1.float(), b1.float(), w2.float(), b2.float()]
-    if eps is not None:
-        operands.append(resid)
-    args = []
-    for t in operands:
-        if t is None:
-            args.append(None)
-        elif t.data_ptr() % 16 or not t.is_contiguous():
-            raise ValueError(f"{entry} takes contiguous, 16-byte aligned operands")
-        else:
-            args.append(t.data_ptr())
-    out = torch.empty((n, d), dtype=torch.float32, device=x.device)
-    hidden = torch.empty((n, f), dtype=torch.float32, device=x.device)
-    args.append(out.data_ptr())
-    if eps is not None:
-        normed = torch.empty((n, d), dtype=torch.float32, device=x.device)
-        args.append(normed.data_ptr())
-    plan = _plan_f32(n, d, f)
-    args += [hidden.data_ptr(), n, d, f, plan.tile1, plan.tile2]
-    if eps is not None:
-        args.append(float(eps))
-    fn = getattr(_native.kernels(), entry)
-    _native.bind_thread(x.device)
-    with torch.cuda.device(x.device):
-        rc = fn(*args, _current_stream())
-    if rc != 0:
-        raise RuntimeError(f"{entry} kernel launch failed: CUDA error {rc}")
     return out
 
 
@@ -304,12 +274,10 @@ def fused_mlp(x, w1, b1, w2, b2) -> torch.Tensor:
 def _fused_mlp_forward(x, w1, b1, w2, b2, own_out: bool = False) -> torch.Tensor:
     if not _check_operands("fused_mlp", x, w1, b1, w2, b2):
         return fused_mlp_ref(x, w1, b1, w2, b2)
-    if x.dtype == torch.float32:
-        out = _launch_f32("hmm_fused_mlp_f32", x, (), w1, b1, w2, b2)
-        _native.count_launch(fused_mlp, fp32=True)
-        return out
-    out = _launch("hmm_fused_mlp_bf16", x, (), w1, b1, w2, b2, own_out=own_out)
-    _native.count_launch(fused_mlp)
+    f32 = x.dtype == torch.float32
+    out = _launch("hmm_fused_mlp_f32" if f32 else "hmm_fused_mlp_bf16", x, (), w1, b1, w2, b2,
+                  own_out=own_out)
+    _native.count_launch(fused_mlp, fp32=f32)
     return out
 
 
@@ -382,14 +350,10 @@ def _fused_ln_mlp_residual_forward(x, gamma, beta, w1, b1, w2, b2, eps: float = 
                                    own_out: bool = False, residual: bool = True) -> torch.Tensor:
     if not _check_operands("fused_ln_mlp_residual", x, w1, b1, w2, b2, gamma, beta):
         return fused_ln_mlp_residual_ref(x, gamma, beta, w1, b1, w2, b2, eps, residual=residual)
-    if x.dtype == torch.float32:
-        out = _launch_f32("hmm_fused_ln_mlp_residual_f32", x, (gamma, beta), w1, b1, w2, b2, eps=eps,
-                          resid=x if residual else None)
-        _native.count_launch(fused_ln_mlp_residual, fp32=True)
-        return out
-    out = _launch("hmm_fused_ln_mlp_residual_bf16", x, (gamma, beta), w1, b1, w2, b2, eps=eps,
-                  own_out=own_out, resid=x if residual else None)
-    _native.count_launch(fused_ln_mlp_residual)
+    f32 = x.dtype == torch.float32
+    out = _launch("hmm_fused_ln_mlp_residual_f32" if f32 else "hmm_fused_ln_mlp_residual_bf16", x,
+                  (gamma, beta), w1, b1, w2, b2, eps=eps, own_out=own_out, resid=x if residual else None)
+    _native.count_launch(fused_ln_mlp_residual, fp32=f32)
     return out
 
 

@@ -293,25 +293,43 @@ def test_flash_f32_kernels_match_plain_on_cuda(cuda_device, shape, bthd):
 @pytest.mark.cuda
 @pytest.mark.parametrize(
     "n,d,f",
-    # vision, audio, the Whisper encoder, the text tower (one question and
-    # eight: 64-wide tiles), the training step's vision rows, ragged rows
+    # vision, audio, the Whisper encoder, the text tower (one question: pass
+    # 1 32 wide, 32 K slices in pass 2; eight: 4 slices), the training
+    # step's vision and text rows, an audio shard's 229 rows (16 slices of
+    # 6 k-steps), ragged rows
     [(8224, 1280, 5120), (21984, 768, 3072), (6000, 1280, 5120), (77, 1024, 4096),
-     (616, 1024, 4096), (4112, 1280, 5120), (45, 768, 3072), (8, 128, 128)],
+     (616, 1024, 4096), (4112, 1280, 5120), (1232, 1024, 4096), (229, 768, 3072), (45, 768, 3072),
+     (8, 128, 128)],
 )
 def test_mlp_f32_kernels_match_plain_on_cuda(cuda_device, n, d, f):
-    """The fp32 K2 and K3 kernels (csrc/fused_mlp_f32.cu) against their
-    plain versions in full fp32: within 5e-5 of max |out|; one launch each,
-    counted as fp32; b1 shifted by -1 puts GELU's negative side in play."""
+    """The fp32 K2 and K3 kernels (csrc/fused_mlp_f32.cu: 3×TF32 on the
+    tensor cores) against their plain versions in full fp32: within 5e-5 of
+    max |out|, K3 with and without its residual; one launch each, counted as
+    fp32; b1 shifted by -1 puts GELU's negative side in play. Then K2 under
+    autograd (`_Recompute`): the kernel's forward within the same gate and
+    the plain recompute's gradients."""
     x, gamma, beta, w1, b1, w2, b2 = _mlp_operands(cuda_device, n, d, f, 22)
     x, w1, w2, b1 = x.float(), w1.float(), w2.float(), b1 - 1.0
     before = (tfm.fused_mlp.launches_f32, tfm.fused_ln_mlp_residual.launches_f32)
     out2 = tfm.fused_mlp(x, w1, b1, w2, b2)
     out3 = tfm.fused_ln_mlp_residual(x, gamma, beta, w1, b1, w2, b2, 1e-6)
+    out3r = tfm.fused_ln_mlp_residual(x, gamma, beta, w1, b1, w2, b2, 1e-6, residual=False)
     torch.cuda.synchronize()
     assert (tfm.fused_mlp.launches_f32, tfm.fused_ln_mlp_residual.launches_f32) == (before[0] + 1,
-                                                                                     before[1] + 1)
+                                                                                     before[1] + 2)
     _assert_f32_matches(out2, tfm.fused_mlp_ref(x, w1, b1, w2, b2), True)
     _assert_f32_matches(out3, tfm.fused_ln_mlp_residual_ref(x, gamma, beta, w1, b1, w2, b2, 1e-6), True)
+    _assert_f32_matches(out3r, tfm.fused_ln_mlp_residual_ref(x, gamma, beta, w1, b1, w2, b2, 1e-6,
+                                                             residual=False), True)
+    g = torch.randn((n, d), generator=torch.Generator(device=cuda_device).manual_seed(23), device=cuda_device)
+    args = (x, w1, b1, w2, b2)
+    before = tfm.fused_mlp.launches_f32
+    out, grads = _grads_of(tfm.fused_mlp, args, g)
+    assert tfm.fused_mlp.launches_f32 == before + 1
+    ref, want = _grads_of(tfm.fused_mlp_ref, args, g)
+    _assert_f32_matches(out, ref, True)
+    for got, w in zip(grads, want):
+        assert torch.equal(got, w)
 
 
 @pytest.mark.cuda

@@ -149,26 +149,47 @@ def test_plan_tiles_cover_every_output_once(n, d, f):
 @pytest.mark.parametrize("n,d,f", [(8224, 1280, 5120), (21984, 768, 3072), (6000, 1280, 5120),
                                    (77, 1024, 4096), (616, 1024, 4096), (4112, 1280, 5120),
                                    (1232, 1024, 4096), (2056, 1280, 2560), (616, 1024, 2048),
-                                   (8, 128, 128), (64, 1408, 5632)])
+                                   (8, 128, 128), (64, 1408, 5632), (229, 768, 3072),
+                                   (45, 768, 3072), (1500, 1280, 5120)])
 def test_plan_f32_tiles_cover_every_output_once(n, d, f):
     """The fp32 kernels' plan (csrc/fused_mlp_f32.cu) at the path shapes (the
-    ingest, Whisper, text and training shapes, phase 12's shards) and the
-    gate's edges: each pass's square tiles divide its columns and cover
-    every output row and column once; a pass with fewer than a wave of
-    128-wide tiles takes 64-wide ones; K steps of 16 divide D and F."""
+    ingest, Whisper, text and training shapes, phase 12's and an audio
+    shard's) and the gate's edges: in each pass the tiles of each K slice
+    cover every output row and column once, the slices are whole 32-wide
+    K steps that add up to K, and each pass has a wave of 132 tiles where
+    the plan's narrowest pass 1 tile and its slices allow it; the ingest
+    and training shapes take 128 × 128 tiles and no split; kernels_per_call
+    counts the A split (K2's own kernel, K3's LN) and the split-K reduce."""
     plan = tfm._plan_f32(n, d, f)
-    for cols, k, tile in ((f, d, plan.tile1), (d, f, plan.tile2)):
-        assert tile in (128, 64) and cols % tile == 0 and k % 16 == 0
-        bands = -(-n // tile)
-        rows = np.zeros(bands * tile, np.int32)
-        for r0 in range(0, n, tile):
-            rows[r0:r0 + tile] += 1
-        assert (rows[:n] == 1).all() and (bands - 1) * tile < n
-        wave = -(-n // 128) * (cols // 128) >= 128
-        assert tile == (128 if wave else 64)
-    if n >= 4112:  # the ingest and training shapes: full 128-wide tiles
-        assert plan == (128, 128)
-    assert tfm.kernels_per_call(plan, False) == 2 and tfm.kernels_per_call(plan, True) == 3
+    assert plan.bn1 in (128, 32) and plan.bn2 == 128
+    passes = ((f, d, plan.bn1, 1), (d, f, plan.bn2, plan.splits))  # (cols, K, tile width, slices)
+    for i, (cols, k, bn, splits) in enumerate(passes):
+        tiles = tfm._pass_tiles(n, cols, k, bn, splits)
+        assert len(tiles) == len(set(tiles))
+        slices = sorted({(k0, k1) for _, _, k0, k1 in tiles})
+        assert len(slices) == splits and slices[0][0] == 0 and slices[-1][1] == k
+        assert all(a[1] == b[0] for a, b in zip(slices, slices[1:]))
+        assert all((k1 - k0) % 32 == 0 and k1 > k0 for k0, k1 in slices)
+        for k0, k1 in slices:
+            rows = np.zeros(-(-n // 128) * 128, np.int32)
+            cols_seen = np.zeros(cols, np.int32)
+            corners = [(r0, c0) for r0, c0, a, b in tiles if (a, b) == (k0, k1)]
+            assert len(corners) == len({r0 for r0, _ in corners}) * len({c0 for _, c0 in corners})
+            for r0 in sorted({r0 for r0, _ in corners}):
+                rows[r0:r0 + 128] += 1
+            for c0 in sorted({c0 for _, c0 in corners}):
+                assert c0 + bn <= cols
+                cols_seen[c0:c0 + bn] += 1
+            assert (rows == 1).all() and (cols_seen == 1).all() and len(rows) - 128 < n
+        # a wave of the card's 132 SMs, unless pass 1 is at its narrowest or
+        # pass 2's slices cannot halve again
+        narrowest = bn == 32 if i == 0 else (k // 32) % (2 * splits) != 0
+        assert len(tiles) >= 132 or narrowest
+    if n >= 4112:  # the ingest and training shapes: full tiles, no split
+        assert plan == (128, 128, 1)
+    # K3's LN row kernel, or K2's x split, then two passes and the reduce
+    assert tfm.kernels_per_call(plan, False, f32=True) == 3 + (plan.splits > 1)
+    assert tfm.kernels_per_call(plan, True, f32=True) == 3 + (plan.splits > 1)
 
 
 @pytest.mark.parametrize("d,heads", [(128, 4), (1408, 11)])
