@@ -13,9 +13,9 @@ Phases (any failure exits non-zero and prints no result line):
      kernels of K1-K4 (csrc/*_f32.cu) against their plain versions in full
      fp32 (TF32 off) at the ingest, Whisper, text and training shapes:
      K1/K4 within 5e-5 abs, K2/K3 within 5e-5 of max |out|, the library
-     calls SDPA and F.linear → F.gelu → F.linear at fp32, the bound at
-     67 TF/s fp32 (K1/K4) or as 3×TF32 at 495 TF/s, the fp32 one beside it
-     (K2/K3: their products are 3×TF32 wgmma), K3 also without its residual;
+     calls SDPA and F.linear → F.gelu → F.linear at fp32, the bound as
+     3×TF32 at 495 TF/s with the fp32 one (67 TF/s) beside it (their
+     products are 3×TF32 wgmma), K3 also without its residual;
      kernel, plain and library-call times (CUDA events) beside each bound
      and its share of it; K2/K3 and their library calls timed over rotating
      weight sets that overflow the L2 (as each encoder block finds its
@@ -23,8 +23,9 @@ Phases (any failure exits non-zero and prints no result line):
      CUDA kernels per call, device µs per kernel (torch.profiler), host µs
      to enqueue a call; the same readings for K1/K4 (one launch per call,
      warm inputs, the median of 5 timings) and K5 (its plan, kernels per
-     call from the profiler: never more than one) with their plans; ptxas's registers, spills
-     and shared memory for every kernel of csrc/*.cu
+     call from the profiler: never more than one) with their plans; ptxas's registers, spills,
+     shared memory and notes of serialized wgmma for every kernel of
+     csrc/*.cu
   3. towers — the ImageBind-Huge vision and text towers through the
      kernels, in the default and in the fused-block configuration, and the
      Whisper distil-large-v3 encoder through the kernels, each against the
@@ -267,7 +268,8 @@ def attention_row(fa, shape, err, kernel, plain, library, b_ms, b_by, plan_shape
     a call."""
     if f32:
         p32 = fa._attn_plan_f32(*plan_shape)
-        plan = {"q_tiles": len(p32.q_tiles), "key_tiles": len(p32.key_tiles), "nc": p32.nc}
+        plan = {"q_tiles": len(p32.q_tiles), "key_tiles": len(p32.key_tiles), "nc": p32.nc,
+                "key_tile": p32.key_tile}
     else:
         p16 = fa._attn_plan(*plan_shape)
         plan = {"q_tiles": len(p16.q_tiles), "key_tiles": [w for _, w in p16.key_tiles],
@@ -454,7 +456,8 @@ def check_attention_f32(fa, shape, gen, bthd: bool):
     """The fp32 K1 (B, H, T, hd) or K4 (B, T, H, hd slices of one packed
     (B, T, 3D) projection) against its plain version in full fp32 (TF32
     off), then the readings of attention_row; the library call is SDPA at
-    fp32; the bound is fp32's (67 TF/s)."""
+    fp32; the bound is the 3×TF32 one (three TF32 products a product at 495
+    TF/s: csrc/flash_mha_f32.cu's), beside the fp32 one (67 TF/s)."""
     import torch
     import torch.nn.functional as F
 
@@ -481,10 +484,14 @@ def check_attention_f32(fa, shape, gen, bthd: bool):
     err = (out - plain_fn(q, k, v, scale)).abs().max().item()
     if not math.isfinite(err) or err > F32_ATTN_TOL:
         fail(f"{kernel_fn.__name__} fp32 {shape}: max abs err {err} > {F32_ATTN_TOL}")
-    b_ms, b_by = bound(4 * b * h * hd * (2 * tq + 2 * tk), 4 * b * h * tq * tk * hd, PEAK_FP32_FLOP_S)
-    return attention_row(fa, shape, err, lambda: kernel_fn(q, k, v, scale), lambda: plain_fn(q, k, v, scale),
-                         lambda: F.scaled_dot_product_attention(qt, kt, vt, scale=scale), b_ms, b_by,
-                         (tq, tk, hd), f32=True)
+    nbytes, flops = 4 * b * h * hd * (2 * tq + 2 * tk), 4 * b * h * tq * tk * hd
+    b_ms, b_by = bound(nbytes, 3 * flops, PEAK_TF32_FLOP_S)
+    row = attention_row(fa, shape, err, lambda: kernel_fn(q, k, v, scale), lambda: plain_fn(q, k, v, scale),
+                        lambda: F.scaled_dot_product_attention(qt, kt, vt, scale=scale), b_ms, b_by,
+                        (tq, tk, hd), f32=True)
+    fp32_ms, fp32_by = bound(nbytes, flops, PEAK_FP32_FLOP_S)
+    row.update(fp32_bound_ms=fp32_ms, fp32_bound_by=fp32_by, pct_of_fp32_bound=100.0 * fp32_ms / row["ms"])
+    return row
 
 
 def topk_mismatch(vals, idx, rvals, ridx, tol: float = 1e-5):
@@ -603,8 +610,9 @@ def build_report(native, topk_plan):
                 "spill_loads": int(spill.group(2)) if spill else None,
                 "static_smem": int(smem.group(1)) if smem else 0,
                 "dynamic_smem": dyn,
-                # ptxas's C7515: wgmma serialized (accumulators written between issue and wait)
-                "wgmma_serialized_notes": sum(1 for ln in log.splitlines() if "C7515" in ln and mangled in ln),
+                # ptxas's notes (C7510-C7520) that it serialized the kernel's wgmmas
+                "wgmma_serialized_notes": sum(1 for ln in log.splitlines()
+                                              if "wgmma.mma_async instructions are serialized" in ln and mangled in ln),
             })
     return out
 
@@ -2841,7 +2849,7 @@ def main() -> int:
                      f"host µs per call {r['host_us']:.1f}"
                      if "plan" in r else "")
             off = f" offset {r['offset']}" if r.get("offset") else ""
-            # the fp32 K2/K3 rows: their bound is the 3×TF32 one; the fp32 one beside it
+            # the fp32 rows: their bound is the 3×TF32 one; the fp32 one beside it
             fp32 = (f"; fp32 bound {r['fp32_bound_ms']:.4f} ms ({r['fp32_bound_by']}), "
                     f"{r['pct_of_fp32_bound']:.1f} % of it" if "fp32_bound_ms" in r else "")
             print(f"{name} {r['shape']}{' ascending' if r.get('ascending') else ''}{off}"

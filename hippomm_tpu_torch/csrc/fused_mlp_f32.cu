@@ -122,64 +122,6 @@ struct GemmArgs {
   float* out_lo;        // kGelu: C's lo (m, n), pass 2's A split as it is written
 };
 
-// wgmma.mma_async m64nNk8, tf32 × tf32 → fp32 into d (d = A·B + d, or A·B
-// when scale_d is 0), A and B K-major from shared memory (tf32 has no
-// transpose). Every accumulator register is an operand, so the forms are
-// written out.
-template <int N>
-__device__ void wgmma_tf32(float (&d)[N / 2], uint64_t da, uint64_t db, int scale_d);
-
-template <>
-__device__ __forceinline__ void wgmma_tf32<32>(float (&d)[16], uint64_t da, uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
-      "}, %16, %17, p, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
-          "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
-          "+f"(d[14]), "+f"(d[15])
-      : "l"(da), "l"(db), "r"(scale_d));
-}
-
-template <>
-__device__ __forceinline__ void wgmma_tf32<128>(float (&d)[64], uint64_t da, uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, "
-      "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, "
-      "%34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
-      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
-      "}, %64, %65, p, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
-          "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
-          "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
-          "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]),
-          "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-          "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
-          "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),
-          "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(scale_d));
-}
-
-// cvt.rna.tf32.f32 (round to nearest, ties away from zero) as bit
-// arithmetic on the fp32 pattern: two integer operations in place of the
-// slower conversion (9 % of the vision K2's time), the same bits for every
-// v whose rounding stays finite
-__device__ __forceinline__ float tf32_rna(float v) {
-  return __uint_as_float((__float_as_uint(v) + 0x1000u) & 0xFFFFE000u);
-}
-
-// v's hi = tf32(v) and lo = tf32(v − hi)
-__device__ __forceinline__ void split4(float4 v, float4& hi, float4& lo) {
-  hi = make_float4(tf32_rna(v.x), tf32_rna(v.y), tf32_rna(v.z), tf32_rna(v.w));
-  lo = make_float4(tf32_rna(v.x - hi.x), tf32_rna(v.y - hi.y), tf32_rna(v.z - hi.z), tf32_rna(v.w - hi.w));
-}
-
 // hi over v in place, lo at the same index of `lo`: V float4s a consumer
 // thread, thread t taking t, t + 128, ...
 template <int V>
@@ -310,8 +252,7 @@ gemm_tf32x3(const __grid_constant__ CUtensorMap ta_hi, const __grid_constant__ C
       split_tf32<kHalfB / 2048>(
           reinterpret_cast<float4*>(ring_ptr + stage * kStage + 2 * kA + wg * kHalfB),
           reinterpret_cast<float4*>(ring_ptr + kStages * kStage + c % kLoBufs * kLo + wg * kHalfB), t);
-      // the generic-proxy writes before the wgmmas' async-proxy reads
-      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      fence_proxy_async();  // the generic-proxy writes before the wgmmas' async-proxy reads
     };
     float acc[BN / 2], part[BN / 2];
 #pragma unroll

@@ -16,8 +16,9 @@ for p·v (p from registers), a producer warp and two consumer warpgroups
 whose softmax runs under each other's products. `_attn_plan` chooses its
 tiles from the shape. For fp32 operands (the fp32 towers and training, as
 the JAX package computes them in the operand dtype) both are
-csrc/flash_mha_f32.cu, fp32 FMA on the CUDA cores over shared-memory tiles
-(`_attn_plan_f32`). K4 reads strided views, such as the q slice of a packed
+csrc/flash_mha_f32.cu, the same structure with both products as 3×TF32
+wgmma on the tensor cores (each operand split into TF32 hi and lo parts;
+fp32 softmax; `_attn_plan_f32`). K4 reads strided views, such as the q slice of a packed
 (B, T, 3D) projection, without a copy. `flash_mha_ref` / `flash_mha_bthd_ref`
 are the same functions in plain PyTorch, in the JAX op order:
 
@@ -99,36 +100,55 @@ def _attn_plan(tq: int, tk: int, hd: int) -> AttnPlan:
     return AttnPlan(q_tiles, keys, panels, hdp, n_full, tail)
 
 
-# The fp32 kernel's tiles (csrc/flash_mha_f32.cu): 64 query rows of one
-# head a block, keys in tiles of 64 (the last may be short), hd rounded up
-# to 16 (zero columns in shared memory only: no copy pads the operands).
-_F32_Q_ROWS = 64
-_F32_KEY_TILE = 64
+# The fp32 kernel's tiles (csrc/flash_mha_f32.cu): a work tile is 128 query
+# rows of one head (two consumer warpgroups of 64); keys come in tiles of 32,
+# or of 16 past hd 80 (shared memory); hd is rounded up to 16 (the columns
+# past hd are TMA's zero fill, in shared memory only).
+_F32_Q_ROWS = 128
+
+
+def _f32_key_tile(nc: int) -> int:
+    """Keys a tile of the fp32 kernel's template instance nc (hd ≤ 16·nc)."""
+    return 32 if nc <= 5 else 16
 
 
 class AttnPlanF32(NamedTuple):
     """Tiles of one fp32 kernel call: (start, length) of each query tile and
     key tile (the last of each may run past the end: rows past tq are not
-    written, keys past tk are masked), and `nc`, the head dim rounded up to
-    16, over 16 (the kernel's template instance)."""
+    written, keys past tk are masked), `nc`, the head dim rounded up to 16,
+    over 16 (the kernel's template instance), and `key_tile`, its keys a
+    tile."""
 
     q_tiles: Tuple[Tuple[int, int], ...]
     key_tiles: Tuple[Tuple[int, int], ...]
     nc: int
+    key_tile: int
 
 
 def _attn_plan_f32(tq: int, tk: int, hd: int) -> AttnPlanF32:
     """The fp32 kernel's tile plan for q (.., tq, hd) against k/v (.., tk, hd)."""
     if tq < 1 or tk < 1 or not 1 <= hd <= _MAX_HD:
         raise ValueError(f"no fp32 attention plan for tq={tq} tk={tk} hd={hd}")
+    nc = -(-hd // 16)
+    kt = _f32_key_tile(nc)
     return AttnPlanF32(tuple((r, _F32_Q_ROWS) for r in range(0, tq, _F32_Q_ROWS)),
-                       tuple((j, _F32_KEY_TILE) for j in range(0, tk, _F32_KEY_TILE)), -(-hd // 16))
+                       tuple((j, kt) for j in range(0, tk, kt)), nc, kt)
+
+
+def _tma_ready(t: torch.Tensor) -> bool:
+    """The fp32 kernel's TMA takes an operand as it is: every stride a
+    multiple of 4 elements (16 bytes), the hd axis contiguous, the start
+    16-byte aligned."""
+    return t.stride(3) == 1 and all(st % 4 == 0 for st in t.stride()[:3]) and t.data_ptr() % 16 == 0
 
 
 def _flash_f32(counter, q, k, v, scale: float, bthd: bool) -> torch.Tensor:
     """Launch csrc/flash_mha_f32.cu on fp32 CUDA q, k, v: (B, H, T, hd)
-    (K1) or (B, T, H, hd) views (K4), any strides with a contiguous hd axis;
-    a contiguous output in the same layout. Counts the launch on `counter`
+    (K1) or (B, T, H, hd) views (K4), read in place where TMA takes their
+    strides (`_tma_ready`: the path's tensors and the packed projection's
+    slices), else first copied with hd zero-padded to a multiple of 4 (the
+    columns add 0 to q·k and give zero output columns, sliced off). A
+    contiguous output in the same layout. Counts the launch on `counter`
     (its fp32 count too)."""
     if bthd:
         b, tq, h, hd = q.shape
@@ -138,24 +158,24 @@ def _flash_f32(counter, q, k, v, scale: float, bthd: bool) -> torch.Tensor:
         b, h, tq, hd = q.shape
         tk = k.shape[2]
         strides = lambda t: (t.stride(0), t.stride(1), t.stride(2))  # noqa: E731
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.stride(3) != 1:
-            raise ValueError(f"the fp32 attention kernel takes {name} with a contiguous hd axis; "
-                             f"got strides {t.stride()}")
-    plan = _attn_plan_f32(tq, tk, hd)
+    if not all(_tma_ready(t) for t in (q, k, v)):
+        hd4 = _round_up(hd, 4)
+        q, k, v = (F.pad(t, (0, hd4 - hd)) for t in (q, k, v))
+    width = q.shape[3]
+    plan = _attn_plan_f32(tq, tk, width)
     out = torch.empty(q.shape, dtype=torch.float32, device=q.device)
     lib = _native.kernels()
     _native.bind_thread(q.device)
     with torch.cuda.device(q.device):
         rc = lib.hmm_flash_mha_f32(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, h, tq, tk, hd,
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, h, tq, tk, width,
             *strides(q), *strides(k), *strides(v), *strides(out), len(plan.q_tiles),
             len(plan.key_tiles), plan.nc, float(scale), torch.cuda.current_stream(q.device).cuda_stream,
         )
     if rc != 0:
         raise RuntimeError(f"hmm_flash_mha_f32 kernel launch failed: CUDA error {rc}")
     _native.count_launch(counter, fp32=True)
-    return out
+    return out if width == hd else out[..., :hd]
 
 
 def flash_supported(tq: int, tk: int, hd: int) -> bool:

@@ -6,7 +6,7 @@
 Each NAME=SUBS builds a copy of hippomm_tpu_torch/csrc/fused_mlp.cu (with
 --f32: fused_mlp_f32.cu) with the text substitutions SUBS applied
 (``old|||new`` pairs joined by ``;;``; an empty SUBS is the source as it
-is) into its own library under hippomm_tpu_torch/_build/variants/, then
+is; ``@FILE`` the source in FILE) into its own library under hippomm_tpu_torch/_build/variants/, then
 runs K2 at the vision, audio and Whisper ingest shapes and K3 at the
 vision shape (with --f32: K2 and K3 at the fp32 path shapes of
 chip_smoke.py phase 2 and an audio shard's 229 rows, on fp32 operands, the
@@ -46,8 +46,9 @@ SHAPES_F32 = [(s, ln) for ln in (False, True) for s in (
 
 
 def build(variants: dict, source: str = "fused_mlp.cu", entries=ENTRIES) -> dict:
-    """One shared library per variant of csrc/`source`, all nvcc processes
-    started together; each binds `entries` as the kernel library does."""
+    """One shared library per variant of csrc/`source` (SUBS `@FILE`: the
+    source in FILE instead), all nvcc processes started together; each
+    binds `entries` as the kernel library does."""
     from hippomm_tpu_torch.ops import _native
 
     src = open(os.path.join(_native._CSRC, source)).read()
@@ -57,6 +58,9 @@ def build(variants: dict, source: str = "fused_mlp.cu", entries=ENTRIES) -> dict
     procs = {}
     for name, subs in variants.items():
         text = src
+        if subs.startswith("@"):  # a whole source from a file, e.g. an earlier commit's (git show)
+            with open(subs[1:]) as f:
+                text, subs = f.read(), ""
         for sub in filter(None, subs.split(";;")):
             old, new = sub.split("|||")
             if old not in text:
@@ -77,7 +81,8 @@ def build(variants: dict, source: str = "fused_mlp.cu", entries=ENTRIES) -> dict
         regs = sorted({int(r) for r in re.findall(r"Used (\d+) registers", log)})
         spills = sorted({int(r) for r in re.findall(r"(\d+) bytes spill stores", log)})
         print(f"variant {name}: registers {regs}, spill stores {spills}, "
-              f"{log.count('C7515')} ptxas notes of serialized wgmma", flush=True)
+              f"{log.count('wgmma.mma_async instructions are serialized')} ptxas notes of serialized wgmma",
+              flush=True)
         lib = ctypes.CDLL(path)
         for fn in entries:
             getattr(lib, fn).argtypes = getattr(real, fn).argtypes

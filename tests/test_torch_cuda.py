@@ -258,19 +258,29 @@ def test_mlp_kernels_gelu_negative_side(cuda_device, n):
 @pytest.mark.cuda
 @pytest.mark.parametrize(
     "shape,bthd",
-    # K1 at the ingest, Whisper, training and text shapes, hd 40 and 16, the
-    # key tiles' edges (Tk 1, 64, 65); K4 (B, T, H, hd) on slices of a
-    # packed (B, T, 3D) projection, and at a ragged Tq against Tk
+    # K1 at the ingest, Whisper, training and text shapes, hd 40 and 16;
+    # the key tiles' edges (Tk 1, 8, 9, 63, 64, 65, 129: tiles of 32 keys, of
+    # 16 past hd 80, as at Tk 24 and hd 112) and the query tiles' (Tq 1, 129:
+    # a second 128-row work tile with one row); hd 8, 72 (an hd that is no
+    # multiple of 16) and 128; hd 30, whose strides TMA does not take (the
+    # wrapper's padded copy). K4 (B, T, H, hd) on slices of a packed (B, T,
+    # 3D) projection (q, k and v at d·4-byte offsets, row stride 3D), at a
+    # ragged Tq against Tk, at hd 72 and at hd 30 (padded)
     [((32, 16, 257, 257, 80), False), ((96, 12, 229, 230, 64), False),
      ((4, 20, 1500, 1500, 64), False), ((16, 16, 257, 257, 80), False),
      ((8, 16, 77, 77, 64), False), ((2, 3, 33, 40, 40), False), ((2, 4, 50, 50, 16), False),
      ((1, 2, 1, 1, 64), False), ((2, 2, 70, 64, 128), False), ((2, 2, 63, 65, 80), False),
+     ((2, 2, 5, 1, 80), False), ((2, 2, 40, 8, 80), False), ((2, 2, 40, 9, 64), False),
+     ((2, 2, 130, 63, 80), False), ((2, 2, 129, 129, 64), False), ((2, 2, 40, 129, 128), False),
+     ((2, 3, 33, 65, 8), False), ((2, 3, 129, 9, 72), False), ((2, 2, 20, 24, 112), False),
+     ((2, 2, 9, 9, 30), False),
      ((32, 16, 257, 257, 80), True), ((16, 16, 257, 257, 80), True), ((2, 4, 33, 33, 40), True),
-     ((8, 8, 258, 257, 80), True)],
+     ((8, 8, 258, 257, 80), True), ((2, 4, 64, 64, 72), True), ((2, 3, 20, 20, 30), True)],
 )
 def test_flash_f32_kernels_match_plain_on_cuda(cuda_device, shape, bthd):
-    """The fp32 K1/K4 kernel (csrc/flash_mha_f32.cu) against the plain
-    version in full fp32: within 5e-5 abs; one launch, counted as fp32."""
+    """The fp32 K1/K4 kernel (csrc/flash_mha_f32.cu: 3×TF32 wgmma) against
+    the plain version in full fp32: within 5e-5 abs; one launch, counted as
+    fp32."""
     b, h, tq, tk, hd = shape
     g = torch.Generator(device=cuda_device).manual_seed(21)
     if bthd:
@@ -288,6 +298,27 @@ def test_flash_f32_kernels_match_plain_on_cuda(cuda_device, shape, bthd):
     torch.cuda.synchronize()
     assert (wrapper.launches, wrapper.launches_f32) == (before[0] + 1, before[1] + 1)
     _assert_f32_matches(out, plain(q, k, v, hd ** -0.5), False)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tk,hd", [(1500, 64), (257, 80)])
+def test_flash_f32_kernel_sharp_softmax_on_cuda(cuda_device, tk, hd):
+    """The fp32 kernel at sharp logits: inputs ×3 and keys sorted by their
+    dot with the queries' common direction, so each key tile raises the row
+    max and the rescale of O carries the result, with |q·k| in the hundreds
+    (where q_hi·k_hi and the cross products need accumulators of their
+    own). Within 5e-5 abs of the plain version in full fp32."""
+    b, h, tq = 1, 2, 64
+    g = torch.Generator(device=cuda_device).manual_seed(12)
+    base = torch.randn((b, h, 1, hd), generator=g, device=cuda_device)
+    q = 3 * (base + 0.1 * torch.randn((b, h, tq, hd), generator=g, device=cuda_device))
+    k = 3 * torch.randn((b, h, tk, hd), generator=g, device=cuda_device)
+    order = torch.argsort((k * base).sum(-1), dim=-1)  # ascending logits along the keys
+    k = torch.gather(k, 2, order[..., None].expand(-1, -1, -1, hd))
+    v = torch.randn((b, h, tk, hd), generator=g, device=cuda_device)
+    out = tfa.flash_mha(q, k, v, hd ** -0.5)
+    torch.cuda.synchronize()
+    _assert_f32_matches(out, tfa.flash_mha_ref(q, k, v, hd ** -0.5), False)
 
 
 @pytest.mark.cuda
