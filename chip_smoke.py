@@ -155,6 +155,28 @@ Phases (any failure exits non-zero and prints no result line):
      memory. (c) graft_entry.dryrun_multichip(4, devices=[cuda:0] * 4),
      which trains in fp32: its line, every loss finite, and every kernel
      launch an fp32 one
+ 14. qa     — (runs after phase 13, whose state it frees first) the
+     QA-accuracy harness (hippomm_tpu_torch/benchmarks/qa_harness) at
+     ImageBind-Huge width in bf16 (random weights from seed 0; OracleASR
+     stands in for Whisper). (a) run_harness itself at bench config #5's
+     shape over Y4M + WAV: 3 palette videos of 180 s in 15 s scenes (36
+     scenes, 320×180 at 2 fps, the last video's colors repeating the
+     first's), 120 questions over 12 families at caption noise 0.15, single
+     and batched: no failed video, 36 scenes, 120 questions, all 12
+     families, qa_accuracy and qa_accuracy_batched ≥ 0.85 (the floor of the
+     band the JAX bench calibrated the noise to), count, count_video,
+     summary, video_neg and audio_neg at 1.0 (they rest on clean ingest
+     captions), exact launches (K1/K2 per encoder block at ingest by
+     phase 8's formula, K2 24 per text forward, K5 one per single-question
+     search round with k ≤ 128, every round on the device); accuracy with
+     its 95 % interval, per family, ingest_x, ingest_wall_s, recall_p50_ms,
+     batched_s_per_q. (b) one 180 s video (12 scenes) ingested once, then
+     40 questions at caption noise 0 on the single path with the kernels
+     and again with them routed out (HIPPOMM_FLASH_ATTN=0,
+     HIPPOMM_FUSED_MLP=0, HIPPOMM_TOPK_ROUTE=host): every verdict equal, at
+     most 2 answer strings differ (printed), exact launches in the kernel
+     pass and none in the routed-out one. Every shape the phase gives K1,
+     K2 or K5 must be one phase 2 checked (QA_SHAPES adds its own there)
 
 Prints the card's name and power limit, a `{"kernels": [...]}` line (the
 fp32 kernels as entries of their own, `<name>_f32`, with phase 13's
@@ -1354,6 +1376,18 @@ TRAIN_SHARD_SHAPES = {
 }
 
 
+# The kernels' shapes in phase 14 that no other phase gives them, checked in
+# phase 2 (phase 14 fails on any shape phase 2 did not check): the batched
+# path's one text forward of 40 VIDEO questions (77 × 40 rows), and K5 over
+# the harness's vision stores, 36 rows (3 videos × 12 scenes) and 12 (one
+# video), k clamped to the rows. Its vision and audio chunks are phase 4's
+# (32 frames; 32 segments × 3 clips), its single questions' text rows 77.
+QA_SHAPES = {
+    "fused_mlp": ((3080, 1024, 4096),),
+    "top_k_cosine": ((36, 1024, 36), (12, 1024, 12)),
+}
+
+
 def mesh_launches(n_vis_chunks, n_aud, enc_batches, bucket, vis_depth, aud_depth, fused, shards):
     """K1-K4 launches of one ingest on a mesh: every tower batch whose rows
     divide by the shard count runs once per shard (vision chunks of 32/128,
@@ -2505,11 +2539,12 @@ class CliSpies:
         logging.getLogger(bp.__name__).removeHandler(self._handler)
 
 
-def ingest_blocks(spies, mem, vids, vis_depth: int, aud_depth: int):
+def ingest_blocks(spies, mem, vids, vis_depth: int, aud_depth: int, wh_depth: int = WHISPER_DEPTH):
     """Each ingested video's encoder blocks, from what the CLI spies saw:
     vision through the stream's 32-wide chunks (ceil(fed / 32) batches of
     vis_depth blocks), audio segments in 32-wide chunks of aud_depth blocks,
-    and one Whisper encoder batch of 32 blocks per 32 ASR chunks of 30 s.
+    and one Whisper encoder batch of `wh_depth` blocks per 32 ASR chunks of
+    30 s (0 where an injected transcriber stands in for Whisper).
     Every block is one K1 and one K2 launch in the default configuration.
     Returns the per-video record and the expected launch counts."""
     import numpy as np
@@ -2525,7 +2560,7 @@ def ingest_blocks(spies, mem, vids, vis_depth: int, aud_depth: int):
         n_pcm = len(np.load(npy, mmap_mode="r")) if os.path.exists(npy) else 0
         enc_batches = math.ceil(math.ceil(n_pcm / (30 * 16000)) / 32)
         blocks = (math.ceil(base.frames_fed / 32) * vis_depth + math.ceil(n_aud / 32) * aud_depth
-                  + enc_batches * WHISPER_DEPTH)
+                  + enc_batches * wh_depth)
         total += blocks
         videos[vid] = {"route": "keyframe_feed" if base is stream else "encode_all_candidates",
                        "fed": base.frames_fed, "keyframes": len(meta["frame_times"]),
@@ -2742,6 +2777,236 @@ def cli_phase(counters, ib_depths):
     return out
 
 
+QA_FLOOR = 0.85  # the floor of the band the JAX bench calibrated caption noise 0.15 to (bench.py qa section)
+QA_EXACT = ("count", "count_video", "summary", "video_neg", "audio_neg")  # clean ingest captions: exact
+QA_FAMILIES = {"video", "audio", "multimodal", "summary", "count", "xmodal", "order", "after_tone",
+               "which_video", "count_video", "video_neg", "audio_neg"}
+QA_PARITY_QUESTIONS = 40  # (b)'s questions a pass
+QA_PARITY_DIFFS = 2  # answer strings (b)'s routed-out pass may change (bf16 ties), verdicts never
+
+
+class KernelShapes:
+    """The shapes a path gives K1, K2 and K5, in phase 2's form (K1 (B, H,
+    Tq, Tk, hd), K2 (N, D, F), K5 (rows, D, k)): each wrapper's name at its
+    call site (models/layers, retrieval/search) replaced by a recorder that
+    calls it."""
+
+    def __init__(self):
+        from hippomm_tpu_torch.models import layers
+        from hippomm_tpu_torch.retrieval import search
+
+        self.seen = {"flash_mha": set(), "fused_mlp": set(), "top_k_cosine": set()}
+        self._saved = []
+        for obj, attr, name, key in (
+            (layers, "flash_mha", "flash_mha", lambda q, k, *r: (*q.shape[:3], k.shape[2], q.shape[3])),
+            (layers, "fused_mlp", "fused_mlp", lambda x, w1, *r: (x.shape[0], x.shape[1], w1.shape[0])),
+            (search, "top_k_cosine_kernel", "top_k_cosine", lambda q, f, k, *r: (f.shape[0], f.shape[1], k)),
+        ):
+            fn = getattr(obj, attr)
+            self._saved.append((obj, attr, fn))
+            setattr(obj, attr, lambda *a, fn=fn, name=name, key=key, **k: self.seen[name].add(key(*a)) or fn(*a, **k))
+
+    def restore(self):
+        for obj, attr, fn in reversed(self._saved):
+            setattr(obj, attr, fn)
+
+
+def _qa_expect(ingest, spies):
+    """K1-K5 launches of a harness run: the ingest's encoder blocks (K1 and
+    K2 each), one K2 per text-tower block of each text forward, one K5 per
+    single-question search round with k ≤ 128."""
+    return {"flash_mha": ingest, "fused_mlp": ingest + TEXT_DEPTH * len(spies.text_rows),
+            "fused_ln_mlp_residual": 0, "flash_mha_bthd": 0,
+            "top_k_cosine": sum(1 for k in spies.device_ks if k <= 128)}
+
+
+def qa_phase(counters, fa, fm, ib_depths, card, checked):
+    """14. the QA-accuracy harness (hippomm_tpu_torch/benchmarks/qa_harness)
+    on the card at ImageBind-Huge width: (a) run_harness at bench config
+    #5's shape over Y4M + WAV, its gates on the answers; (b) one ingest, then
+    the same questions at caption noise 0 with the kernels and with them
+    routed out: equal verdicts, exact launches. The harness's times include
+    QuerySpies' synchronize around each text forward and search (threads
+    of the batched path wait on each other there, so no stage split is
+    read). Every shape the phase gives
+    K1, K2 or K5 must be one phase 2 checked (`checked`: name -> shapes)."""
+    import gc
+
+    import torch
+
+    from hippomm_tpu_torch.benchmarks import qa_harness as qh
+    from hippomm_tpu_torch.config import Config
+    from hippomm_tpu_torch.core.batch_process import process_video_folder
+    from hippomm_tpu_torch.memory.engine import HippocampalMemory
+    from hippomm_tpu_torch.retrieval.qa import QARecallSystem
+
+    vis_depth, aud_depth = ib_depths
+    gc.collect()
+    torch.cuda.empty_cache()
+    started = time.perf_counter()
+    out = {}
+
+    # (a) the harness itself, as a user runs it (bench.py:919-923's shape)
+    shape = dict(duration=180.0, scene_seconds=15.0, n_questions=120, imagebind_variant="huge",
+                 n_videos=3, negatives=True, caption_noise=0.15, distractors=True, seed=0,
+                 container="y4m")
+    spies, cli, shapes = QuerySpies(), CliSpies(), KernelShapes()
+    seen = shapes.seen
+    try:
+        with tempfile.TemporaryDirectory() as work:
+            for c in counters.values():
+                c.launches = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = qh.run_harness(work, **shape)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = {k: c.launches for k, c in counters.items()}
+            (mem,) = cli.engines
+            if (mem.imagebind.cfg.vision.width, mem.imagebind.cfg.vision.depth, mem.imagebind.cfg.text.depth,
+                    mem.imagebind.dtype) != (1280, vis_depth, TEXT_DEPTH, torch.bfloat16):
+                fail("qa: run_harness did not build ImageBind-Huge in bf16")
+            videos, ingest = ingest_blocks(cli, mem, [f"palette{v:02d}" for v in range(3)], vis_depth,
+                                           aud_depth, wh_depth=0)
+            expect = _qa_expect(ingest["flash_mha"], spies)
+            rounds = (list(spies.rounds), list(spies.device_ks))
+            del mem
+    finally:
+        spies.restore()
+        cli.restore()
+        shapes.restore()
+    results = res.pop("results")
+    by_type = res["accuracy_by_type"]
+    print(f"qa: run_harness at ImageBind-Huge width over Y4M + WAV ({shape}) in {wall:.1f} s", flush=True)
+    print(f"qa: qa_accuracy {res['qa_accuracy']:.4f} ci95 {[float(x) for x in res['ci95']]}, qa_accuracy_batched "
+          f"{res['qa_accuracy_batched']:.4f}; accuracy_by_type {json.dumps(by_type)}", flush=True)
+    print(f"qa: ingest_x {res['ingest_x']}, ingest_wall_s {res['ingest_wall_s']}, media_s {res['media_s']}, "
+          f"recall_p50_ms {res['recall_p50_ms']}, batched_s_per_q {res['batched_s_per_q']}; {card}", flush=True)
+    print(f"qa: launches {launches}, expected {expect} (videos {videos}; text forwards "
+          f"{len(spies.text_rows)}, search rounds on the device {len(rounds[1])})", flush=True)
+    for r in results:
+        if not r["correct"]:
+            print(f"qa MISS [{r['type']}] {r['q']} -> {r['answer']}", flush=True)
+    if launches != expect or not all(launches[k] for k in ("flash_mha", "fused_mlp", "top_k_cosine")):
+        fail(f"qa: kernel launches {launches} != {expect}, or K1, K2 or K5 never launched")
+    if rounds[0] != rounds[1]:
+        fail(f"qa: search rounds {rounds[0]} did not all run on the device ({rounds[1]})")
+    if (res["failed_videos"], res["n_scenes"], res["n_questions"]) != (0, 36, 120):
+        fail(f"qa: failed videos {res['failed_videos']}, {res['n_scenes']} scenes, {res['n_questions']} questions")
+    if set(by_type) != QA_FAMILIES:
+        fail(f"qa: families {sorted(by_type)}, not the 12")
+    if not (res["qa_accuracy"] >= QA_FLOOR and res["qa_accuracy_batched"] >= QA_FLOOR):
+        fail(f"qa: accuracy {res['qa_accuracy']}, batched {res['qa_accuracy_batched']}: below {QA_FLOOR}")
+    wrong = {k: by_type[k] for k in QA_EXACT if by_type[k] != 1.0}
+    if wrong:
+        fail(f"qa: the families that rest on clean ingest captions read {wrong}, not 1.0")
+    out["harness"] = dict(res, wall_s=wall, launches=launches, expected_launches=expect, videos=videos,
+                          misses=[r for r in results if not r["correct"]])
+
+    # (b) one ingest, then the same questions at noise 0 through the kernels
+    # and with them routed out
+    gc.collect()
+    torch.cuda.empty_cache()
+    spies, cli, shapes = QuerySpies(), CliSpies(), KernelShapes()
+    saved = {k: os.environ.get(k) for k in ("HIPPOMM_FLASH_ATTN", "HIPPOMM_FUSED_MLP", "HIPPOMM_TOPK_ROUTE")}
+    passes = {}
+    try:
+        with tempfile.TemporaryDirectory() as work:
+            folder = os.path.join(work, "videos")
+            os.makedirs(folder)
+            t_v = qh.write_palette_video(os.path.join(folder, "palette00.y4m"), duration=180.0,
+                                         scene_seconds=15.0, seed=0, container="y4m")
+            truth = {"scenes": t_v["scenes"], "video_scenes": [t_v["scenes"]], "video_names": ["palette00"]}
+            questions = qh.build_questions(truth, QA_PARITY_QUESTIONS, seed=0, negatives=True)
+            cfg = Config()
+            cfg.api.mode = "stub"
+            cfg.models.imagebind_variant = "huge"
+            cfg.models.imagebind_path = ""
+            cfg.models.whisper_variant = "stub"
+            cfg.storage.base_dir = os.path.join(work, "store")
+            cfg.processing.keyframe_dedup_threshold = 0.999  # as run_harness sets it
+            vlm = qh.OracleVLM(noise_colors=sorted({c for _, _, c, _ in t_v["scenes"]}), seed=0)
+            mem = HippocampalMemory(config=cfg, models={"whisper": qh.OracleASR(), "frame_client": vlm,
+                                                        "qwen": vlm})
+            for c in counters.values():
+                c.launches = 0
+            t0 = time.perf_counter()
+            stats = process_video_folder(folder, cfg.storage.base_dir, config=cfg, memory_system=mem,
+                                         checkpoint_every=0)
+            torch.cuda.synchronize()
+            ingest_s = time.perf_counter() - t0
+            ingest_launches = {k: c.launches for k, c in counters.items()}
+            videos, ingest = ingest_blocks(cli, mem, ["palette00"], vis_depth, aud_depth, wh_depth=0)
+            n_scenes = len(truth["scenes"])
+            print(f"qa parity: ingest of 180 s ({n_scenes} scenes) in {ingest_s:.2f} s; launches "
+                  f"{ingest_launches}, expected {ingest} ({videos})", flush=True)
+            if stats["failed"] or n_scenes != 12:
+                fail(f"qa parity: ingest failed ({stats['errors']}) or {n_scenes} scenes")
+            if {k: ingest_launches[k] for k in ingest} != ingest or ingest_launches["top_k_cosine"]:
+                fail(f"qa parity: ingest launches {ingest_launches} != {ingest}")
+            qa = QARecallSystem(mem, cfg, reasoning_client=qh.OracleReasoning())
+            for name, env in (("kernels", {}), ("routed_out", {"HIPPOMM_FLASH_ATTN": "0",
+                                                               "HIPPOMM_FUSED_MLP": "0",
+                                                               "HIPPOMM_TOPK_ROUTE": "host"})):
+                os.environ.update(env)
+                set_fused_flags(fa, fm, False)  # re-reads the kill switches too
+                spies.reset()
+                for c in counters.values():
+                    c.launches = 0
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                answers = [qa.answer_question(q["question"]).answer for q in questions]
+                torch.cuda.synchronize()
+                pass_s = time.perf_counter() - t0
+                got = {k: c.launches for k, c in counters.items()}
+                want = _qa_expect(0, spies) if name == "kernels" else dict.fromkeys(got, 0)
+                verdicts = [bool(qh.score_answer(q, a, truth)) for q, a in zip(questions, answers)]
+                passes[name] = {"answers": answers, "verdicts": verdicts, "launches": got,
+                                "expected_launches": want, "s": pass_s, "text_forwards": len(spies.text_rows),
+                                "search_rounds": len(spies.rounds)}
+                print(f"qa parity {name}: {QA_PARITY_QUESTIONS} questions in {pass_s:.2f} s, accuracy "
+                      f"{sum(verdicts) / len(verdicts):.4f}; launches {got}, expected {want}", flush=True)
+                if got != want:
+                    fail(f"qa parity {name}: kernel launches {got} != {want}")
+                for k in env:
+                    os.environ.pop(k)
+            del mem, qa
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        set_fused_flags(fa, fm, False)
+        spies.restore()
+        cli.restore()
+        shapes.restore()
+    for name, got in shapes.seen.items():
+        seen[name] |= got
+    k, r = passes["kernels"], passes["routed_out"]
+    diffs = [(q["question"], a, b) for q, a, b in zip(questions, k["answers"], r["answers"]) if a != b]
+    flips = [q["question"] for q, a, b in zip(questions, k["verdicts"], r["verdicts"]) if a != b]
+    for q, a, b in diffs:
+        print(f"qa parity: answers differ: {q} -> kernels {a!r}, routed out {b!r}", flush=True)
+    print(f"qa parity: {len(diffs)} answers differ (limit {QA_PARITY_DIFFS}), {len(flips)} verdicts differ "
+          f"(limit 0)", flush=True)
+    if flips or len(diffs) > QA_PARITY_DIFFS:
+        fail(f"qa parity: {len(flips)} verdicts and {len(diffs)} answers differ between the kernel pass and "
+             f"the routed-out pass")
+    out["parity"] = {"ingest_s": ingest_s, "ingest_launches": ingest_launches, "videos": videos,
+                     "passes": passes, "answer_diffs": diffs, "verdict_flips": flips}
+    unchecked = {name: sorted(got - checked[name]) for name, got in seen.items() if got - checked[name]}
+    print(f"qa: kernel shapes {({name: sorted(got) for name, got in seen.items()})}, every one checked in "
+          f"phase 2: {not unchecked}", flush=True)
+    if unchecked:
+        fail(f"qa: shapes phase 2 did not check: {unchecked}")
+    out["shapes"] = {name: sorted(got) for name, got in seen.items()}
+    out["launches"] = launches  # (a)'s run: the path's launches
+    out["phase_s"] = time.perf_counter() - started
+    print(f"qa: phase 14 took {out['phase_s']:.1f} s", flush=True)
+    return out
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(HERE, "hippomm_tpu_torch")):
         fail("no hippomm_tpu_torch package beside this script (run it from a checkout)", 2)
@@ -2801,7 +3066,7 @@ def main() -> int:
         "fused_mlp": [check_mlp_kernel(fm, s, gen, False) for s in (
             (8224, 1280, 5120), (21984, 768, 3072), (6000, 1280, 5120), (77, 1024, 4096),
             (616, 1024, 4096), (4112, 1280, 5120), (1232, 1024, 4096)) + SHARD_SHAPES["fused_mlp"]
-            + TRAIN_SHARD_SHAPES["fused_mlp"]],
+            + TRAIN_SHARD_SHAPES["fused_mlp"] + QA_SHAPES["fused_mlp"]],
         "fused_ln_mlp_residual": [check_mlp_kernel(fm, s, gen, True) for s in (
             (8224, 1280, 5120), (21984, 768, 3072), (77, 1024, 4096), (616, 1024, 4096),
             (4112, 1280, 5120), (1232, 1024, 4096)) + SHARD_SHAPES["fused_ln_mlp_residual"]
@@ -2816,7 +3081,7 @@ def main() -> int:
         "top_k_cosine": [check_topk(ttk, s, gen) for s in (
             (200_000, 1024, 20), (200_000, 1024, 40), (1_000_000, 1024, 128))]
         + [check_topk(ttk, (200_000, 1024, 20), gen, ascending=True)]
-        + [check_topk(ttk, s, gen) for s in SHARD_SHAPES["top_k_cosine"]]
+        + [check_topk(ttk, s, gen) for s in SHARD_SHAPES["top_k_cosine"] + QA_SHAPES["top_k_cosine"]]
         # ... and rows of any width (D 6, 1026: the element-wise instance)
         # and a store view one element into its buffer
         + [check_topk(ttk, s, gen, offset=o) for s, o in (
@@ -3103,6 +3368,11 @@ def main() -> int:
     report["fp32"] = fp32_phase(cfg, clip, one_device, counters, fa, fm)
     del one_device
 
+    # 14. the QA-accuracy harness at ImageBind-Huge width: its answers gated
+    checked = {name: {tuple(r["shape"]) for r in rows[name] if not r.get("ascending") and not r.get("offset")}
+               for name in ("flash_mha", "fused_mlp", "top_k_cosine")}
+    report["qa"] = qa_phase(dict(counters, top_k_cosine=ttk.top_k_cosine_kernel), fa, fm, depths, card, checked)
+
     sources = {"flash_mha": "hippomm_tpu_torch/csrc/flash_mha.cu",
                "fused_mlp": "hippomm_tpu_torch/csrc/fused_mlp.cu",
                "fused_ln_mlp_residual": "hippomm_tpu_torch/csrc/fused_mlp.cu",
@@ -3138,6 +3408,12 @@ def main() -> int:
     # phase 12: one step of each mesh path
     for name, counts in report["mesh_train"]["launches"].items():
         by_path[f"mesh_train_{name}"] = counts
+    # phase 14: the harness run (ingest of 3 videos, 120 questions single
+    # and batched), and (b)'s ingest with its kernel pass
+    by_path["qa"] = report["qa"]["launches"]
+    parity = report["qa"]["parity"]
+    by_path["qa_parity"] = {k: v + parity["passes"]["kernels"]["launches"][k]
+                            for k, v in parity["ingest_launches"].items()}
     # the fp32 kernels' launches per phase-13 path, each read from counts
     # set to 0 just before it
     by_path_f32 = {f"fp32_ingest_{ph}": report["fp32"]["ingest"]["runs"][ph]["launches_f32"]

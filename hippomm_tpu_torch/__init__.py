@@ -16,6 +16,7 @@ module's counterpart is found under the same name:
   parallel/ device meshes and sharding rules, the sharded feature store,
             the collectives, Megatron TP+SP and GPipe, expert parallelism
   media/    synthetic clips, the JPEG and thumbnail helpers of recall
+  benchmarks/ the QA-accuracy harness (bench.py config #5) and its CLI
   utils/    device resolution, stage timers, token counting
 
 Entry points run on CUDA unless the caller passes device="cpu".

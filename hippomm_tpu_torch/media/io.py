@@ -452,20 +452,41 @@ def _rgb_to_yuv420_np(rgb: np.ndarray):
     return to_u8(y), to_u8(down2(np.clip(u, 0, 255))), to_u8(down2(np.clip(v, 0, 255)))
 
 
+class Y4MWriter:
+    """Streaming y4m 420 writer (BT.601 full-range): the header once, then
+    frames appended chunk by chunk, so a long clip is never held whole. The
+    bytes equal `write_y4m` of all the frames at once."""
+
+    def __init__(self, path: str, width: int, height: int, fps: float):
+        from fractions import Fraction
+
+        fr = Fraction(fps).limit_denominator(1000)
+        self._f = open(path, "wb")
+        self._f.write(f"YUV4MPEG2 W{width} H{height} F{fr.numerator}:{fr.denominator} Ip A1:1 C420\n".encode())
+
+    def write_video(self, frames_rgb: np.ndarray) -> None:
+        y, u, v = _rgb_to_yuv420_np(np.asarray(frames_rgb))
+        for i in range(len(y)):
+            self._f.write(b"FRAME\n")
+            self._f.write(y[i].tobytes())
+            self._f.write(u[i].tobytes())
+            self._f.write(v[i].tobytes())
+
+    def close(self) -> None:
+        self._f.close()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+
+
 def write_y4m(path: str, frames_rgb: np.ndarray, fps: float = 30.0) -> None:
     """(N, H, W, 3) uint8 RGB -> y4m 420 file (BT.601 full-range)."""
     n, h, w, _ = frames_rgb.shape
-    from fractions import Fraction
-
-    fr = Fraction(fps).limit_denominator(1000)
-    with open(path, "wb") as f:
-        f.write(f"YUV4MPEG2 W{w} H{h} F{fr.numerator}:{fr.denominator} Ip A1:1 C420\n".encode())
-        y, u, v = _rgb_to_yuv420_np(np.asarray(frames_rgb))
-        for i in range(n):
-            f.write(b"FRAME\n")
-            f.write(y[i].tobytes())
-            f.write(u[i].tobytes())
-            f.write(v[i].tobytes())
+    with Y4MWriter(path, w, h, fps) as wr:
+        wr.write_video(frames_rgb)
 
 
 # ---------------------------------------------------------------------------

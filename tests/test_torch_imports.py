@@ -64,6 +64,9 @@ _MODULES = [
     "hippomm_tpu_torch.graft_entry",
     "hippomm_tpu_torch.ops",
     "hippomm_tpu_torch.media",
+    "hippomm_tpu_torch.benchmarks",
+    "hippomm_tpu_torch.benchmarks.qa_harness",
+    "hippomm_tpu_torch.benchmarks.qa_accuracy",
 ]
 
 _PROBE = """
@@ -88,10 +91,11 @@ def test_port_imports_neither_jax_nor_the_jax_package():
 
 @pytest.mark.parametrize("entry", ["engine", "imagebind", "whisper", "search_index", "keyframe_scanner",
                                    "batch_main", "qa_service", "serve_main", "train_state",
-                                   "load_params"])
+                                   "load_params", "run_harness"])
 def test_entry_point_without_device_raises_without_cuda(entry, monkeypatch, tmp_path):
     import torch
 
+    from hippomm_tpu_torch.benchmarks.qa_harness import run_harness
     from hippomm_tpu_torch.config import Config
     from hippomm_tpu_torch.core import batch_process, serve
     from hippomm_tpu_torch.memory.engine import HippocampalMemory
@@ -115,11 +119,14 @@ def test_entry_point_without_device_raises_without_cuda(entry, monkeypatch, tmp_
             "qa_service": lambda: serve.QAService(cfg),
             "serve_main": lambda: serve.main(["--memory-store", str(tmp_path / "store"), "--port", "0"]),
             "train_state": lambda: init_train_state(ib_model.tiny_config()),
-            "load_params": lambda: checkpoint.load_params(str(tmp_path / "params.pt"))}[entry]
+            "load_params": lambda: checkpoint.load_params(str(tmp_path / "params.pt")),
+            "run_harness": lambda: run_harness(str(tmp_path / "qa"))}[entry]
     if entry == "load_params":
         checkpoint.save_params(str(tmp_path / "params.pt"), {"w": torch.zeros(2)})
     with pytest.raises(RuntimeError, match="no CUDA device"):
         make()
+    if entry == "run_harness":  # it raises before it writes any media
+        assert not (tmp_path / "qa").exists()
 
 
 def test_whisper_stub_needs_no_device(monkeypatch):
