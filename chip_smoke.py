@@ -175,8 +175,33 @@ Phases (any failure exits non-zero and prints no result line):
      and again with them routed out (HIPPOMM_FLASH_ATTN=0,
      HIPPOMM_FUSED_MLP=0, HIPPOMM_TOPK_ROUTE=host): every verdict equal, at
      most 2 answer strings differ (printed), exact launches in the kernel
-     pass and none in the routed-out one. Every shape the phase gives K1,
-     K2 or K5 must be one phase 2 checked (QA_SHAPES adds its own there)
+     pass and none in the routed-out one. Every shape the phase gives
+     K1-K5 must be one phase 2 checked (QA_SHAPES adds its own there)
+ 15. surface — (runs after phase 14, whose state it frees first) the
+     port's public surface at ImageBind-Huge bf16 width (random weights
+     from a seed). (a) Seeded numpy inputs with no device: 32 frames of
+     640×360 uint8, 32 PCM segments of 4 s at 16 kHz (96 clips of 2 s) and
+     the 8 questions tokenized, through preprocess_vision →
+     preprocess_audio_batch → extract_features(vision=, audio=, text=), in
+     the default and the fused-block configuration and with the kernels
+     routed out (HIPPOMM_FLASH_ATTN=0, HIPPOMM_FUSED_MLP=0): the inputs on
+     CUDA, each output bit-equal to its tower's own forward and within
+     2e-2 / cosine ≥ 0.999 of the routed-out pass on unit rows; exact
+     launches (default K1 32 + 12, K2 32 + 12 + 24; fused K4 32, K1 12, K3
+     32 + 12 + 24; routed out none), every K1-K4 shape one phase 2 checked.
+     (b) resize_normalize by every method (nearest, linear, bilinear,
+     triangle, cubic, bicubic, lanczos3, lanczos5), antialiased and not, on
+     4 of the frames: CUDA within 1e-4 of the same call on the CPU;
+     preprocess_vision bit-equal to resize_normalize. (c) resize_frames,
+     normalize_nchw, resize_normalize, WhisperMel, KaldiFbank, ssim_pairs,
+     rgb_to_gray, frame_difference and window_rms_db given arrays and no
+     device: each result on CUDA and bit-equal to the op given the CUDA
+     tensors. (d) stacked_blocks over the 32 vision blocks at 16 × 257
+     tokens in bf16, remat=True against remat=False, a backward of
+     mean(y²) to the input and every block parameter: outputs bit-equal,
+     gradients within 1e-3 relative L2, launches K1 and K2 32 each without
+     remat and 64 with it (the recompute's forward counted);
+     max_memory_allocated of each with the card's name and power limit
 
 Prints the card's name and power limit, a `{"kernels": [...]}` line (the
 fp32 kernels as entries of their own, `<name>_f32`, with phase 13's
@@ -2786,22 +2811,30 @@ QA_PARITY_DIFFS = 2  # answer strings (b)'s routed-out pass may change (bf16 tie
 
 
 class KernelShapes:
-    """The shapes a path gives K1, K2 and K5, in phase 2's form (K1 (B, H,
-    Tq, Tk, hd), K2 (N, D, F), K5 (rows, D, k)): each wrapper's name at its
-    call site (models/layers, retrieval/search) replaced by a recorder that
-    calls it."""
+    """The shapes a path gives K1-K5, in phase 2's form (K1 (B, H, Tq, Tk,
+    hd), K2 and K3 (N, D, F), K4 (B, T, H, hd), K5 (rows, D, k)): K1, K2 and
+    K5's names at their call sites (models/layers, retrieval/search), and
+    K3 and K4 at their wrappers' forward functions (the wrappers count their
+    launches under their own module names, which stay), each replaced by a
+    recorder that calls it."""
 
     def __init__(self):
         from hippomm_tpu_torch.models import layers
+        from hippomm_tpu_torch.ops import flash_attention as fa
+        from hippomm_tpu_torch.ops import fused_mlp as fm
         from hippomm_tpu_torch.retrieval import search
 
-        self.seen = {"flash_mha": set(), "fused_mlp": set(), "top_k_cosine": set()}
         self._saved = []
-        for obj, attr, name, key in (
+        sites = [
             (layers, "flash_mha", "flash_mha", lambda q, k, *r: (*q.shape[:3], k.shape[2], q.shape[3])),
             (layers, "fused_mlp", "fused_mlp", lambda x, w1, *r: (x.shape[0], x.shape[1], w1.shape[0])),
+            (fm, "_fused_ln_mlp_residual_forward", "fused_ln_mlp_residual",
+             lambda x, g, b, w1, *r: (x.shape[0], x.shape[1], w1.shape[0])),
+            (fa, "_flash_mha_bthd_forward", "flash_mha_bthd", lambda q, *r: tuple(q.shape)),
             (search, "top_k_cosine_kernel", "top_k_cosine", lambda q, f, k, *r: (f.shape[0], f.shape[1], k)),
-        ):
+        ]
+        self.seen = {name: set() for _, _, name, _ in sites}
+        for obj, attr, name, key in sites:
             fn = getattr(obj, attr)
             self._saved.append((obj, attr, fn))
             setattr(obj, attr, lambda *a, fn=fn, name=name, key=key, **k: self.seen[name].add(key(*a)) or fn(*a, **k))
@@ -2829,7 +2862,7 @@ def qa_phase(counters, fa, fm, ib_depths, card, checked):
     QuerySpies' synchronize around each text forward and search (threads
     of the batched path wait on each other there, so no stage split is
     read). Every shape the phase gives
-    K1, K2 or K5 must be one phase 2 checked (`checked`: name -> shapes)."""
+    K1-K5 must be one phase 2 checked (`checked`: name -> shapes)."""
     import gc
 
     import torch
@@ -3004,6 +3037,254 @@ def qa_phase(counters, fa, fm, ib_depths, card, checked):
     out["launches"] = launches  # (a)'s run: the path's launches
     out["phase_s"] = time.perf_counter() - started
     print(f"qa: phase 14 took {out['phase_s']:.1f} s", flush=True)
+    return out
+
+
+SURFACE_SEED = 15
+SURFACE_SEGMENT_S = 4.0  # each PCM segment: 3 clips of 2 s sampled from it
+SURFACE_RESIZE_FRAMES = 4  # (b)'s frames: each method also runs on the host's CPU
+SURFACE_RESIZE_TOL = 1e-4  # (b): CUDA against the CPU, max abs
+SURFACE_GRAD_TOL = 1e-3  # (d): remat against not, relative L2 per leaf
+RESIZE_METHODS = ("nearest", "linear", "bilinear", "triangle", "cubic", "bicubic", "lanczos3", "lanczos5")
+
+
+def surface_phase(counters, fa, fm, card, checked):
+    """15. the port's public surface on the card at ImageBind-Huge bf16 width
+    (random weights from a seed): (a) numpy frames, PCM and tokens through
+    preprocess_vision → preprocess_audio_batch → extract_features, default
+    and fused, each tower bit-equal to its own forward and within 2e-2 /
+    cosine ≥ 0.999 of the routed-out pass, exact launches; (b) every
+    resize_normalize method, antialiased or not, on CUDA against the CPU;
+    (c) each array op given numpy with no device: on CUDA, bit-equal to the
+    op given the CUDA tensor; (d) stacked_blocks(remat=True) against
+    remat=False at vision width: outputs, gradients, launches, memory.
+    Every shape the phase gives K1-K4 must be one phase 2 checked."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from hippomm_tpu_torch.models import layers
+    from hippomm_tpu_torch.models.imagebind import extract_features, init_imagebind
+    from hippomm_tpu_torch.models.imagebind import model as ib_model
+    from hippomm_tpu_torch.models.imagebind.preprocess import (load_tokenizer, preprocess_audio_batch,
+                                                               preprocess_vision)
+    from hippomm_tpu_torch.ops import mel, resize, silence, ssim
+    from hippomm_tpu_torch.parallel.mesh import tree_leaves
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    started = time.perf_counter()
+    out = {}
+    cfg = ib_model.huge_config()
+    params = init_imagebind(cfg, "cuda", torch.bfloat16, seed=SURFACE_SEED)
+    rng = np.random.default_rng(SURFACE_SEED)
+    frames = rng.integers(0, 256, (32, 360, 640, 3), dtype=np.uint8)
+    pcms = [(0.1 * rng.standard_normal(int(SURFACE_SEGMENT_S * 16000))).astype(np.float32) for _ in range(32)]
+    tokens = load_tokenizer(vocab_size=cfg.vocab_size, context_length=cfg.context_length)(BATCH_QS)
+    vis, aud, txt = cfg.vision.depth, cfg.audio.depth, cfg.text.depth
+    expect = {
+        "default": {"flash_mha": vis + aud, "fused_mlp": vis + aud + txt, "fused_ln_mlp_residual": 0,
+                    "flash_mha_bthd": 0},
+        # the fused flags: every block's MLP half through K3, the vision
+        # attention (H 16) through K4; the text attention is masked (plain)
+        "fused": {"flash_mha": aud, "fused_mlp": 0, "fused_ln_mlp_residual": vis + aud + txt,
+                  "flash_mha_bthd": vis},
+        "routed_out": dict.fromkeys(counters, 0),
+    }
+    forwards = {"vision": ib_model.vision_forward, "audio": ib_model.audio_forward,
+                "text": ib_model.text_forward}
+
+    # (a) numpy in, through the surface a user calls, on the default device
+    saved = {k: os.environ.get(k) for k in ("HIPPOMM_FLASH_ATTN", "HIPPOMM_FUSED_MLP")}
+    shapes = KernelShapes()
+    runs = {}
+    try:
+        for name, fused, env in (("default", False, {}), ("fused", True, {}),
+                                 ("routed_out", False, {"HIPPOMM_FLASH_ATTN": "0", "HIPPOMM_FUSED_MLP": "0"})):
+            os.environ.update(env)
+            set_fused_flags(fa, fm, fused)  # re-reads the kill switches too
+            _reset_counts(counters)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with torch.no_grad():
+                x = preprocess_vision(frames)
+                mels = preprocess_audio_batch(pcms)
+                feats = extract_features(params, cfg, vision=x, audio=mels, text=tokens)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = {k: c.launches for k, c in counters.items()}
+            inputs = {"vision": x, "audio": mels, "text": torch.as_tensor(tokens, device="cuda")}
+            with torch.no_grad():
+                own = {k: torch.equal(v, forwards[k](params, inputs[k], cfg, torch.bfloat16)) for k, v in feats.items()}
+            print(f"surface {name}: preprocess_vision {tuple(x.shape)} on {x.device}, preprocess_audio_batch "
+                  f"{tuple(mels.shape)} on {mels.device}, extract_features "
+                  f"{ {k: tuple(v.shape) for k, v in feats.items()} } in {wall:.3f} s; launches {launches}, "
+                  f"expected {expect[name]}; bit-equal to each tower's forward {own}", flush=True)
+            if (x.device.type, mels.device.type) != ("cuda", "cuda") or tuple(x.shape) != (32, 3, 224, 224) \
+                    or tuple(mels.shape) != (32, 3, 1, 128, 204):
+                fail(f"surface {name}: the preprocessed inputs are {x.shape} on {x.device}, {mels.shape} on "
+                     f"{mels.device}")
+            if sorted(feats) != ["audio", "text", "vision"] or any(
+                    tuple(v.shape) != (n, 1024) or not torch.isfinite(v).all()
+                    for v, n in zip((feats["audio"], feats["text"], feats["vision"]), (32, len(BATCH_QS), 32))):
+                fail(f"surface {name}: extract_features gave {({k: tuple(v.shape) for k, v in feats.items()})}")
+            if not all(own.values()):
+                fail(f"surface {name}: extract_features differs from the towers' own forwards: {own}")
+            if launches != expect[name]:
+                fail(f"surface {name}: kernel launches {launches} != {expect[name]}")
+            runs[name] = {"wall_s": wall, "launches": launches, "feats": feats}
+            for k in env:
+                os.environ.pop(k)
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        set_fused_flags(fa, fm, False)
+        shapes.restore()
+    # the towers' heads are unit rows, audio's ×20 and text's × exp(logit_scale)
+    scale = {"vision": 1.0, "audio": cfg.audio_logit_scale, "text": math.exp(params["text"]["logit_scale"].item())}
+    agree = {}
+    for name in ("default", "fused"):
+        for tower, got in runs[name]["feats"].items():
+            a, b = (f.float() / scale[tower] for f in (got, runs["routed_out"]["feats"][tower]))
+            err = (a - b).abs().max().item()
+            cos = torch.nn.functional.cosine_similarity(a, b, dim=-1).min().item()
+            agree[f"{name}_{tower}"] = {"max_abs_err": err, "min_cosine": cos}
+            print(f"surface {name} {tower} vs routed out (÷{scale[tower]:.4g}): max abs {err:.3g} (limit 2e-2), "
+                  f"min cosine {cos:.6f} (limit 0.999)", flush=True)
+            if not (math.isfinite(err) and err <= 2e-2 and cos >= 0.999):
+                fail(f"surface {name} {tower}: {err}, cos {cos} against the routed-out pass")
+    unchecked = {n: sorted(got - checked[n]) for n, got in shapes.seen.items() if got - checked[n]}
+    print(f"surface: kernel shapes {({n: sorted(got) for n, got in shapes.seen.items()})}, every one checked "
+          f"in phase 2: {not unchecked}", flush=True)
+    if unchecked:
+        fail(f"surface: shapes phase 2 did not check: {unchecked}")
+    out["extract"] = {name: {k: v for k, v in r.items() if k != "feats"} for name, r in runs.items()}
+    out["extract"]["agree"] = agree
+    out["shapes"] = {n: sorted(got) for n, got in shapes.seen.items()}
+
+    # (b) every resize method, antialiased or not: CUDA against the CPU;
+    # preprocess_vision against resize_normalize
+    few = frames[:SURFACE_RESIZE_FRAMES]
+    errs = {}
+    for method in RESIZE_METHODS:
+        for aa in (True, False):
+            got = resize.resize_normalize(few, method=method, antialias=aa)
+            want = resize.resize_normalize(few, method=method, antialias=aa, device="cpu")
+            if got.device.type != "cuda":
+                fail(f"surface: resize_normalize({method}) of an array stayed on {got.device}")
+            errs[f"{method}_{'aa' if aa else 'plain'}"] = (got.cpu() - want).abs().max().item()
+    worst = max(errs.items(), key=lambda kv: kv[1])
+    same = torch.equal(preprocess_vision(frames), resize.resize_normalize(frames))
+    print(f"surface resize_normalize: {len(errs)} methods × antialias on CUDA vs the CPU, max abs "
+          f"{ {k: float(f'{v:.3g}') for k, v in errs.items()} }, worst {worst[0]} {worst[1]:.3g} (limit "
+          f"{SURFACE_RESIZE_TOL}); preprocess_vision bit-equal to resize_normalize: {same}", flush=True)
+    if not (worst[1] <= SURFACE_RESIZE_TOL and same):
+        fail(f"surface: resize_normalize on CUDA {worst} against the CPU, or preprocess_vision differs ({same})")
+    out["resize"] = {"max_abs_err": errs, "preprocess_vision_equal": same}
+
+    # (c) each array op given numpy with no device: on CUDA, bit-equal to
+    # the op given the CUDA tensor
+    crops = resize.resize_crop_u8(frames, cfg.image_size)
+    gray = ssim.rgb_to_gray(resize.resize_frames(frames, 180, 320)).cpu().numpy()
+    pcm = np.concatenate(pcms)
+    clips = np.stack([p[:32000] for p in pcms] * 3)  # 96 clips of 2 s
+    whisper_mel, fbank = mel.WhisperMel(n_mels=128), mel.KaldiFbank(num_mel_bins=128)
+    ops = {
+        "resize_frames": (lambda f: resize.resize_frames(f, 180, 320), (frames,)),
+        "normalize_nchw": (resize.normalize_nchw, (crops,)),
+        "resize_normalize": (resize.resize_normalize, (frames,)),
+        "WhisperMel": (whisper_mel, (pcm[: 30 * 16000],)),
+        "KaldiFbank": (fbank, (clips,)),
+        "ssim_pairs": (ssim.ssim_pairs, (gray[:-1], gray[1:])),
+        "rgb_to_gray": (ssim.rgb_to_gray, (frames,)),
+        "frame_difference": (ssim.frame_difference, (gray[:-1], gray[1:])),
+        "window_rms_db": (lambda p: silence.window_rms_db(p, 800, 800), (pcm,)),
+    }
+    placed = {}
+    for name, (fn, args) in ops.items():
+        got = fn(*args)
+        want = fn(*(torch.from_numpy(np.ascontiguousarray(a)).cuda() for a in args))
+        placed[name] = {"device": str(got.device), "shape": list(got.shape), "equal": torch.equal(got, want)}
+        if got.device.type != "cuda" or not placed[name]["equal"]:
+            fail(f"surface: {name} of an array: {placed[name]}, not bit-equal on CUDA to the CUDA tensor's")
+    print(f"surface: array ops with no device, each on CUDA and bit-equal to the CUDA tensor's: "
+          f"{ {k: (v['device'], tuple(v['shape'])) for k, v in placed.items()} }", flush=True)
+    out["array_ops"] = placed
+    del runs, feats, x, mels, inputs, crops, gray, clips, whisper_mel, fbank
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (d) stacked_blocks(remat=True) against remat=False at vision width
+    blocks = params["vision"]["blocks"]
+    leaves = [leaf for pb in blocks for _, leaf in tree_leaves(pb)]
+    for leaf in leaves:
+        leaf.requires_grad_(True)
+    gen = torch.Generator(device="cuda").manual_seed(SURFACE_SEED)
+    x0 = torch.randn((TRAIN_B, cfg.vision_tokens, cfg.vision.width), generator=gen, device="cuda")
+    remat = {}
+    host_grads = None
+    for on in (False, True):
+        for leaf in leaves:
+            leaf.grad = None
+        xin = x0.clone().requires_grad_(True)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        _reset_counts(counters)
+        t0 = time.perf_counter()
+        y = layers.stacked_blocks(blocks, xin, cfg.vision.heads, eps=cfg.vision.eps, dtype=torch.bfloat16, remat=on)
+        fwd = {k: c.launches for k, c in counters.items()}
+        y.float().square().mean().backward()
+        torch.cuda.synchronize()
+        step_s = time.perf_counter() - t0
+        launches = {k: c.launches for k, c in counters.items()}
+        peak = torch.cuda.max_memory_allocated()
+        grads = [xin.grad] + [leaf.grad for leaf in leaves]
+        if any(g is None for g in grads):
+            fail(f"surface remat={on}: {sum(g is None for g in grads)} leaves got no gradient")
+        if not on:  # kept on the host, out of the remat run's memory
+            y0, host_grads = y.detach().cpu(), [g.cpu() for g in grads]
+        else:
+            rel = []
+            for g, h in zip(grads, host_grads):
+                h = h.cuda()
+                rel.append(((g - h).float().norm() / h.float().norm().clamp_min(1e-30)).item())
+            equal = torch.equal(y.detach().cpu(), y0)
+        remat[on] = {"launches": launches, "forward_launches": fwd, "max_memory_allocated": peak,
+                     "allocated_before": base, "step_s": step_s}
+        print(f"surface stacked_blocks(remat={on}) at vision width ({vis} blocks, {TRAIN_B} × {cfg.vision_tokens} "
+              f"tokens, bf16): launches {launches} (forward {fwd}), max_memory_allocated {peak / 2**30:.3f} GiB "
+              f"({base / 2**30:.3f} GiB before), forward + backward {step_s:.3f} s; {card}", flush=True)
+        del y, grads
+    del y0, host_grads, xin
+    for leaf in leaves:
+        leaf.grad = None
+        leaf.requires_grad_(False)
+    want_no = {"flash_mha": vis, "fused_mlp": vis, "fused_ln_mlp_residual": 0, "flash_mha_bthd": 0}
+    want_re = {k: 2 * v for k, v in want_no.items()}
+    worst = max(rel)
+    print(f"surface remat: outputs bit-equal {equal}; gradients relative L2 max {worst:.3g} over {len(rel)} "
+          f"leaves (limit {SURFACE_GRAD_TOL}); launches {remat[False]['launches']} / {remat[True]['launches']}, "
+          f"expected {want_no} / {want_re} (the recompute's forward counted)", flush=True)
+    if not (equal and worst <= SURFACE_GRAD_TOL):
+        fail(f"surface remat: outputs equal {equal}, gradients relative L2 {worst}")
+    if (remat[False]["launches"], remat[True]["launches"]) != (want_no, want_re) or \
+            remat[True]["forward_launches"] != want_no:
+        fail(f"surface remat: launches {remat[False]['launches']} / {remat[True]['launches']} (forward "
+             f"{remat[True]['forward_launches']}), not {want_no} / {want_re}")
+    out["remat"] = {str(k): v for k, v in remat.items()}
+    out["remat"]["grad_rel_l2_max"] = worst
+    del params, blocks, leaves
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["phase_s"] = time.perf_counter() - started
+    print(f"surface: phase 15 took {out['phase_s']:.1f} s", flush=True)
     return out
 
 
@@ -3370,8 +3651,14 @@ def main() -> int:
 
     # 14. the QA-accuracy harness at ImageBind-Huge width: its answers gated
     checked = {name: {tuple(r["shape"]) for r in rows[name] if not r.get("ascending") and not r.get("offset")}
-               for name in ("flash_mha", "fused_mlp", "top_k_cosine")}
+               for name in ("flash_mha", "fused_mlp", "fused_ln_mlp_residual", "flash_mha_bthd",
+                            "top_k_cosine")}
     report["qa"] = qa_phase(dict(counters, top_k_cosine=ttk.top_k_cosine_kernel), fa, fm, depths, card, checked)
+
+    # 15. the public surface: numpy inputs through preprocess_vision,
+    # preprocess_audio_batch and extract_features, every resize method, the
+    # array ops' placement, stacked_blocks(remat=True)
+    report["surface"] = surface_phase(counters, fa, fm, card, checked)
 
     sources = {"flash_mha": "hippomm_tpu_torch/csrc/flash_mha.cu",
                "fused_mlp": "hippomm_tpu_torch/csrc/fused_mlp.cu",
@@ -3414,6 +3701,9 @@ def main() -> int:
     parity = report["qa"]["parity"]
     by_path["qa_parity"] = {k: v + parity["passes"]["kernels"]["launches"][k]
                             for k, v in parity["ingest_launches"].items()}
+    # phase 15: extract_features over numpy inputs, default and fused
+    for ph in ("default", "fused"):
+        by_path[f"surface_{ph}"] = report["surface"]["extract"][ph]["launches"]
     # the fp32 kernels' launches per phase-13 path, each read from counts
     # set to 0 just before it
     by_path_f32 = {f"fp32_ingest_{ph}": report["fp32"]["ingest"]["runs"][ph]["launches_f32"]

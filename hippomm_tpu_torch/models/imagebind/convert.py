@@ -24,6 +24,7 @@ from hippomm_tpu_torch.models.ckpt_io import load_state_dict
 from hippomm_tpu_torch.models.imagebind.carry import params_from_jax
 from hippomm_tpu_torch.models.imagebind.manifest import checkpoint_manifest
 from hippomm_tpu_torch.models.imagebind.model import ImageBindConfig, huge_config
+from hippomm_tpu_torch.utils.device import resolve_device
 
 LOGIT_SCALE_KEY = "modality_postprocessors.text.1.log_logit_scale"
 
@@ -151,11 +152,12 @@ def validate_state_dict(sd: Dict, cfg: ImageBindConfig = None) -> None:
         )
 
 
-def load_imagebind(checkpoint_path: str, cfg: ImageBindConfig = None, device="cpu",
+def load_imagebind(checkpoint_path: str, cfg: ImageBindConfig = None, device=None,
                    dtype=torch.bfloat16) -> Dict:
     """Checkpoint file (torch pickle or safetensors) -> validated port
-    parameters on `device`, matmul weights in `dtype`."""
+    parameters on `device` (None: CUDA), matmul weights in `dtype`."""
     cfg = cfg or huge_config()
+    device = resolve_device(device)
     sd = load_state_dict(checkpoint_path)
     validate_state_dict(sd, cfg)
-    return params_from_jax(convert_state_dict(sd, cfg), cfg, torch.device(device), dtype)
+    return params_from_jax(convert_state_dict(sd, cfg), cfg, device, dtype)

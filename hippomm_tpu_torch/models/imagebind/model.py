@@ -26,6 +26,7 @@ import torch
 import torch.nn.functional as F
 
 from hippomm_tpu_torch.models import layers as L
+from hippomm_tpu_torch.utils.device import as_tensors
 
 EMBED_DIM = 1024
 
@@ -258,3 +259,25 @@ def text_forward(params: Dict, tokens: torch.Tensor, cfg: ImageBindConfig, dtype
     mask = causal_mask(tokens.shape[1], x.device)
     x = L.stacked_blocks(params["text"]["blocks"], x, cfg.text.heads, mask=mask, eps=cfg.text.eps, dtype=dtype)
     return text_head(params, x, tokens, cfg, dtype)
+
+
+def extract_features(
+    params: Dict,
+    cfg: ImageBindConfig,
+    vision=None,
+    audio=None,
+    text=None,
+    dtype=torch.bfloat16,
+) -> Dict[str, torch.Tensor]:
+    """Joint forward over any subset of modalities -> {modality: (N, 1024)},
+    as hippomm_tpu.models.imagebind.model.extract_features (the reference's
+    ImageBind.extract_features): each given input through its tower's
+    forward. An array goes to the parameters' device, a tensor stays on
+    its own."""
+    dev = params["vision"]["pos_embed"].device
+    out = {}
+    for name, x, forward in (("vision", vision, vision_forward), ("audio", audio, audio_forward),
+                             ("text", text, text_forward)):
+        if x is not None:
+            out[name] = forward(params, as_tensors(x, device=dev)[0], cfg, dtype)
+    return out

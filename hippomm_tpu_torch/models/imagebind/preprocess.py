@@ -1,13 +1,15 @@
-"""ImageBind audio preprocessing and text tokenizers.
+"""ImageBind input preprocessing and text tokenizers.
 
 Counterpart of hippomm_tpu/models/imagebind/preprocess.py:
+  * vision, on the device: `preprocess_vision`, the antialiased bicubic
+    resize + center crop + CLIP normalization of ops/resize.resize_normalize
   * audio, batched on the device: 2 s clip sampling (3 clips per segment,
     pytorchvideo's ConstantClipsPerVideoSampler offsets), Kaldi fbank
     (ops/mel.KaldiFbank), AST normalisation (mean −4.268, std 9.138, ÷2)
   * text, on the host: the CLIP BPE tokenizer when the standard
     `bpe_simple_vocab_16e6.txt.gz` merges file is found, else a
     deterministic hashing tokenizer (`load_tokenizer`)
-The vision half is ops/resize.
+Arrays go to `device`, CUDA unless the caller asks for another.
 """
 
 from __future__ import annotations
@@ -25,12 +27,21 @@ import torch
 
 from hippomm_tpu_torch.ops.bucketing import pad_leading
 from hippomm_tpu_torch.ops.mel import KaldiFbank
+from hippomm_tpu_torch.ops.resize import resize_normalize
+from hippomm_tpu_torch.utils.device import resolve_device
 
 AUDIO_MEAN = -4.268
 AUDIO_STD = 9.138
 CLIP_DURATION_S = 2.0
 CLIPS_PER_VIDEO = 3
 SAMPLE_RATE = 16000
+
+
+def preprocess_vision(frames_uint8, image_size: int = 224, device=None) -> torch.Tensor:
+    """(B, H, W, 3) uint8 RGB -> (B, 3, S, S) normalized fp32 on `device`
+    (None: CUDA; a tensor stays on its own)."""
+    return resize_normalize(frames_uint8, size=image_size, device=device)
+
 
 _FBANKS: Dict[Tuple[int, str], KaldiFbank] = {}
 
@@ -64,12 +75,12 @@ def preprocess_audio_batch(
     mel_bins: int = 128,
     target_len: int = 204,
     clips_per_video: int = CLIPS_PER_VIDEO,
-    device="cpu",
+    device=None,
 ) -> torch.Tensor:
-    """Many 16 kHz clips -> (B, clips, 1, mel_bins, target_len) on `device`:
-    clip slicing on the host, fbank + normalize on the device in fixed
-    32-window chunks (zero-padded, as the JAX program)."""
-    device = torch.device(device)
+    """Many 16 kHz clips -> (B, clips, 1, mel_bins, target_len) on `device`
+    (None: CUDA): clip slicing on the host, fbank + normalize on the device
+    in fixed 32-window chunks (zero-padded, as the JAX program)."""
+    device = resolve_device(device)
     clip_samples = int(CLIP_DURATION_S * SAMPLE_RATE)
     if not len(pcms):
         return torch.zeros((0, clips_per_video, 1, mel_bins, target_len), device=device)
@@ -94,9 +105,10 @@ def preprocess_audio(
     mel_bins: int = 128,
     target_len: int = 204,
     clips_per_video: int = CLIPS_PER_VIDEO,
-    device="cpu",
+    device=None,
 ) -> torch.Tensor:
-    """16 kHz mono float32 -> (1, clips, 1, mel_bins, target_len) fbank clips."""
+    """16 kHz mono float32 -> (1, clips, 1, mel_bins, target_len) fbank clips
+    on `device` (None: CUDA)."""
     return preprocess_audio_batch(
         [pcm], mel_bins=mel_bins, target_len=target_len, clips_per_video=clips_per_video,
         device=device,

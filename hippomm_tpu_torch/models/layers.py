@@ -35,6 +35,7 @@ from typing import Any, Dict, List, Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from hippomm_tpu_torch.ops import flash_attention as fa
 from hippomm_tpu_torch.ops import fused_mlp as fm
@@ -224,17 +225,25 @@ def _mlp_halfblock(p: Params, x: torch.Tensor, eps: float, dtype) -> torch.Tenso
 
 
 def stacked_blocks(
-    blocks: List[Params],
+    p_blocks: List[Params],
     x: torch.Tensor,
     num_heads: int,
     mask: Optional[torch.Tensor] = None,
     eps: float = 1e-6,
     dtype=torch.bfloat16,
+    remat: bool = False,
 ) -> torch.Tensor:
-    """Run a stack of blocks over per-layer params (the JAX lax.scan)."""
+    """Run a stack of blocks over per-layer params `p_blocks`, a list (the
+    JAX lax.scan over stacked leaves). With remat=True each block runs
+    under torch.utils.checkpoint, as JAX's jax.checkpoint: it keeps only its
+    input for the backward and runs again, through the same kernels, to
+    give the rest (memory traded for recompute when training)."""
     x = x.to(dtype)
-    for pb in blocks:
-        x = encoder_block(pb, x, num_heads, mask, eps, dtype)
+    for pb in p_blocks:
+        if remat:
+            x = checkpoint(encoder_block, pb, x, num_heads, mask, eps, dtype, use_reentrant=False)
+        else:
+            x = encoder_block(pb, x, num_heads, mask, eps, dtype)
     return x
 
 
@@ -258,24 +267,32 @@ def init_layer_norm(d: int, device) -> Params:
     return {"weight": torch.ones((d,), device=device), "bias": torch.zeros((d,), device=device)}
 
 
-def init_attention(g, d: int, device, dtype, bias_kv: bool = False) -> Params:
+def init_attention(g, d: int, device, dtype, packed: bool = True, bias: bool = True,
+                   bias_kv: bool = False) -> Params:
+    """The packed torch MultiheadAttention layout (in_proj, optional
+    bias_k/bias_v), or with packed=False the separate q/k/v_proj of the
+    Whisper/HF layout (bias_kv ignored, as JAX's); bias=False leaves out
+    every projection bias."""
+    if not packed:
+        return {name: init_linear(g, d, d, device, dtype, bias=bias)
+                for name in ("q_proj", "k_proj", "v_proj", "out_proj")}
     p = {
-        "in_proj": {
-            "weight": _uniform(g, (3 * d, d), 1.0 / math.sqrt(d), device).to(dtype),
-            "bias": torch.zeros((3 * d,), device=device),
-        },
-        "out_proj": init_linear(g, d, d, device, dtype),
+        "in_proj": {"weight": _uniform(g, (3 * d, d), 1.0 / math.sqrt(d), device).to(dtype)},
+        "out_proj": init_linear(g, d, d, device, dtype, bias=bias),
     }
+    if bias:
+        p["in_proj"]["bias"] = torch.zeros((3 * d,), device=device)
     if bias_kv:
         p["bias_k"] = 0.02 * torch.randn((1, 1, d), generator=g, device=device)
         p["bias_v"] = 0.02 * torch.randn((1, 1, d), generator=g, device=device)
     return p
 
 
-def init_block(g, d: int, device, dtype, mlp_ratio: float = 4.0, bias_kv: bool = False) -> Params:
+def init_block(g, d: int, device, dtype, mlp_ratio: float = 4.0, packed: bool = True,
+               bias_kv: bool = False) -> Params:
     hidden = int(d * mlp_ratio)
     return {
-        "attn": init_attention(g, d, device, dtype, bias_kv=bias_kv),
+        "attn": init_attention(g, d, device, dtype, packed=packed, bias_kv=bias_kv),
         "mlp": {
             "fc1": init_linear(g, d, hidden, device, dtype),
             "fc2": init_linear(g, hidden, d, device, dtype),

@@ -25,10 +25,13 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from hippomm_tpu_torch.models.whisper.model import (
+# greedy_decode and beam_decode_batch are importable from here, as from the JAX module
+from hippomm_tpu_torch.models.whisper.model import (  # noqa: F401
     WhisperConfig,
+    beam_decode_batch,
     beam_decode_shards,
     encoder_forward,
+    greedy_decode,
     greedy_decode_shards,
 )
 from hippomm_tpu_torch.ops.mel import WhisperMel

@@ -23,6 +23,7 @@ import numpy as np
 import torch
 
 from hippomm_tpu_torch.ops.melbank import mel_filterbank_kaldi, mel_filterbank_slaney
+from hippomm_tpu_torch.utils.device import as_tensors, resolve_device
 
 
 def _rdft_matrices(frame_len: int, n_fft: int) -> Tuple[np.ndarray, np.ndarray]:
@@ -34,7 +35,8 @@ def _rdft_matrices(frame_len: int, n_fft: int) -> Tuple[np.ndarray, np.ndarray]:
 
 
 class WhisperMel:
-    """Whisper log-mel frontend. n_mels=128 for the large-v3 family, 80 otherwise."""
+    """Whisper log-mel frontend. n_mels=128 for the large-v3 family, 80
+    otherwise. Its matrices live on `device` (None: CUDA)."""
 
     N_FFT = 400
     HOP = 160
@@ -44,21 +46,23 @@ class WhisperMel:
         self.n_mels = n_mels
         window = np.hanning(self.N_FFT + 1)[:-1]  # periodic hann
         cos, sin = _rdft_matrices(self.N_FFT, self.N_FFT)
-        dev = torch.device("cpu" if device is None else device)
+        dev = resolve_device(device)
         self.a_cos = torch.from_numpy((window[:, None] * cos).astype(np.float32)).to(dev)
         self.a_sin = torch.from_numpy((window[:, None] * sin).astype(np.float32)).to(dev)
         self.melbank = torch.from_numpy(
             mel_filterbank_slaney(n_mels, self.N_FFT, self.SAMPLE_RATE).astype(np.float32)
         ).to(dev)
 
-    def __call__(self, pcm: torch.Tensor) -> torch.Tensor:
+    def __call__(self, pcm) -> torch.Tensor:
         """pcm (..., N) fp32 in [-1, 1] -> (..., n_mels, N // HOP) log-mel.
         Leading dims batch (the JAX vmap): the max − 8 floor is taken per clip.
+        An array goes to the frontend's device, a tensor stays on its own.
 
         whisper.log_mel_spectrogram: reflect-pad N_FFT//2 both sides, frame,
         DFT, drop the last frame, power, mel, log10 clamp, max − 8 floor,
         (x + 4) / 4."""
-        x = pcm.float()
+        (x,) = as_tensors(pcm, device=self.a_cos.device)
+        x = x.float()
         lead = x.shape[:-1]
         x = x.reshape(-1, 1, x.shape[-1])
         pad = self.N_FFT // 2
@@ -75,7 +79,8 @@ class WhisperMel:
 
 
 class KaldiFbank:
-    """torchaudio.compliance.kaldi.fbank-compatible filterbank features."""
+    """torchaudio.compliance.kaldi.fbank-compatible filterbank features. Its
+    matrices live on `device` (None: CUDA)."""
 
     SAMPLE_RATE = 16000
     FRAME_LEN = 400  # 25 ms
@@ -94,7 +99,7 @@ class KaldiFbank:
         window = np.hanning(L)  # symmetric — kaldi "hanning"
         WPD = window[:, None] * (P @ D)
         cos, sin = _rdft_matrices(L, self.PADDED)
-        dev = torch.device("cpu" if device is None else device)
+        dev = resolve_device(device)
         self.a_cos = torch.from_numpy((WPD.T @ cos).astype(np.float32)).to(dev)
         self.a_sin = torch.from_numpy((WPD.T @ sin).astype(np.float32)).to(dev)
         self.melbank = torch.from_numpy(
@@ -107,10 +112,12 @@ class KaldiFbank:
             return 0
         return 1 + (n_samples - self.FRAME_LEN) // self.HOP
 
-    def __call__(self, pcm: torch.Tensor) -> torch.Tensor:
+    def __call__(self, pcm) -> torch.Tensor:
         """pcm (..., N) fp32 in [-1, 1] -> (..., T, num_mel_bins) natural-log
-        mel energies. Leading dims batch (the JAX vmap). No ×32768 rescale."""
-        x = pcm.float()
+        mel energies. Leading dims batch (the JAX vmap). No ×32768 rescale.
+        An array goes to the frontend's device, a tensor stays on its own."""
+        (x,) = as_tensors(pcm, device=self.a_cos.device)
+        x = x.float()
         t = self.num_frames(x.shape[-1])
         frames = x.unfold(-1, self.FRAME_LEN, self.HOP)[..., :t, :]
         re = frames @ self.a_cos

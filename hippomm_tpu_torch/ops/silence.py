@@ -14,6 +14,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from hippomm_tpu_torch.utils.device import as_tensors
+
 _DB_FLOOR = -100.0
 
 
@@ -46,10 +48,12 @@ def window_rms_db_bucketed(pcm: np.ndarray, window: int, hop: int) -> np.ndarray
     return window_rms_db_host(pcm, window, hop)
 
 
-def window_rms_db(pcm: torch.Tensor, window: int, hop: int) -> torch.Tensor:
+def window_rms_db(pcm, window: int, hop: int, device=None) -> torch.Tensor:
     """RMS level in dBFS per window for a device-resident (N,) waveform in
-    [-1, 1]. Returns (1 + (N - window) // hop,) fp32. When window is a
-    multiple of hop, each window is an exact sum of hop-blocks."""
+    [-1, 1] (an array goes to `device`, None: CUDA). Returns (1 + (N -
+    window) // hop,) fp32. When window is a multiple of hop, each window is
+    an exact sum of hop-blocks."""
+    (pcm,) = as_tensors(pcm, device=device)
     n = pcm.shape[0]
     num = 1 + (n - window) // hop
     sq = pcm.float().square()

@@ -25,8 +25,9 @@ _EPS = 1e-8
 _HOST_DEDUP_MAX_N = 256
 
 
-def l2_normalize(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
-    n = torch.sqrt(torch.sum(x.square(), dim=dim, keepdim=True))
+def l2_normalize(x: torch.Tensor, axis: int = -1) -> torch.Tensor:
+    """x / max(‖x‖, 1e-8) along `axis`."""
+    n = torch.sqrt(torch.sum(x.square(), dim=axis, keepdim=True))
     return x / torch.clamp(n, min=_EPS)
 
 

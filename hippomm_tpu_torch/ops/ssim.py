@@ -14,7 +14,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from hippomm_tpu_torch.utils.device import fetch, resolve_device
+from hippomm_tpu_torch.utils.device import as_tensors, fetch, resolve_device
 
 WIN = 7
 
@@ -63,10 +63,10 @@ def ssim_pairs_host(
     return s.mean(axis=(1, 2)).astype(np.float32)
 
 
-def ssim_pairs(a: torch.Tensor, b: torch.Tensor, data_range: float = 255.0) -> torch.Tensor:
-    """SSIM for B image pairs. a, b: (B, H, W) uint8/float. Returns (B,) fp32."""
-    x = a.float()
-    y = b.float()
+def ssim_pairs(a, b, data_range: float = 255.0, device=None) -> torch.Tensor:
+    """SSIM for B image pairs. a, b: (B, H, W) uint8/float. Returns (B,) fp32.
+    Tensors stay on their device; arrays go to `device` (None: CUDA)."""
+    x, y = (t.float() for t in as_tensors(a, b, device=device))
     np_ = WIN * WIN
     cov_norm = np_ / (np_ - 1.0)  # sample covariance, skimage default
     n = x.shape[0]
@@ -97,18 +97,21 @@ def batched_ssim(frames_a: np.ndarray, frames_b: np.ndarray, data_range: float =
                             data_range=float(data_range)))
 
 
-def adjacent_ssim(frames: torch.Tensor, data_range: float = 255.0) -> torch.Tensor:
+def adjacent_ssim(frames, data_range: float = 255.0, device=None) -> torch.Tensor:
     """SSIM between consecutive frames of a (T, H, W) stack -> (T-1,)."""
-    return ssim_pairs(frames[:-1], frames[1:], data_range=data_range)
+    return ssim_pairs(frames[:-1], frames[1:], data_range=data_range, device=device)
 
 
-def rgb_to_gray(frames: torch.Tensor) -> torch.Tensor:
-    """ITU-R 601 luma, matching cv2.cvtColor(BGR2GRAY) coefficients on RGB input."""
-    f = frames.float()
+def rgb_to_gray(frames, device=None) -> torch.Tensor:
+    """ITU-R 601 luma, matching cv2.cvtColor(BGR2GRAY) coefficients on RGB
+    input. A tensor stays on its device; an array goes to `device` (None:
+    CUDA)."""
+    (f,) = as_tensors(frames, device=device)
+    f = f.float()
     return f[..., 0] * 0.299 + f[..., 1] * 0.587 + f[..., 2] * 0.114
 
 
-def frame_difference(a: torch.Tensor, b: torch.Tensor, data_range: float = 255.0) -> torch.Tensor:
+def frame_difference(a, b, data_range: float = 255.0, device=None) -> torch.Tensor:
     """1 - SSIM dissimilarity used for key-frame selection
     (reference: batch_process.py:32-71)."""
-    return 1.0 - ssim_pairs(a, b, data_range=data_range)
+    return 1.0 - ssim_pairs(a, b, data_range=data_range, device=device)

@@ -33,6 +33,7 @@ import torch.nn.functional as F
 
 from hippomm_tpu_torch.parallel.collectives import all_to_all, reduce_sum
 from hippomm_tpu_torch.parallel.mesh import Mesh, Sharded, device_at, positions
+from hippomm_tpu_torch.utils.device import resolve_device
 
 Params = Dict[str, torch.Tensor]
 
@@ -43,11 +44,12 @@ Params = Dict[str, torch.Tensor]
 
 
 def init_moe_params(d: int, hidden: int, n_experts: int, generator: Optional[torch.Generator] = None,
-                    device="cpu") -> Params:
+                    device=None) -> Params:
     """Router (replicated) + expert FFN stacks (leading (E,) axis, sharded),
-    fp32, from `generator` (its device is where they are made). Expert
-    weights use the torch Linear (out, in) convention like models/layers.py."""
-    g = generator if generator is not None else torch.Generator(device=device).manual_seed(0)
+    fp32, from `generator` (its device is where they are made; without one,
+    seed 0 on `device`, None: CUDA). Expert weights use the torch Linear
+    (out, in) convention like models/layers.py."""
+    g = generator if generator is not None else torch.Generator(device=resolve_device(device)).manual_seed(0)
     dev = g.device
 
     def normal(*shape):

@@ -42,13 +42,16 @@ from hippomm_tpu_torch.models.imagebind.model import (
 )
 from hippomm_tpu_torch.parallel import megatron
 from hippomm_tpu_torch.parallel import moe as pmoe
-from hippomm_tpu_torch.parallel.mesh import (
+# data_sharding and replicated are importable from here, as from the JAX module
+from hippomm_tpu_torch.parallel.mesh import (  # noqa: F401
     Mesh,
     Sharded,
     batch_devices,
+    data_sharding,
     gather,
     param_shardings,
     replicate,
+    replicated,
     shard_batch,
     shard_tree,
     tree_leaves,

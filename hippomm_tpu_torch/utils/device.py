@@ -7,7 +7,7 @@ running the plain CPU path — the CPU is for callers (tests) that ask for it.
 
 from __future__ import annotations
 
-from typing import Optional, Union
+from typing import List, Optional, Union
 
 import numpy as np
 import torch
@@ -32,6 +32,19 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
     return dev
+
+
+def as_tensors(*xs, device: DeviceLike = None) -> List[torch.Tensor]:
+    """The inputs of a tensor op as tensors on one device, each keeping its
+    dtype: the first tensor's device among `xs`, else `device` (None: CUDA).
+    A tensor input thus stays on its own device (a later one joins the
+    first's), and an array (or list) follows it. The JAX package's ops take
+    arrays and run on the default device; so do these, and a CPU-only host
+    raises unless the caller asks for the CPU."""
+    dev = next((x.device for x in xs if isinstance(x, torch.Tensor)), None)
+    if dev is None:
+        dev = resolve_device(device)
+    return [x.to(dev) if isinstance(x, torch.Tensor) else torch.as_tensor(np.asarray(x), device=dev) for x in xs]
 
 
 def fetch(x, dtype=None) -> np.ndarray:

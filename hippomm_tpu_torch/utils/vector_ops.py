@@ -10,23 +10,14 @@ package.
 
 from __future__ import annotations
 
-from typing import List, Tuple
+from typing import Tuple
 
 import numpy as np
 import torch
 
-from hippomm_tpu_torch.utils.device import resolve_device
+from hippomm_tpu_torch.utils.device import as_tensors
 
 _EPS = 1e-8
-
-
-def _on_device(xs, device) -> List[torch.Tensor]:
-    """fp32 tensors on one device: the first tensor's among `xs`, else
-    `device` (None: CUDA)."""
-    dev = next((x.device for x in xs if isinstance(x, torch.Tensor)), None)
-    dev = resolve_device(device) if dev is None else dev
-    return [torch.as_tensor(x if isinstance(x, torch.Tensor) else np.asarray(x, np.float32),
-                            dtype=torch.float32).to(dev) for x in xs]
 
 
 def _unit(x: torch.Tensor) -> torch.Tensor:
@@ -35,7 +26,7 @@ def _unit(x: torch.Tensor) -> torch.Tensor:
 
 def cosine_similarity(a, b, device=None) -> float:
     """Cosine similarity between two vectors (reference: vector_ops.py:6-20)."""
-    a, b = _on_device((a, b), device)
+    a, b = (x.float() for x in as_tensors(a, b, device=device))
     return float(torch.sum(_unit(a) * _unit(b), dim=-1))
 
 
@@ -44,7 +35,7 @@ def top_k_cosine_similarity(query, features, k: int = 5, device=None) -> Tuple[n
     the features' device when they are a tensor. Returns (indices,
     similarities) sorted descending, ties to the lower index (lax.top_k's
     order) — the reference's contract (vector_ops.py:151-188)."""
-    features, query = _on_device((features, query), device)
+    features, query = (x.float() for x in as_tensors(features, query, device=device))
     if features.dim() == 1:
         features = features[None, :]
     query = query.reshape(-1)

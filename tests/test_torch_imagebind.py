@@ -83,7 +83,7 @@ def test_preprocess_audio_matches_jax(request):
     rng = np.random.default_rng(4)
     pcms = [rng.uniform(-0.5, 0.5, n).astype(np.float32) for n in (16000 * 7, 9000, 16000 * 3)]
     want = np.asarray(jpre.preprocess_audio_batch(pcms))
-    got = tpre.preprocess_audio_batch(pcms).numpy()
+    got = tpre.preprocess_audio_batch(pcms, device="cpu").numpy()
     assert got.shape == want.shape == (3, 3, 1, 128, 204)
     assert_close(request, got, want, 1e-4)
 
@@ -91,7 +91,7 @@ def test_preprocess_audio_matches_jax(request):
 def test_kaldi_fbank_matches_jax(request):
     pcm = np.random.default_rng(5).uniform(-1, 1, 16000 * 2).astype(np.float32)
     want = np.asarray(jmel.KaldiFbank(128)(jnp.asarray(pcm)))
-    got = tmel.KaldiFbank(128)(torch.from_numpy(pcm)).numpy()
+    got = tmel.KaldiFbank(128, device="cpu")(torch.from_numpy(pcm)).numpy()
     assert_close(request, got, want, 1e-4)
 
 
@@ -178,3 +178,40 @@ def test_whisper_variants_outside_the_stub_wait_for_their_slice():
         assert [(s.start, s.end, s.text) for s in segs] == [(0.0, 0.1, "")]  # no tokenizer: no text
     with pytest.raises(FileNotFoundError, match="no checkpoint"):
         Whisper(model_path="/nonexistent", device="cpu")
+
+
+@pytest.mark.parametrize("towers", [("vision", "audio", "text"), ("vision",), ("audio", "text")])
+def test_extract_features_matches_jax(request, tiny, towers):
+    """extract_features over the towers given, on numpy inputs (each goes
+    to the parameters' device): the keys JAX returns, each within 1e-5
+    (fp32; audio on its unit rows ×20) and equal to its tower's forward."""
+    cfg_j, params_j, cfg_t, params_t = tiny
+    rng = np.random.default_rng(12)
+    s = cfg_j.image_size
+    tokens = rng.integers(1, cfg_j.vocab_size - 1, size=(3, cfg_j.context_length)).astype(np.int32)
+    tokens[:, -1] = cfg_j.vocab_size - 1
+    inputs = {"vision": rng.standard_normal((3, 3, s, s)).astype(np.float32),
+              "audio": rng.standard_normal((2, 1, 128, 204)).astype(np.float32), "text": tokens}
+    given = {k: inputs[k] for k in towers}
+    want = jm.extract_features(params_j, cfg_j, **{k: jnp.asarray(v) for k, v in given.items()}, dtype=jnp.float32)
+    got = tm.extract_features(params_t, cfg_t, **given, dtype=torch.float32)
+    assert sorted(got) == sorted(want) == sorted(towers)
+    forwards = {"vision": tm.vision_forward, "audio": tm.audio_forward, "text": tm.text_forward}
+    for k in towers:
+        assert got[k].shape == (inputs[k].shape[0], 1024)
+        assert_close(request, got[k].numpy(), np.asarray(want[k]), 1e-5, f"max_abs_err_{k}",
+                     scale=20.0 if k == "audio" else 1.0)
+        assert torch.equal(got[k], forwards[k](params_t, torch.from_numpy(inputs[k]), cfg_t, torch.float32))
+
+
+@pytest.mark.parametrize("hw", [(90, 160), (224, 300)])
+def test_preprocess_vision_matches_jax(request, hw):
+    """preprocess_vision on uint8 numpy frames: JAX's within 1e-5 of the
+    normalized range (the resampling sums in another order), and bit-equal
+    to resize_normalize's."""
+    frames = np.random.default_rng(13).integers(0, 256, (2, *hw, 3), dtype=np.uint8)
+    want = np.asarray(jpre.preprocess_vision(frames, image_size=56))
+    got = tpre.preprocess_vision(frames, image_size=56, device="cpu")
+    assert got.shape == want.shape == (2, 3, 56, 56)
+    assert_close(request, got.numpy(), want, 1e-5)
+    assert torch.equal(got, tres.resize_normalize(frames, size=56, device="cpu"))

@@ -1,5 +1,6 @@
 """The PyTorch port stands alone: importing it (in a fresh interpreter) pulls
-in neither `jax` nor any module of the JAX package, and every entry point
+in neither `jax` nor any module of the JAX package (nor `transformers`, which
+the token counter imports on first use), and every entry point
 refuses to run silently on the CPU when CUDA is absent."""
 
 import os
@@ -67,6 +68,11 @@ _MODULES = [
     "hippomm_tpu_torch.benchmarks",
     "hippomm_tpu_torch.benchmarks.qa_harness",
     "hippomm_tpu_torch.benchmarks.qa_accuracy",
+    "hippomm_tpu_torch.models.imagebind",
+    "hippomm_tpu_torch.models.whisper",
+    "hippomm_tpu_torch.memory",
+    "hippomm_tpu_torch.retrieval",
+    "hippomm_tpu_torch.utils",
 ]
 
 _PROBE = """
@@ -76,7 +82,8 @@ for name in {mods!r}:
     importlib.import_module(name)
 new = set(sys.modules) - before
 bad = sorted(m for m in new if m == "jax" or m.startswith("jax.") or m == "jaxlib"
-             or m.startswith("jaxlib.") or m == "hippomm_tpu" or m.startswith("hippomm_tpu."))
+             or m.startswith("jaxlib.") or m == "hippomm_tpu" or m.startswith("hippomm_tpu.")
+             or m == "transformers" or m.startswith("transformers."))
 print("BAD", bad)
 sys.exit(1 if bad else 0)
 """

@@ -240,3 +240,83 @@ def test_mlp_cast_out_routes_fused_and_matches_unfused(request):
     got = tl.mlp(_to_torch(p), torch.from_numpy(x), dtype=torch.float32, cast_out=True)
     assert got.shape == (3, 12, d)
     assert_close(request, got.numpy(), want, 1e-5)
+
+
+def _leaves(tree):
+    return [leaf for v in tree.values() for leaf in (_leaves(v) if isinstance(v, dict) else [v])]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_stacked_blocks_remat_matches_and_keeps_gradients(request, dtype):
+    """stacked_blocks(remat=True): the output and every autograd gradient
+    (input and parameters) equal to remat=False; in fp32 the forward within
+    1e-5 of JAX's stacked_blocks(remat=True)."""
+    d, heads, t, bsz, depth = 128, 4, 17, 2, 3
+    rng = np.random.default_rng(14)
+    blocks = [jax.tree.map(lambda a: jnp.asarray(a + 0.05 * rng.standard_normal(a.shape), jnp.float32),
+                           jl.init_block(jax.random.PRNGKey(20 + i), d)) for i in range(depth)]
+    x = rng.standard_normal((bsz, t, d)).astype(np.float32)
+    tdt = getattr(torch, dtype)
+    runs = {}
+    for remat in (False, True):
+        params = [_to_torch(p) for p in blocks]
+        leaves = [leaf for p in params for leaf in _leaves(p)]
+        for leaf in leaves:
+            leaf.requires_grad_(True)
+        xt = torch.from_numpy(x).requires_grad_(True)
+        out = tl.stacked_blocks(params, xt, heads, dtype=tdt, remat=remat)
+        out.float().square().sum().backward()
+        runs[remat] = (out.detach(), [xt.grad] + [leaf.grad for leaf in leaves])
+    (out0, g0), (out1, g1) = runs[False], runs[True]
+    assert out0.dtype == tdt and torch.equal(out0, out1)
+    assert len(g0) == len(g1) == 1 + depth * 12
+    for a, b in zip(g0, g1):
+        assert a is not None and torch.equal(a, b)
+    if dtype == "float32":
+        want = np.asarray(jl.stacked_blocks(jl.stack_block_params(blocks), jnp.asarray(x), heads,
+                                            dtype=jnp.float32, remat=True))
+        assert_close(request, out1.numpy(), want, 1e-5, scale=max(1.0, float(np.abs(want).max())))
+
+
+def test_stacked_blocks_remat_recomputes_through_the_wrappers(monkeypatch):
+    """Under remat the backward runs each block's forward again through the
+    K1 and K2 wrappers (their autograd Functions), never around them."""
+    calls = []
+    for name in ("flash_mha", "fused_mlp"):
+        real = getattr(tl, name)
+        monkeypatch.setattr(tl, name, lambda *a, _r=real, _n=name: calls.append((_n, torch.is_grad_enabled()))
+                            or _r(*a))
+    d, heads, depth = 128, 4, 2
+    g = torch.Generator().manual_seed(2)
+    params = [tl.init_block(g, d, "cpu", torch.float32) for _ in range(depth)]
+    for p in params:
+        p["mlp"]["fc1"]["weight"].requires_grad_(True)
+    x = torch.randn((2, 9, d), generator=g, requires_grad=True)
+    for remat, want in ((False, 2 * depth), (True, 4 * depth)):
+        calls.clear()
+        tl.stacked_blocks(params, x, heads, dtype=torch.float32, remat=remat).sum().backward()
+        assert len(calls) == want and all(grad for _, grad in calls), (remat, calls)
+        assert [n for n, _ in calls[:2]] == ["flash_mha", "fused_mlp"]
+
+
+@pytest.mark.parametrize("packed,bias", [(False, True), (False, False), (True, False)])
+def test_init_block_layouts_match_jax(request, packed, bias):
+    """init_attention(packed=, bias=) and init_block(packed=) build JAX's
+    tree (names and shapes); the JAX block carried across runs through
+    encoder_block within 1e-5 of JAX's."""
+    d, heads, t = 64, 4, 13
+    tg = torch.Generator().manual_seed(3)
+    jp = jl.init_attention(jax.random.PRNGKey(9), d, packed=packed, bias=bias)
+    tp = tl.init_attention(tg, d, "cpu", torch.float32, packed=packed, bias=bias)
+    shapes = lambda tree: jax.tree.map(lambda a: tuple(a.shape), tree)  # noqa: E731
+    assert shapes(tp) == shapes(jax.tree.map(np.asarray, jp))
+    jb = jl.init_block(jax.random.PRNGKey(10), d, packed=packed)
+    tb = tl.init_block(tg, d, "cpu", torch.float32, packed=packed)
+    assert shapes(tb) == shapes(jax.tree.map(np.asarray, jb))
+    rng = np.random.default_rng(11)
+    jb["attn"] = jp
+    jb = jax.tree.map(lambda a: jnp.asarray(a + 0.05 * rng.standard_normal(a.shape), jnp.float32), jb)
+    x = rng.standard_normal((2, t, d)).astype(np.float32)
+    want = np.asarray(jl.encoder_block(jb, jnp.asarray(x), heads, dtype=jnp.float32))
+    got = tl.encoder_block(_to_torch(jb), torch.from_numpy(x), heads, dtype=torch.float32)
+    assert_close(request, got.numpy(), want, 1e-5, scale=max(1.0, float(np.abs(want).max())))
