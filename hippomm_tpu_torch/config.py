@@ -31,9 +31,10 @@ class SystemConfig:
     mesh_model: int = 1
     # a leading "replica" axis: the batch splits over replica x data
     mesh_replicas: int = 1
-    # when set, each process_sequence runs under torch.profiler and writes a
-    # Chrome trace into this directory (stage timers are always on; this is
-    # the trace half)
+    # when set, each call of the ingest CLI (a folder or a single file) runs
+    # under torch.profiler and writes one Chrome trace into this directory,
+    # the program's hippomm.* spans beside the kernels (stage timers are
+    # always on; this is the trace half)
     profile_dir: Optional[str] = None
 
 

@@ -36,7 +36,8 @@ import numpy as np
 import yaml
 
 from hippomm_tpu_torch.config import Config, load_config
-from hippomm_tpu_torch.utils.timers import Throughput
+from hippomm_tpu_torch.utils import timers as tracing
+from hippomm_tpu_torch.utils.timers import Throughput, maybe_profile
 
 logger = logging.getLogger(__name__)
 
@@ -171,20 +172,21 @@ def extract_frames_from_video(
 
     chunks: List[Dict] = []
     meta: Dict = {}
-    for item in extract_frames_streaming(
-        video_path,
-        output_dir,
-        video_id,
-        max_diff_threshold=max_diff_threshold,
-        min_interval_s=min_interval_s,
-        score_hw=score_hw,
-        emit_seconds=float("inf"),
-        timers=timers,
-        _meta_out=meta,
-        vision_stream=vision_stream,
-        device=device,
-    ):
-        chunks.append(item)
+    with tracing.video(video_id):
+        for item in extract_frames_streaming(
+            video_path,
+            output_dir,
+            video_id,
+            max_diff_threshold=max_diff_threshold,
+            min_interval_s=min_interval_s,
+            score_hw=score_hw,
+            emit_seconds=float("inf"),
+            timers=timers,
+            _meta_out=meta,
+            vision_stream=vision_stream,
+            device=device,
+        ):
+            chunks.append(item)
     out = dict(meta)
     out["resumed"] = False
     if keep_rgb:
@@ -656,23 +658,24 @@ def process_single_video_streaming(
         return False
 
     def _produce():
-        gen = extract_frames_streaming(
-            video_path,
-            memory_store_dir,
-            video_id,
-            emit_seconds=chunk_seconds,
-            timers=getattr(mem, "timers", None),
-            _meta_out=meta,
-            device=mem.device,
-        )
-        try:
-            for c in gen:
-                if not _put(c):  # consumer gone: run the generator's finally
-                    gen.close()
-                    return
-            _put(_DONE)
-        except BaseException as e:  # propagate into the consumer
-            _put(e)
+        with tracing.video(video_id):
+            gen = extract_frames_streaming(
+                video_path,
+                memory_store_dir,
+                video_id,
+                emit_seconds=chunk_seconds,
+                timers=getattr(mem, "timers", None),
+                _meta_out=meta,
+                device=mem.device,
+            )
+            try:
+                for c in gen:
+                    if not _put(c):  # consumer gone: run the generator's finally
+                        gen.close()
+                        return
+                _put(_DONE)
+            except BaseException as e:  # propagate into the consumer
+                _put(e)
 
     producer = threading.Thread(target=_produce, daemon=True)
     producer.start()
@@ -722,6 +725,12 @@ def process_single_video_streaming(
         "audio": audio_meta,
         "streamed": True,
     }
+
+
+def _profile_dir(mem, config: Config) -> Optional[str]:
+    """Where `system.profile_dir` asks for a call's trace (the engine's
+    configuration first), or None."""
+    return getattr(getattr(mem, "config", config).system, "profile_dir", None)
 
 
 def process_video_folder(
@@ -812,6 +821,8 @@ def process_video_folder(
                 pass
         todo.append((path, video_id, is_long))
 
+    wait_span = mem.timers.stage if getattr(mem, "timers", None) is not None else tracing.span
+
     def _extract(path: str, video_id: str) -> Dict:
         return process_single_video(
             path, memory_store_dir, video_id,
@@ -825,66 +836,71 @@ def process_video_folder(
             return None
         return lookahead_pool.submit(_extract, todo[pos][0], todo[pos][1])
 
-    next_fut = _submit(0) if todo else None
+    # one trace a call (system.profile_dir): the extraction, the ASR
+    # enqueue and the engine's stages beside every kernel
+    with maybe_profile(_profile_dir(mem, config)):
+        next_fut = _submit(0) if todo else None
 
-    for pos, (path, video_id, is_long) in enumerate(todo):
-        t0 = time.perf_counter()
-        frames = None  # re-bound per video: the except block below inspects it
-        try:
-            fut, next_fut = next_fut, None
-            if is_long:
-                result = process_single_video_streaming(
-                    path, memory_store_dir, video_id, memory_system=mem
-                )
-                if pos + 1 < len(todo):
-                    next_fut = _submit(pos + 1)
-                frames = result["frames"]
-            else:
-                try:
-                    extracted = fut.result() if fut is not None else _extract(path, video_id)
-                finally:
-                    # keep the lookahead going even when this video's
-                    # extraction failed
+        for pos, (path, video_id, is_long) in enumerate(todo):
+            t0 = time.perf_counter()
+            frames = None  # re-bound per video: the except block below inspects it
+            try:
+                fut, next_fut = next_fut, None
+                if is_long:
+                    result = process_single_video_streaming(
+                        path, memory_store_dir, video_id, memory_system=mem
+                    )
                     if pos + 1 < len(todo):
                         next_fut = _submit(pos + 1)
-                mem.add_video(video_id, path)
-                frames = extracted["frames"]
-                audio = extracted["audio"]
-                fssim = frames.get("frame_ssim")
-                mem.process_sequence(
-                    video_id,
-                    frame_paths=frames.get("frame_paths", []),
-                    frame_times=frames.get("frame_times", []),
-                    frames_rgb=frames.get("frames_rgb"),
-                    audio_data=audio.get("audio"),
-                    video_duration=frames.get("duration"),
-                    auto_consolidate=True,
-                    frame_ssim=np.asarray(fssim, np.float32) if fssim is not None else None,
-                    vision_stream=frames.get("vision_stream"),
-                )
-            stats["processed"] += 1
-            stats["media_seconds"] += float(frames.get("duration") or 0.0)
-            throughput.add_media(float(frames.get("duration") or 0.0))
-            logger.info("%s done in %.2fs", video_id, time.perf_counter() - t0)
-        except Exception as e:
-            logger.exception("failed on %s", video_id)
-            stats["failed"] += 1
-            stats["errors"][video_id] = repr(e)
-            # drop what the failed video left in the engine (pending ASR,
-            # cached waveform/transcript, partial STMs, failed-attempt marker)
-            mem.discard_pending(video_id)
-            # ...and an unread vision stream
-            vs = frames.get("vision_stream") if isinstance(frames, dict) else None
-            if vs is not None and hasattr(vs, "close"):
-                try:
-                    vs.close()
-                except Exception:  # noqa: BLE001 — already on the error path
-                    pass
-        # cadence over the videos actually processed (pos), not the
-        # pre-filter index
-        if checkpoint_every and (pos + 1) % checkpoint_every == 0:
-            _save_driver_checkpoint(mem, memory_store_dir, stats)
-    lookahead_pool.shutdown(wait=False)
+                    frames = result["frames"]
+                else:
+                    try:
+                        # the engine thread waits here on the extraction
+                        with tracing.video(video_id), wait_span("ingest.extract_wait"):
+                            extracted = fut.result() if fut is not None else _extract(path, video_id)
+                    finally:
+                        # keep the lookahead going even when this video's
+                        # extraction failed
+                        if pos + 1 < len(todo):
+                            next_fut = _submit(pos + 1)
+                    mem.add_video(video_id, path)
+                    frames = extracted["frames"]
+                    audio = extracted["audio"]
+                    fssim = frames.get("frame_ssim")
+                    mem.process_sequence(
+                        video_id,
+                        frame_paths=frames.get("frame_paths", []),
+                        frame_times=frames.get("frame_times", []),
+                        frames_rgb=frames.get("frames_rgb"),
+                        audio_data=audio.get("audio"),
+                        video_duration=frames.get("duration"),
+                        auto_consolidate=True,
+                        frame_ssim=np.asarray(fssim, np.float32) if fssim is not None else None,
+                        vision_stream=frames.get("vision_stream"),
+                    )
+                stats["processed"] += 1
+                stats["media_seconds"] += float(frames.get("duration") or 0.0)
+                throughput.add_media(float(frames.get("duration") or 0.0))
+                logger.info("%s done in %.2fs", video_id, time.perf_counter() - t0)
+            except Exception as e:
+                logger.exception("failed on %s", video_id)
+                stats["failed"] += 1
+                stats["errors"][video_id] = repr(e)
+                # drop what the failed video left in the engine (pending ASR,
+                # cached waveform/transcript, partial STMs, failed-attempt marker)
+                mem.discard_pending(video_id)
+                # ...and an unread vision stream
+                vs = frames.get("vision_stream") if isinstance(frames, dict) else None
+                if vs is not None and hasattr(vs, "close"):
+                    try:
+                        vs.close()
+                    except Exception:  # noqa: BLE001 — already on the error path
+                        pass
+            # cadence over the videos actually processed (pos), not the
+            # pre-filter index
+            if checkpoint_every and (pos + 1) % checkpoint_every == 0:
+                _save_driver_checkpoint(mem, memory_store_dir, stats)
+        lookahead_pool.shutdown(wait=False)
     throughput.stop()
     stats["wall_seconds"] = throughput.wall_seconds
     stats["realtime_multiple"] = throughput.realtime_multiple
@@ -991,30 +1007,31 @@ def ingest_single_file(
             "video_id": video_id, "wall_seconds": 0.0, "media_seconds": 0.0,
             "engine": mem.get_stats(),
         }
-    t0 = time.perf_counter()
-    try:
-        extracted = process_single_video(
-            path, memory_store_dir, video_id, timers=mem.timers, memory_system=mem
-        )
-        mem.add_video(video_id, path)
-        frames, audio = extracted["frames"], extracted["audio"]
-        fssim = frames.get("frame_ssim")
-        mem.process_sequence(
-            video_id,
-            frame_paths=frames.get("frame_paths", []),
-            frame_times=frames.get("frame_times", []),
-            frames_rgb=frames.get("frames_rgb"),
-            audio_data=audio.get("audio"),
-            video_duration=frames.get("duration"),
-            auto_consolidate=True,
-            frame_ssim=np.asarray(fssim, np.float32) if fssim is not None else None,
-            vision_stream=frames.get("vision_stream"),
-        )
-    except Exception:
-        # the same per-video purge as process_video_folder's: a long-lived engine
-        # must not keep a failed attempt's pending ASR or partial state
-        mem.discard_pending(video_id)
-        raise
+    with maybe_profile(_profile_dir(mem, config)):
+        t0 = time.perf_counter()
+        try:
+            extracted = process_single_video(
+                path, memory_store_dir, video_id, timers=mem.timers, memory_system=mem
+            )
+            mem.add_video(video_id, path)
+            frames, audio = extracted["frames"], extracted["audio"]
+            fssim = frames.get("frame_ssim")
+            mem.process_sequence(
+                video_id,
+                frame_paths=frames.get("frame_paths", []),
+                frame_times=frames.get("frame_times", []),
+                frames_rgb=frames.get("frames_rgb"),
+                audio_data=audio.get("audio"),
+                video_duration=frames.get("duration"),
+                auto_consolidate=True,
+                frame_ssim=np.asarray(fssim, np.float32) if fssim is not None else None,
+                vision_stream=frames.get("vision_stream"),
+            )
+        except Exception:
+            # the same per-video purge as process_video_folder's: a long-lived engine
+            # must not keep a failed attempt's pending ASR or partial state
+            mem.discard_pending(video_id)
+            raise
     wall = time.perf_counter() - t0
     return {
         "total": 1, "processed": 1, "skipped": 0, "failed": 0, "errors": {},

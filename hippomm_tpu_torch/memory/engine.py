@@ -27,7 +27,6 @@ than exist warns and runs on one device; a mesh that fails to build raises.
 
 from __future__ import annotations
 
-import contextlib
 import logging
 import os
 import time
@@ -47,7 +46,8 @@ from hippomm_tpu_torch.models.imagebind.preprocess import preprocess_audio_batch
 from hippomm_tpu_torch.models.whisper.transcribe import Segment
 from hippomm_tpu_torch.parallel import mesh as pmesh
 from hippomm_tpu_torch.utils.device import fetch, resolve_device
-from hippomm_tpu_torch.utils.timers import StageTimer, maybe_profile
+from hippomm_tpu_torch.utils import timers as tracing
+from hippomm_tpu_torch.utils.timers import StageTimer
 
 logger = logging.getLogger(__name__)
 
@@ -214,18 +214,12 @@ class HippocampalMemory:
         `vision_stream` carries tower forwards already queued during
         extraction (one row per frames_rgb row, in order); the vision encode
         is then a read-back."""
-        with self._maybe_trace():
+        with tracing.video(video_id):
             return self._process_sequence_impl(
                 video_id, frame_paths, frame_times, frames_rgb, audio_data,
                 sample_rate, video_duration, auto_consolidate, base_time,
                 frame_ssim, resume, vision_stream,
             )
-
-    def _maybe_trace(self):
-        """torch.profiler trace around a whole ingest pass when
-        system.profile_dir is set (default off — traces are large)."""
-        d = getattr(self.config.system, "profile_dir", None)
-        return maybe_profile(d) if d else contextlib.nullcontext()
 
     def _process_sequence_impl(
         self, video_id, frame_paths, frame_times, frames_rgb, audio_data,
@@ -348,6 +342,8 @@ class HippocampalMemory:
             n_real = part.shape[0]
             if n_real < AUDIO_CHUNK:
                 part = torch.cat([part, part[-1:].expand(AUDIO_CHUNK - n_real, *part.shape[1:])])
+            tracing.count("audio.rows_launched", AUDIO_CHUNK)
+            tracing.count("audio.rows_real", n_real)
             # sharded over the mesh's batch split, as the JAX engine's chunks
             outs.append(ib._run(ib._audio_forward, part)[:n_real])
         return torch.cat(outs)
@@ -408,6 +404,9 @@ class HippocampalMemory:
             vision_stream.close()
         if frames_rgb is not None and len(frames_rgb):
             all_idx = np.concatenate(seg_frame_idx) if seg_frame_idx else np.zeros((0,), int)
+            # the tower rows whose features the engine keeps (of every row
+            # the vision tower ran: vision.rows_launched)
+            tracing.count("vision.rows_kept", len(all_idx))
             feats_all = None
             if vision_stream is not None:
                 # forwards queued during extraction, one row per frames_rgb
@@ -527,7 +526,8 @@ class HippocampalMemory:
         if len(audio) < sample_rate // 10:
             return None
         self._full_audio[video_id] = audio
-        finish = self.whisper.transcribe_async(audio, sample_rate)
+        with tracing.video(video_id):  # the enqueue's counters carry the video
+            finish = self.whisper.transcribe_async(audio, sample_rate)
         if finish is None:
             return None
 

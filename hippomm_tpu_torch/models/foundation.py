@@ -40,6 +40,7 @@ from hippomm_tpu_torch.models.whisper.transcribe import Segment, WhisperTranscri
 from hippomm_tpu_torch.ops import _native
 from hippomm_tpu_torch.ops.resize import normalize_nchw, resize_crop_u8
 from hippomm_tpu_torch.parallel import mesh as pmesh
+from hippomm_tpu_torch.utils import timers as tracing
 from hippomm_tpu_torch.utils.device import fetch, resolve_device
 
 logger = logging.getLogger(__name__)
@@ -159,6 +160,7 @@ class ImageBind:
             lo += m
             if m < size:
                 chunk = np.concatenate([chunk, np.repeat(chunk[-1:], size - m, axis=0)])
+            tracing.count("vision.rows_launched", size)
             outs.append(self._vision_chunk(chunk)[:m])
         return fetch(torch.cat(outs), dtype=np.float32)
 
@@ -296,6 +298,7 @@ class VisionEncodeStream:
         m = len(chunk)
         if m < CHUNK:
             chunk = np.concatenate([chunk, np.repeat(chunk[-1:], CHUNK - m, axis=0)])
+        tracing.count("vision.rows_launched", CHUNK)
         self._handles.append((m, self._ib._vision_chunk(chunk)))
 
     @property

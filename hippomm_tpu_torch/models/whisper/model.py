@@ -29,6 +29,7 @@ import numpy as np
 import torch
 
 from hippomm_tpu_torch.models import layers as L
+from hippomm_tpu_torch.utils import timers as tracing
 
 
 @dataclasses.dataclass(frozen=True)
@@ -346,17 +347,22 @@ def _all_finished(shards) -> bool:
     shards, on the first shard's device."""
     home = shards[0].finished.device
     done = [s.finished.all().to(home) for s in shards]
-    return bool(done[0] if len(done) == 1 else torch.stack(done).all())
+    flag = done[0] if len(done) == 1 else torch.stack(done).all()
+    with tracing.span("asr.read_wait"):
+        return bool(flag)
 
 
 def _lockstep(shards, plen: int, max_len: int) -> None:
     """Step every shard at each position, then read once whether all have
     finished: the exit rule of one decode loop over the whole sharded batch
-    (a shard that finished early keeps emitting <|endoftext|>)."""
+    (a shard that finished early keeps emitting <|endoftext|>). Each
+    position is an `asr.decode_step` span, its read an `asr.read_wait`."""
     for pos in range(plen, max_len):
-        for s in shards:
-            s.step(pos)
-        if _all_finished(shards):
+        with tracing.span("asr.decode_step"):
+            for s in shards:
+                s.step(pos)
+            finished = _all_finished(shards)
+        if finished:
             break
 
 

@@ -36,6 +36,7 @@ from hippomm_tpu_torch.models.whisper.model import (  # noqa: F401
 )
 from hippomm_tpu_torch.ops.mel import WhisperMel
 from hippomm_tpu_torch.parallel import mesh as pmesh
+from hippomm_tpu_torch.utils import timers as tracing
 
 logger = logging.getLogger(__name__)
 
@@ -214,6 +215,8 @@ class WhisperTranscriber:
                 b = min(b, max_chunk_batch)
                 if b > n:
                     batch = batch + [batch[-1]] * (b - n)
+                tracing.count("asr.chunks_launched", b)
+                tracing.count("asr.chunks_real", n)
                 shards = []
                 for x in self._shard_chunks(np.stack(batch)):
                     params = self._replicas[x.device]
