@@ -1488,8 +1488,8 @@ def mesh_phase(cfg, qcfg, clip, one_device, counters, fa, fm, ttk, search, video
                 real = getattr(ib_model, name)
                 patch.set(ib_model, name, lambda p, x, c, d, real=real: forwards.append(
                     (real, p, x, real(p, x, c, d))) or forwards[-1][3])
-            real_dec = wh_transcribe.greedy_decode_shards
-            patch.set(wh_transcribe, "greedy_decode_shards", lambda shards, c, **k: decodes.append(
+            real_dec = wt._graphs.decode  # the transcriber's greedy decode
+            patch.set(wt._graphs, "decode", lambda shards, c, **k: decodes.append(
                 (list(shards), k, real_dec(shards, c, **k))) or decodes[-1][2])
             stages_before = dict(mem.timers.totals)
             try:
@@ -3305,7 +3305,6 @@ def main() -> int:
     from hippomm_tpu_torch.models import layers
     from hippomm_tpu_torch.models.imagebind import model as ib_model
     from hippomm_tpu_torch.models.whisper import model as wh_model
-    from hippomm_tpu_torch.models.whisper import transcribe as wh_transcribe
     from hippomm_tpu_torch.ops import _native
     from hippomm_tpu_torch.ops import flash_attention as fa
     from hippomm_tpu_torch.ops import fused_mlp as fm
@@ -3489,7 +3488,7 @@ def main() -> int:
         # the decoder's token ids and steps, as the transcriber gets them
         # (one shard: one device)
         decodes = []
-        real_greedy = wh_transcribe.greedy_decode_shards
+        real_greedy = wt._graphs.decode
 
         def greedy_spy(*a, **k):
             out = real_greedy(*a, **k)
@@ -3497,7 +3496,7 @@ def main() -> int:
                             torch.cat([ln for _, ln in out]).cpu().numpy()))
             return out
 
-        wh_transcribe.greedy_decode_shards = greedy_spy
+        wt._graphs.decode = greedy_spy
         counters = {"flash_mha": fa.flash_mha, "fused_mlp": fm.fused_mlp,
                     "fused_ln_mlp_residual": fm.fused_ln_mlp_residual,
                     "flash_mha_bthd": fa.flash_mha_bthd}
@@ -3552,7 +3551,7 @@ def main() -> int:
                     "token_ids": token_ids, "stms": stms,
                 }
         finally:
-            wh_transcribe.greedy_decode_shards = real_greedy
+            wt._graphs.decode = real_greedy
             set_fused_flags(fa, fm, False)
 
         # the persisted events: one per video, well-formed features

@@ -16,19 +16,26 @@ causal and cached attention and its fp32-output MLP stay plain PyTorch, as
 they stay XLA in the JAX package.
 
 The KV caches are updated in place (the JAX arrays are functional copies);
-beam reordering gathers new caches, as JAX's `take` does.
+beam reordering gathers new caches, as JAX's `take` does. The position is
+a device tensor that the greedy step advances in place, so on CUDA each
+greedy position is one replay of a CUDA graph of the step (`DecodeGraphs`)
+instead of ~200 launches from the host; beam search and the CPU step
+eagerly.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
+import threading
 from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from hippomm_tpu_torch.models import layers as L
+from hippomm_tpu_torch.parallel import mesh as pmesh
 from hippomm_tpu_torch.utils import timers as tracing
 
 
@@ -243,60 +250,78 @@ def decoder_forward(params: Dict, tokens: torch.Tensor, enc_out: torch.Tensor, c
     return _logits(p, x, dtype)
 
 
-def _cross_kv(params: Dict, enc_out: torch.Tensor, heads: int, dtype) -> List[Tuple[torch.Tensor, torch.Tensor]]:
-    """Cross-attention K/V once per layer: [(k, v)] each (B, H, S, hd) in `dtype`."""
-    return [
-        (_proj_heads(pb["cross_attn"]["k_proj"], enc_out, heads, dtype).to(dtype),
-         _proj_heads(pb["cross_attn"]["v_proj"], enc_out, heads, dtype).to(dtype))
-        for pb in params["decoder"]["blocks"]
-    ]
+def _cross_kv_buffers(cfg: WhisperConfig, b: int, s: int, d: int,
+                      device) -> List[Tuple[torch.Tensor, torch.Tensor]]:
+    """Buffers for `_cross_kv`: [(kᵀ (b, H, hd, s), v (b, H, s, hd))] fp32,
+    one pair per decoder layer."""
+    hd = d // cfg.heads
+    return [(torch.zeros((b, cfg.heads, hd, s), device=device),
+             torch.zeros((b, cfg.heads, s, hd), device=device)) for _ in range(cfg.decoder_layers)]
 
 
-def _step_layers(params, cfg, x, pos: int, self_k, self_v, xkv, dtype, beam: int = 1):
-    """One token (x: (rows, 1, d) fp32) through all decoder layers; writes
-    the new K/V at `pos` of the caches self_k/self_v ((L, rows, H, max_len,
-    hd), in place).
+def _cross_kv(params: Dict, enc_out: torch.Tensor, heads: int, dtype,
+              out: List[Tuple[torch.Tensor, torch.Tensor]]) -> List[Tuple[torch.Tensor, torch.Tensor]]:
+    """Cross-attention K/V once per layer, written into `out`
+    (`_cross_kv_buffers`'): the fp32 upcast of the `dtype` projections,
+    contiguous, in the layouts every step's fp32 products take them.
+    Returns `out`."""
+    for li, pb in enumerate(params["decoder"]["blocks"]):
+        k, v = (_proj_heads(pb["cross_attn"][name], enc_out, heads, dtype).to(dtype)
+                for name in ("k_proj", "v_proj"))
+        out[li][0].copy_(k.transpose(-1, -2))
+        out[li][1].copy_(v)
+    return out
+
+
+def _step_layers(params, cfg, x, pos: torch.Tensor, self_k, self_v, xkv, dtype, beam: int = 1):
+    """One token (x: (rows, 1, d) fp32) at position `pos` (a 0-d int64
+    tensor on x's device) through all decoder layers; writes the new K/V at
+    `pos` of the caches self_k/self_v ((L, rows, H, max_len, hd), in
+    place). The host never reads `pos`, so one CUDA graph of a step serves
+    every position.
 
     `beam` > 1 declares that rows = B·beam hypothesis rows whose cross K/V
-    are per chunk (each (B, H, S, hd), not beam-repeated): the cross
+    are per chunk (`_cross_kv`'s, not beam-repeated): the cross
     attention groups a chunk's beam queries against the chunk's single K/V."""
     d = x.shape[-1]
     heads, hd = cfg.heads, d // cfg.heads
     scale = 1.0 / math.sqrt(hd)
     max_len = self_k.shape[3]
+    at = pos.reshape(1)
     key_mask = (torch.arange(max_len, device=x.device) <= pos)[None, None, None, :]
     h = x
     for li, pb in enumerate(params["decoder"]["blocks"]):
         hn = L.layer_norm(pb["self_ln"], h, cfg.eps)
         q = _proj_heads(pb["self_attn"]["q_proj"], hn, heads, dtype)
-        self_k[li, :, :, pos] = _proj_heads(pb["self_attn"]["k_proj"], hn, heads, dtype)[:, :, 0]
-        self_v[li, :, :, pos] = _proj_heads(pb["self_attn"]["v_proj"], hn, heads, dtype)[:, :, 0]
+        self_k[li].index_copy_(2, at, _proj_heads(pb["self_attn"]["k_proj"], hn, heads, dtype).to(dtype))
+        self_v[li].index_copy_(2, at, _proj_heads(pb["self_attn"]["v_proj"], hn, heads, dtype).to(dtype))
         logits = torch.matmul(q.to(dtype).float(), self_k[li].float().transpose(-1, -2)) * scale
         logits = logits.masked_fill(~key_mask, float("-inf"))
         w = torch.softmax(logits, dim=-1)
         attn = torch.matmul(w.to(dtype).float(), self_v[li].float())
         attn = attn.transpose(1, 2).reshape(h.shape[0], 1, d)
         h = h + L.linear(pb["self_attn"]["out_proj"], attn, dtype)
-        # cross-attention against the precomputed encoder K/V, beam-grouped
-        xk, xv = xkv[li]
+        # cross-attention against the precomputed fp32 encoder K/V, beam-grouped
+        xkt, xv = xkv[li]
         q = _proj_heads(pb["cross_attn"]["q_proj"], L.layer_norm(pb["cross_ln"], h, cfg.eps), heads, dtype)
         rows = q.shape[0]
         qg = q.reshape(rows // beam, beam, heads, 1, hd)
-        logits = torch.matmul(qg.to(dtype).float(), xk.float()[:, None].transpose(-1, -2)) * scale
+        logits = torch.matmul(qg.to(dtype).float(), xkt[:, None]) * scale
         w = torch.softmax(logits, dim=-1)
-        attn = torch.matmul(w.to(dtype).float(), xv.float()[:, None])
+        attn = torch.matmul(w.to(dtype).float(), xv[:, None])
         attn = attn.reshape(rows, heads, 1, hd).transpose(1, 2).reshape(rows, 1, d)
         h = h + L.linear(pb["cross_attn"]["out_proj"], attn, dtype)
         h = h + L.mlp(pb["mlp"], L.layer_norm(pb["final_ln"], h, cfg.eps), dtype=dtype)
     return h
 
 
-def _embed_at(p, tokens, pos: int) -> torch.Tensor:
-    return (p["token_embedding"][tokens[:, pos : pos + 1].long()].float()
-            + p["pos_embed"][pos][None, None].float())
+def _embed_at(p, tokens, pos: torch.Tensor) -> torch.Tensor:
+    at = pos.reshape(1)
+    return (p["token_embedding"][tokens.index_select(1, at).long()].float()
+            + p["pos_embed"].index_select(0, at)[None].float())
 
 
-def _next_logits(params, cfg, tokens, pos: int, self_k, self_v, xkv, dtype, beam: int = 1):
+def _next_logits(params, cfg, tokens, pos: torch.Tensor, self_k, self_v, xkv, dtype, beam: int = 1):
     """Process the token at `pos` and return vocab logits for position pos+1."""
     p = params["decoder"]
     x = _step_layers(params, cfg, _embed_at(p, tokens, pos), pos, self_k, self_v, xkv, dtype, beam)
@@ -310,63 +335,197 @@ def _caches(cfg: WhisperConfig, rows: int, d: int, max_len: int, dtype, device):
     return torch.zeros(shape, dtype=dtype, device=device), torch.zeros(shape, dtype=dtype, device=device)
 
 
+def _prefill(params, cfg, tokens, plen: int, pos, self_k, self_v, xkv, dtype, beam: int = 1) -> None:
+    """Run the prompt's first plen - 1 tokens through the caches, one at a
+    time, from pos 0 on; leaves pos at the prompt's last token."""
+    pos.zero_()
+    for _ in range(plen - 1):
+        _step_layers(params, cfg, _embed_at(params["decoder"], tokens, pos), pos, self_k, self_v, xkv,
+                     dtype, beam)
+        pos += 1
+
+
 class _GreedyShard:
-    """One shard's greedy decode state: enc_out (B, S, d) on its device, the
-    prompt prefilled. `step(pos)` writes the token at `pos`."""
+    """One shard's greedy decode state on its device, for (B, S, d) encoder
+    outputs: the fp32 cross K/V, the self K/V caches, the tokens, which rows
+    have finished, their lengths and whether all have (`done`), and `pos`,
+    the position of the token the next step reads (a 0-d int64 tensor).
+    `start` fills it for one chunk batch and prefills the prompt; `step`
+    changes it in place only, so a CUDA graph of one step replays every
+    position over the same buffers."""
 
-    def __init__(self, params, enc_out, prompt, cfg: WhisperConfig, max_len: int, dtype):
-        self.params, self.cfg, self.dtype = params, cfg, dtype
-        p = params["decoder"]
-        b, _, d = enc_out.shape
-        dev = enc_out.device
+    def __init__(self, params, cfg: WhisperConfig, enc_shape, max_len: int, dtype, device):
+        self.params, self.cfg, self.max_len, self.dtype = params, cfg, max_len, dtype
+        b, s, d = enc_shape
+        self.xkv = _cross_kv_buffers(cfg, b, s, d, device)
+        self.tokens = torch.zeros((b, max_len), dtype=torch.int32, device=device)
+        self.self_k, self.self_v = _caches(cfg, b, d, max_len, dtype, device)
+        self.finished = torch.zeros((b,), dtype=torch.bool, device=device)
+        self.lengths = torch.full((b,), max_len, dtype=torch.int32, device=device)
+        self.done = torch.zeros((), dtype=torch.bool, device=device)  # every row finished
+        self.pos = torch.zeros((), dtype=torch.int64, device=device)
+
+    def start(self, enc_out: torch.Tensor, prompt: torch.Tensor) -> None:
         plen = prompt.shape[1]
-        self.xkv = _cross_kv(params, enc_out, cfg.heads, dtype)
-        self.tokens = torch.zeros((b, max_len), dtype=torch.int32, device=dev)
-        self.tokens[:, :plen] = prompt.to(device=dev, dtype=torch.int32)
-        self.self_k, self.self_v = _caches(cfg, b, d, max_len, dtype, dev)
-        self.finished = torch.zeros((b,), dtype=torch.bool, device=dev)
-        self.lengths = torch.full((b,), max_len, dtype=torch.int32, device=dev)
-        for i in range(plen - 1):  # prefill the prompt token by token
-            _step_layers(params, cfg, _embed_at(p, self.tokens, i), i, self.self_k, self.self_v,
-                         self.xkv, dtype)
+        _cross_kv(self.params, enc_out, self.cfg.heads, self.dtype, self.xkv)
+        self.tokens.zero_()
+        self.tokens[:, :plen] = prompt.to(device=self.tokens.device, dtype=torch.int32)
+        self.self_k.zero_()
+        self.self_v.zero_()
+        self.finished.zero_()
+        self.done.zero_()
+        self.lengths.fill_(self.max_len)
+        _prefill(self.params, self.cfg, self.tokens, plen, self.pos, self.self_k, self.self_v, self.xkv,
+                 self.dtype)
 
-    def step(self, pos: int) -> None:
+    def step(self) -> torch.Tensor:
+        """Write the token at pos + 1 and advance pos; returns the logits
+        the token was chosen from."""
         cfg = self.cfg
-        logits = _next_logits(self.params, cfg, self.tokens, pos - 1, self.self_k, self.self_v,
+        logits = _next_logits(self.params, cfg, self.tokens, self.pos, self.self_k, self.self_v,
                               self.xkv, self.dtype)
         nxt = torch.argmax(logits, dim=-1).to(torch.int32)
         nxt = torch.where(self.finished, cfg.eot_token, nxt)
-        self.tokens[:, pos] = nxt
+        self.pos += 1
+        self.tokens.index_copy_(1, self.pos.reshape(1), nxt[:, None])
         now_done = nxt == cfg.eot_token
-        self.lengths = torch.where(now_done & ~self.finished, pos, self.lengths)
-        self.finished = self.finished | now_done
+        self.lengths.copy_(torch.where(now_done & ~self.finished, self.pos.to(torch.int32), self.lengths))
+        self.finished |= now_done
+        torch.all(self.finished, out=self.done)
+        return logits
+
+
+class _StepGraph:
+    """One shard's greedy decode over a `_GreedyShard` whose buffers are
+    kept across decodes. On CUDA `step` replays a CUDA graph of
+    `_GreedyShard.step()`, its buffers the graph's static inputs and
+    outputs; elsewhere it steps eagerly. `start` refills the buffers for
+    each chunk batch. The graph is captured at the first start, after one
+    warm-up step on a side stream (torch's lazy set-up: cuBLAS handles and
+    workspaces), in thread-local mode, since the vision stream and JPEG
+    threads launch work on the device meanwhile. It holds the addresses of
+    the decoder weights, which `weights` names. `logits` are the last
+    step's."""
+
+    def __init__(self, params, cfg: WhisperConfig, enc_shape, max_len: int, dtype, device, weights):
+        self.state = _GreedyShard(params, cfg, enc_shape, max_len, dtype, device)
+        self.done = self.state.done
+        self.device, self.weights = device, weights
+        self.lock = threading.Lock()
+        self.graph = self.logits = None
+        self._released = None  # event after the last work on the buffers
+
+    @contextlib.contextmanager
+    def held(self):
+        """The buffers for one decode: under the lock, and on CUDA with the
+        current stream ordered after the previous holder's work."""
+        with self.lock:
+            if self.device.type != "cuda":
+                yield self
+                return
+            stream = torch.cuda.current_stream(self.device)
+            if self._released is not None:
+                stream.wait_event(self._released)
+            try:
+                yield self
+            finally:
+                self._released = torch.cuda.Event()
+                self._released.record(stream)
+
+    def _capture(self) -> None:
+        with torch.cuda.device(self.device):
+            side = torch.cuda.Stream()
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):
+                self.state.step()
+            torch.cuda.current_stream().wait_stream(side)
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph, stream=side, capture_error_mode="thread_local"):
+                self.logits = self.state.step()
+        self.graph = graph
+        tracing.count("asr.graph_captures", 1)
+
+    def start(self, enc_out: torch.Tensor, prompt: torch.Tensor) -> None:
+        if self.device.type == "cuda" and self.graph is None:
+            self._capture()
+        self.state.start(enc_out, prompt)  # undoes the warm-up step
+
+    def step(self) -> None:
+        if self.graph is None:
+            self.logits = self.state.step()
+        else:
+            self.graph.replay()
+
+
+class DecodeGraphs:
+    """The greedy decode's buffers and, on CUDA, its step's graphs, kept
+    across decodes: one `_StepGraph` per (shard, device, rows, source
+    length, max_len, dtype), rebuilt when the decoder's weights are others
+    than those it was built with. Each entry holds its buffers (the fp32
+    cross K/V, the self K/V caches) and graph pool until it is rebuilt or
+    this object is dropped. A decode holds each of its entries for its
+    whole loop, so two threads never step one set of buffers at once."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._graphs: Dict[tuple, _StepGraph] = {}
+
+    def get(self, shard: int, params, cfg: WhisperConfig, enc_out: torch.Tensor, max_len: int,
+            dtype) -> _StepGraph:
+        key = (shard, enc_out.device, *enc_out.shape[:2], max_len, dtype)
+        weights = tuple(t.data_ptr() for _, t in pmesh.tree_leaves(params["decoder"]))
+        with self._lock:
+            g = self._graphs.get(key)
+            if g is None or g.weights != weights:
+                g = self._graphs[key] = _StepGraph(params, cfg, enc_out.shape, max_len, dtype,
+                                                   enc_out.device, weights)
+            return g
+
+    @torch.no_grad()
+    def decode(self, shards: Sequence[Tuple[Dict, torch.Tensor, torch.Tensor]], cfg: WhisperConfig,
+               max_len: int = 224, dtype=torch.bfloat16) -> List[Tuple[torch.Tensor, torch.Tensor]]:
+        """`greedy_decode_shards` over this object's entries. A loop that
+        replayed graphs counts its positions once as `asr.graph_steps`."""
+        plen = shards[0][2].shape[1]
+        steps = [self.get(i, p, cfg, e, max_len, dtype) for i, (p, e, _) in enumerate(shards)]
+        with contextlib.ExitStack() as held:
+            for g, (_, e, pr) in zip(steps, shards):
+                held.enter_context(g.held())
+                g.start(e, pr)
+            stepped = _lockstep(steps, plen, max_len)
+            if steps[0].graph is not None:
+                tracing.count("asr.graph_steps", stepped)
+            # the buffers are the entries': the caller gets copies
+            return [(g.state.tokens.clone(), g.state.lengths.clone()) for g in steps]
 
 
 def _all_finished(shards) -> bool:
-    """Every row of every shard finished: one device→host read for all
-    shards, on the first shard's device."""
-    home = shards[0].finished.device
-    done = [s.finished.all().to(home) for s in shards]
-    flag = done[0] if len(done) == 1 else torch.stack(done).all()
+    """Every row of every shard finished (each shard's step leaves `done`):
+    one device→host read for all shards, on the first shard's device."""
+    home = shards[0].done.device
+    flag = shards[0].done if len(shards) == 1 else torch.stack([s.done.to(home) for s in shards]).all()
     with tracing.span("asr.read_wait"):
         return bool(flag)
 
 
-def _lockstep(shards, plen: int, max_len: int) -> None:
+def _lockstep(shards, plen: int, max_len: int) -> int:
     """Step every shard at each position, then read once whether all have
     finished: the exit rule of one decode loop over the whole sharded batch
     (a shard that finished early keeps emitting <|endoftext|>). Each
-    position is an `asr.decode_step` span, its read an `asr.read_wait`."""
-    for pos in range(plen, max_len):
+    position is an `asr.decode_step` span, its read an `asr.read_wait`.
+    Returns the number of positions stepped."""
+    stepped = 0
+    for _ in range(plen, max_len):
         with tracing.span("asr.decode_step"):
             for s in shards:
-                s.step(pos)
+                s.step()
             finished = _all_finished(shards)
+        stepped += 1
         if finished:
             break
+    return stepped
 
 
-@torch.no_grad()
 def greedy_decode_shards(
     shards: Sequence[Tuple[Dict, torch.Tensor, torch.Tensor]],
     cfg: WhisperConfig,
@@ -376,10 +535,14 @@ def greedy_decode_shards(
     """Greedy decode of several shards in lockstep: `shards` holds (params,
     enc_out, prompt) on each shard's device. Returns each shard's (tokens,
     lengths) as greedy_decode does, the loop exiting once every row of
-    every shard has emitted <|endoftext|>."""
-    states = [_GreedyShard(p, e, pr, cfg, max_len, dtype) for p, e, pr in shards]
-    _lockstep(states, shards[0][2].shape[1], max_len)
-    return [(s.tokens, s.lengths) for s in states]
+    every shard has emitted <|endoftext|>.
+
+    On CUDA every position replays each shard's CUDA graph of the step,
+    captured for this call alone (a synchronise, a warm-up step and a
+    capture); a caller that decodes repeatedly keeps a `DecodeGraphs` and
+    calls its `decode`, as the transcriber does. Elsewhere the steps run
+    eagerly."""
+    return DecodeGraphs().decode(shards, cfg, max_len, dtype)
 
 
 def greedy_decode(
@@ -398,19 +561,22 @@ def greedy_decode(
 
 class _BeamShard:
     """One shard's beam search state: B chunks × `beam` hypotheses on the
-    batch axis of the cached step."""
+    batch axis of the cached step. It runs eagerly on every device: each
+    step gathers the caches by hypothesis into new tensors, which a graph
+    over fixed buffers cannot take."""
 
     def __init__(self, params, enc_out, prompt, cfg: WhisperConfig, max_len: int, beam: int, dtype):
         self.params, self.cfg, self.beam, self.dtype = params, cfg, beam, dtype
         p = params["decoder"]
-        bsz, _, d = enc_out.shape
+        bsz, src_len, d = enc_out.shape
         dev = enc_out.device
         self.plen = plen = prompt.shape[1]
         self.bsz, self.rows = bsz, bsz * beam
         neg = -1e30
         self.vocab = p["token_embedding"].shape[0]
 
-        self.xkv = _cross_kv(params, enc_out, cfg.heads, dtype)  # per chunk, not beam-repeated
+        # per chunk, not beam-repeated
+        self.xkv = _cross_kv(params, enc_out, cfg.heads, dtype, _cross_kv_buffers(cfg, bsz, src_len, d, dev))
         self.tokens = torch.zeros((self.rows, max_len), dtype=torch.int32, device=dev)
         self.tokens[:, :plen] = prompt.to(device=dev, dtype=torch.int32).repeat_interleave(beam, dim=0)
         self.self_k, self.self_v = _caches(cfg, self.rows, d, max_len, dtype, dev)
@@ -421,17 +587,16 @@ class _BeamShard:
         self.finished = torch.zeros((self.rows,), dtype=torch.bool, device=dev)
         self.lengths = torch.full((self.rows,), max_len, dtype=torch.int32, device=dev)
 
-        for i in range(plen - 1):
-            _step_layers(params, cfg, _embed_at(p, self.tokens, i), i, self.self_k, self.self_v,
-                         self.xkv, dtype, beam)
+        self.pos = torch.zeros((), dtype=torch.int64, device=dev)
+        _prefill(params, cfg, self.tokens, plen, self.pos, self.self_k, self.self_v, self.xkv, dtype, beam)
 
         self.row_base = (torch.arange(bsz, device=dev) * beam)[:, None]
         self.frozen = torch.full((self.vocab,), neg, device=dev)
         self.frozen[cfg.eot_token] = 0.0
 
-    def step(self, pos: int) -> None:
+    def step(self) -> None:
         cfg, beam, vocab = self.cfg, self.beam, self.vocab
-        logits = _next_logits(self.params, cfg, self.tokens, pos - 1, self.self_k, self.self_v,
+        logits = _next_logits(self.params, cfg, self.tokens, self.pos, self.self_k, self.self_v,
                               self.xkv, self.dtype, beam)
         logprobs = torch.log_softmax(logits, dim=-1)
         logprobs = torch.where(self.finished[:, None], self.frozen[None], logprobs)
@@ -448,11 +613,13 @@ class _BeamShard:
         lengths = self.lengths[src]
         was_done = self.finished[src]
         tok = torch.where(was_done, cfg.eot_token, tok)
-        self.tokens[:, pos] = tok
+        self.pos += 1
+        self.tokens.index_copy_(1, self.pos.reshape(1), tok[:, None])
         now_done = tok == cfg.eot_token
-        self.lengths = torch.where(now_done & ~was_done, pos, lengths)
+        self.lengths = torch.where(now_done & ~was_done, self.pos.to(torch.int32), lengths)
         self.scores = top_s
         self.finished = was_done | now_done
+        self.done = self.finished.all()
 
     def result(self) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         bsz, beam = self.bsz, self.beam

@@ -7,6 +7,9 @@ beam decode, and timestamp tokens give sub-chunk segment times when present.
 `transcribe_many_async` queues every batch's mel and encoder work on the
 device at once and returns a finisher that decodes and parses; the decode
 loops read one flag per token to stop early, so they run in the finisher.
+The greedy decode runs through the transcriber's model.DecodeGraphs, which
+keeps one set of decode buffers per bucket shape across calls and, on CUDA,
+a CUDA graph of the step that each position replays.
 
 With a `mesh` (parallel/mesh.py) the weights are copied to each device of
 the batch shards and a chunk batch that divides by data_axis_size splits
@@ -27,6 +30,7 @@ import torch
 
 # greedy_decode and beam_decode_batch are importable from here, as from the JAX module
 from hippomm_tpu_torch.models.whisper.model import (  # noqa: F401
+    DecodeGraphs,
     WhisperConfig,
     beam_decode_batch,
     beam_decode_shards,
@@ -84,6 +88,7 @@ class WhisperTranscriber:
         self._mels = {dev: WhisperMel(n_mels=cfg.n_mels, device=dev) for dev in self._replicas}
         self.mel = self._mels[self.device]
         self._chunk_samples = int(CHUNK_SECONDS * SAMPLE_RATE)
+        self._graphs = DecodeGraphs()  # the greedy decode's buffers and CUDA graphs, kept across calls
 
     def _shard_chunks(self, stacked: np.ndarray) -> List[torch.Tensor]:
         """The chunk batch as one slab per batch shard on its device, or
@@ -251,4 +256,4 @@ class WhisperTranscriber:
             out = beam_decode_shards(shards, self.cfg, max_len=max_len, beam=self.beam_size,
                                      dtype=self.dtype)
             return [(t[:, 0], ln[:, 0]) for t, ln, _ in out]  # best hypothesis
-        return greedy_decode_shards(shards, self.cfg, max_len=max_len, dtype=self.dtype)
+        return self._graphs.decode(shards, self.cfg, max_len=max_len, dtype=self.dtype)

@@ -1113,3 +1113,183 @@ def test_lockstep_greedy_decode_equals_each_shards_decode_on_cuda(cuda_device):
         for j in range(tok.shape[0]):
             end = min(int(ln[j]) + 1, ml)
             assert torch.equal(tok[j, :end], tok1[j, :end])
+
+
+def _whisper_decode_case(device, rows, seed=0, forced_at=60):
+    """distil-large-v3's decoder at its widths with random weights, `rows`
+    chunks of random encoder output and the transcriber's prompt; the
+    position embedding at `forced_at` pushed along <|endoftext|>'s
+    embedding, so every row ends there and the loop exits early (random
+    weights never end a transcript)."""
+    from hippomm_tpu_torch.models.whisper import model as twm
+
+    cfg = twm.distil_large_v3_config()
+    params = twm.init_whisper(cfg, device, torch.bfloat16, seed=seed)
+    dec = params["decoder"]
+    dec["pos_embed"][forced_at] += 50.0 * dec["token_embedding"][cfg.eot_token]
+    g = torch.Generator(device=device).manual_seed(seed + 1)
+    enc = torch.randn((rows, cfg.max_source_positions, cfg.d_model), generator=g, device=device)
+    prompt = torch.tensor([[cfg.bos_token, cfg.lang_en_token, cfg.task_transcribe_token]] * rows,
+                          dtype=torch.int32, device=device)
+    return cfg, params, enc, prompt
+
+
+def _eager_greedy(params, cfg, enc, prompt, max_len):
+    """The greedy loop stepped eagerly on the card (`_lockstep`'s exit
+    rule): (tokens, lengths, the last step's logits)."""
+    from hippomm_tpu_torch.models.whisper import model as twm
+
+    with torch.no_grad():
+        st = twm._GreedyShard(params, cfg, enc.shape, max_len, torch.bfloat16, enc.device)
+        st.start(enc, prompt)
+        for _ in range(prompt.shape[1], max_len):
+            logits = st.step()
+            if bool(st.finished.all()):
+                break
+    return st.tokens, st.lengths, logits
+
+
+def _graph_counts():
+    from hippomm_tpu_torch.utils import timers
+
+    out = {}
+    for r in list(timers.RING):
+        if r.name in ("asr.graph_captures", "asr.graph_steps"):
+            out[r.name] = out.get(r.name, 0) + r.n
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [4, 16])
+def test_whisper_graph_decode_equals_the_eager_loop_on_cuda(cuda_device, rows):
+    """The greedy decode replaying one CUDA graph a position gives the eager
+    loop's tokens and lengths, the early exit included, and its last
+    step's logits to 1e-5 of their largest; a second decode of the same
+    bucket replays the same graph without a capture; each loop counts its
+    positions once as graph steps."""
+    from hippomm_tpu_torch.models.whisper import model as twm
+
+    cfg, params, enc, prompt = _whisper_decode_case(cuda_device, rows, seed=rows)
+    tok_e, len_e, logits_e = _eager_greedy(params, cfg, enc, prompt, 224)
+    assert (len_e == 61).all()  # the forced exit, well before 224
+    graphs = twm.DecodeGraphs()
+    before = _graph_counts()
+    for k in range(2):
+        tok, ln = graphs.decode([(params, enc, prompt)], cfg, 224)[0]
+        assert torch.equal(tok, tok_e) and torch.equal(ln, len_e)
+        assert (tok[:, 62:] == 0).all()
+    after = _graph_counts()
+    assert after.get("asr.graph_captures", 0) - before.get("asr.graph_captures", 0) == 1
+    assert after["asr.graph_steps"] - before.get("asr.graph_steps", 0) == 2 * (61 - 2)
+    logits = graphs.get(0, params, cfg, enc, 224, torch.bfloat16).logits
+    assert (logits - logits_e).abs().max().item() <= 1e-5 * logits_e.abs().max().item()
+
+
+@pytest.mark.cuda
+def test_whisper_graph_decode_from_two_threads_on_cuda(cuda_device):
+    """Two threads decoding buckets of one shape on one transcriber share
+    its graph under its lock, and each gets what it gets alone."""
+    import threading
+
+    from hippomm_tpu_torch.models.whisper.transcribe import WhisperTranscriber
+
+    cfg, params, enc, prompt = _whisper_decode_case(cuda_device, 8, seed=3)
+    tr = WhisperTranscriber(params, cfg, None, torch.bfloat16, beam_size=1)
+    halves = [[(params, enc[:4], prompt[:4])], [(params, enc[4:], prompt[4:])]]
+    with torch.no_grad():
+        alone = [tr._decode(h, 224)[0] for h in halves]
+    got = [[], []]
+    errors = []
+
+    def run(i):
+        try:
+            with torch.no_grad():
+                for _ in range(3):
+                    got[i].append(tr._decode(halves[i], 224)[0])
+        except Exception as e:  # reported below
+            errors.append(e)
+
+    threads = [threading.Thread(target=run, args=(i,)) for i in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=300)
+    assert not errors and not any(t.is_alive() for t in threads)
+    torch.cuda.synchronize()
+    for i in range(2):
+        assert len(got[i]) == 3
+        for tok, ln in got[i]:
+            assert torch.equal(tok, alone[i][0]) and torch.equal(ln, alone[i][1])
+    assert len(tr._graphs._graphs) == 1
+
+
+@pytest.mark.cuda
+def test_whisper_graph_capture_while_another_thread_launches_on_cuda(cuda_device):
+    """A capture taken while another thread launches products, allocates
+    new memory and reads results back through its stream succeeds
+    (thread-local capture), and the decode equals the eager loop. (No
+    thread may synchronise the whole device while one of its streams
+    captures; the port's threads wait on their own streams.)"""
+    import threading
+
+    from hippomm_tpu_torch.models.whisper import model as twm
+
+    cfg, params, enc, prompt = _whisper_decode_case(cuda_device, 4, seed=7)
+    tok_e, len_e, _ = _eager_greedy(params, cfg, enc, prompt, 224)
+    stop = threading.Event()
+    launched = [0]
+
+    def busy():
+        x = torch.randn((1024, 1024), device=cuda_device)
+        n = 1 << 20
+        while not stop.is_set():
+            y = x @ x
+            z = torch.empty((n,), device=cuda_device)  # a new size: the allocator grows
+            n += 4096
+            y[0, 0].item()
+            del y, z
+            launched[0] += 1
+
+    t = threading.Thread(target=busy)
+    t.start()
+    try:
+        before = _graph_counts().get("asr.graph_captures", 0)
+        tok, ln = twm.greedy_decode_shards([(params, enc, prompt)], cfg, 224)[0]
+    finally:
+        stop.set()
+        t.join(timeout=60)
+    assert not t.is_alive() and launched[0] > 0
+    assert _graph_counts().get("asr.graph_captures", 0) == before + 1
+    assert torch.equal(tok, tok_e) and torch.equal(ln, len_e)
+
+
+@pytest.mark.cuda
+def test_whisper_graph_rebuilt_after_a_parameter_swap_on_cuda(cuda_device):
+    """New decoder weights (a transcriber's params replaced) rebuild the
+    bucket's graph: a second capture, and the tokens of the new weights."""
+    from hippomm_tpu_torch.models.whisper import model as twm
+
+    cfg, params, enc, prompt = _whisper_decode_case(cuda_device, 4, seed=9, forced_at=60)
+    _, swapped, _, _ = _whisper_decode_case(cuda_device, 4, seed=9, forced_at=30)
+    graphs = twm.DecodeGraphs()
+    before = _graph_counts().get("asr.graph_captures", 0)
+    first = graphs.decode([(params, enc, prompt)], cfg, 224)[0]
+    second = graphs.decode([(swapped, enc, prompt)], cfg, 224)[0]
+    assert _graph_counts().get("asr.graph_captures", 0) == before + 2
+    assert (first[1] == 61).all() and (second[1] == 31).all()
+    tok_e, len_e, _ = _eager_greedy(swapped, cfg, enc, prompt, 224)
+    assert torch.equal(second[0], tok_e) and torch.equal(second[1], len_e)
+
+
+@pytest.mark.cuda
+def test_whisper_beam_decode_stays_eager_on_cuda(cuda_device):
+    """Beam search on the card steps eagerly (its caches are gathered anew
+    each position): no graph is captured or replayed, and the forced exit
+    holds for every hypothesis."""
+    from hippomm_tpu_torch.models.whisper import model as twm
+
+    cfg, params, enc, prompt = _whisper_decode_case(cuda_device, 4, seed=11, forced_at=20)
+    before = _graph_counts()
+    _, lengths, _ = twm.beam_decode_batch(params, enc, prompt, cfg, 224, beam=2)
+    assert _graph_counts() == before
+    assert (lengths == 21).all()

@@ -4,6 +4,8 @@ transcriber, the checkpoint converter and the `Whisper` wrapper. Tiny
 config, fp32, the same weights on both sides (JAX init carried across with
 carry.params_from_jax)."""
 
+import time
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -19,6 +21,7 @@ from hippomm_tpu_torch.models.whisper import model as twm
 from hippomm_tpu_torch.models.whisper.carry import params_from_jax
 from hippomm_tpu_torch.models.whisper.transcribe import WhisperTranscriber as TTranscriber
 from hippomm_tpu_torch.ops.mel import WhisperMel as TMel
+from hippomm_tpu_torch.utils import timers
 from torch_parity import assert_close
 
 CFG = jwm.tiny_config()
@@ -47,6 +50,45 @@ def whisper_trees(seed: int = 0):
 @pytest.fixture(scope="module")
 def trees():
     return whisper_trees()
+
+
+#: the position whose token every row still running is forced to follow
+#: with <|endoftext|> in the forced_eot case
+FORCED_AT = 15
+
+
+@pytest.fixture(scope="module")
+def forced_trees(trees):
+    """The trees with the position embedding at FORCED_AT pushed far along
+    <|endoftext|>'s embedding: every row still running emits it next."""
+    jtree = jax.tree.map(np.copy, trees[0])
+    dec = jtree["decoder"]
+    dec["pos_embed"][FORCED_AT] += 20.0 * dec["token_embedding"][CFG.eot_token]
+    return jtree, params_from_jax(jtree, CFG, "cpu", torch.float32)
+
+
+def _case(case, trees, enc_pair, forced_trees):
+    """(JAX tree, params, JAX encoder output, the port's) of a decode case:
+    `lean` as built; `forced_eot` with the forced trees and chunk 1's
+    encoder output zeroed (a silent chunk), which ends that row early."""
+    if case == "lean":
+        return (*trees, *enc_pair)
+    want_enc, got_enc = np.array(enc_pair[0]), enc_pair[1].clone()
+    want_enc[1] = 0.0
+    got_enc[1] = 0.0
+    return (*forced_trees, want_enc, got_enc)
+
+
+def _assert_forced(tokens, lengths):
+    """Chunk 1 ended before FORCED_AT, every other row right after it; the
+    loop exited there: rows finished earlier hold <|endoftext|> up to the
+    exit and every token past it is still zero."""
+    tokens = tokens.reshape(-1, tokens.shape[-1])
+    lengths = lengths.reshape(-1)
+    end = FORCED_AT + 1
+    assert int(lengths.max()) == end and int(lengths.min()) < FORCED_AT
+    for row, n in zip(tokens, lengths):
+        assert (row[n : end + 1] == CFG.eot_token).all() and (row[end + 1 :] == 0).all()
 
 
 @pytest.fixture(scope="module")
@@ -97,9 +139,9 @@ def test_decoder_forward_matches_jax(request, trees, enc_pair):
     assert_close(request, got.numpy(), want, 1e-5)
 
 
-def test_greedy_decode_matches_jax(trees, enc_pair):
-    jtree, tparams = trees
-    want_enc, got_enc = enc_pair
+@pytest.mark.parametrize("case", ["lean", "forced_eot"])
+def test_greedy_decode_matches_jax(trees, enc_pair, forced_trees, case):
+    jtree, tparams, want_enc, got_enc = _case(case, trees, enc_pair, forced_trees)
     want_t, want_l = jwm.greedy_decode(jtree, jnp.asarray(want_enc), jnp.asarray(_prompt(3)), CFG,
                                        max_len=CFG.max_target_positions, dtype=jnp.float32)
     got_t, got_l = twm.greedy_decode(tparams, got_enc, torch.from_numpy(_prompt(3)), CFG,
@@ -110,12 +152,34 @@ def test_greedy_decode_matches_jax(trees, enc_pair):
     # the rows stop at different steps and before max_len: the early exit
     # and the finished-row EOT fill are both exercised
     assert len(set(np.asarray(want_l).tolist())) > 1 and np.asarray(want_l).max() < CFG.max_target_positions
+    if case == "forced_eot":
+        _assert_forced(got_t.numpy(), got_l.numpy())
 
 
-@pytest.mark.parametrize("beam", [1, 3])
-def test_beam_decode_batch_matches_jax(request, trees, enc_pair, beam):
-    jtree, tparams = trees
-    want_enc, got_enc = enc_pair
+def test_kept_decode_buffers_reused_on_cpu(trees, enc_pair, forced_trees):
+    """A DecodeGraphs kept across decodes holds one entry per bucket shape,
+    steps eagerly on the CPU (no graph captured or counted), gives every
+    decode what a fresh greedy_decode gives, and rebuilds its entry for
+    other weights."""
+    _, tparams = trees
+    got_enc, prompt = enc_pair[1], torch.from_numpy(_prompt(3))
+    ml = CFG.max_target_positions
+    graphs = twm.DecodeGraphs()
+    t0 = time.perf_counter_ns()
+    for params in (tparams, tparams, forced_trees[1]):
+        want_t, want_l = twm.greedy_decode(params, got_enc, prompt, CFG, max_len=ml, dtype=torch.float32)
+        got_t, got_l = graphs.decode([(params, got_enc, prompt)], CFG, max_len=ml, dtype=torch.float32)[0]
+        assert torch.equal(got_t, want_t) and torch.equal(got_l, want_l)
+        (entry,) = graphs._graphs.values()
+        assert entry.graph is None and entry.state.params is params
+    names = {r.name for r in list(timers.RING) if r.start_ns >= t0}
+    assert "asr.decode_step" in names and not names & {"asr.graph_steps", "asr.graph_captures"}
+
+
+@pytest.mark.parametrize("beam,case", [(1, "lean"), (3, "lean"), (1, "forced_eot"), (3, "forced_eot")],
+                         ids=["1", "3", "1-forced_eot", "3-forced_eot"])
+def test_beam_decode_batch_matches_jax(request, trees, enc_pair, forced_trees, beam, case):
+    jtree, tparams, want_enc, got_enc = _case(case, trees, enc_pair, forced_trees)
     want = jwm.beam_decode_batch(jtree, jnp.asarray(want_enc), jnp.asarray(_prompt(3)), CFG,
                                  max_len=CFG.max_target_positions, beam=beam, dtype=jnp.float32)
     got = twm.beam_decode_batch(tparams, got_enc, torch.from_numpy(_prompt(3)), CFG,
@@ -123,6 +187,8 @@ def test_beam_decode_batch_matches_jax(request, trees, enc_pair, beam):
     np.testing.assert_array_equal(got[0].numpy(), np.asarray(want[0]))
     np.testing.assert_array_equal(got[1].numpy(), np.asarray(want[1]))
     assert_close(request, got[2].numpy(), np.asarray(want[2]), 1e-4, "max_abs_err_scores")
+    if case == "forced_eot":
+        _assert_forced(got[0].numpy(), got[1].numpy())
     # one chunk alone decodes as in the batch, up to its EOT (the batch
     # keeps filling EOT until every chunk has finished)
     tok1, len1, _ = twm.beam_decode(tparams, got_enc[:1], torch.from_numpy(_prompt(1)), CFG,
@@ -142,7 +208,11 @@ def test_transcribe_many_matches_jax(trees, beam_size):
                             beam_size=beam_size),
                TTranscriber(tparams, CFG, IdTokenizer(), torch.float32, beam_size=beam_size)):
         tr._chunk_samples = 2 * 16000  # the tiny config covers 2 s per window
+        t0 = time.perf_counter_ns()
         out.append(tr.transcribe_many(clips, max_new_tokens=12))
+    # the CPU steps eagerly, greedy or beam: decode steps, and no graph's
+    names = {r.name for r in list(timers.RING) if r.start_ns >= t0}
+    assert "asr.decode_step" in names and not names & {"asr.graph_steps", "asr.graph_captures"}
     want, got = out
     flat = [(s.start, s.end, s.text) for segs in want for s in segs]
     assert [[(s.start, s.end, s.text) for s in segs] for segs in got] == [
