@@ -202,6 +202,23 @@ Phases (any failure exits non-zero and prints no result line):
      gradients within 1e-3 relative L2, launches K1 and K2 32 each without
      remat and 64 with it (the recompute's forward counted);
      max_memory_allocated of each with the card's name and power limit
+ 16. vlm    — (runs after phase 15, whose state it frees first) Kimi-VL-A3B-
+     Instruct, the in-process captioner (models/kimi_vl), at full width on
+     random weights from a seed. (a) K2's tanh-GELU instance
+     (hmm_fused_mlp_tanh_bf16) at the ViT chunk the ingest launches
+     (vision_chunk key frames of 640×360: 32 × 1196 rows × 1152 × 4352)
+     against fused_mlp_ref(approximate="tanh") on the same operands, K2's
+     2e-2 of max |out|, and K1 at the chunk's attention shape (32, 16,
+     1196, 1196, 72) against its plain version; ms and share of the bound
+     of each. (b) An engine built with models.vlm_variant
+     "kimi-vl-a3b-instruct" (ImageBind tiny, Whisper stub): its
+     frame_client captions 40 seeded 640×360 JPEG key frames in one call,
+     with exact K1 and K2 launches read from counts set to 0 just before
+     (depth 27 per ViT chunk, ceil(40 / 32) chunks), every decode step a
+     graph replay, 40 captions; its summariser writes one summary of the
+     40 captions with no K1/K2 launch; one frame's image tokens within
+     0.04 relative L2 of the plain fp32 reference's (reference.py, TF32
+     off); seconds of each call, decode ms a step, peak memory
 
 Prints the card's name and power limit, a `{"kernels": [...]}` line (the
 fp32 kernels as entries of their own, `<name>_f32`, with phase 13's
@@ -3288,6 +3305,137 @@ def surface_phase(counters, fa, fm, card, checked):
     return out
 
 
+VLM_SEED = 16
+VLM_FRAMES = 40  # key frames of the caption call: one full ViT chunk and a part of one
+VLM_VISION_GAP = 0.04  # relative L2 of an image-token row from the fp32 reference's (the cell's limit)
+
+
+def vlm_phase(counters, fa, fm, card):
+    """16. Kimi-VL-A3B-Instruct on the card at full width (random weights
+    from a seed): (a) K2's tanh instance and K1 at the ViT chunk's shapes
+    against their plain versions; (b) the engine with models.vlm_variant
+    set captions VLM_FRAMES JPEG key frames in one call and writes one
+    summary through the in-process model: exact K1/K2 launches, graph
+    replays, one frame's image tokens against the fp32 reference."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from hippomm_tpu_torch.config import Config
+    from hippomm_tpu_torch.media.io import jpeg_encode
+    from hippomm_tpu_torch.memory.engine import CAPTION_PROMPT, HippocampalMemory
+    from hippomm_tpu_torch.models.kimi_vl import reference as kref
+    from hippomm_tpu_torch.models.kimi_vl.config import get_config
+    from hippomm_tpu_torch.models.kimi_vl.model import hf_config
+    from hippomm_tpu_torch.utils import timers as tracing
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    started = time.perf_counter()
+    out = {"card": card}
+    kc = get_config("kimi-vl-a3b-instruct")
+    v = kc.vision
+    n_patch = (364 // v.patch) * (644 // v.patch)  # a 640x360 frame padded to a multiple of 28 px
+    gen = torch.Generator(device="cuda").manual_seed(VLM_SEED)
+
+    # (a) the kernels at the ViT chunk the cell launches
+    fpad = -(-v.mlp // 128) * 128
+    shape = (kc.vision_chunk * n_patch, v.width, fpad)
+    x, w1, b1, w2, b2 = mlp_operands(shape, gen, False)
+    before = fm.fused_mlp.launches
+    got = fm.fused_mlp(x, w1, b1, w2, b2, approximate="tanh")
+    torch.cuda.synchronize()
+    if fm.fused_mlp.launches - before != 1:
+        fail(f"vlm: K2 tanh at {shape} launched {fm.fused_mlp.launches - before} times, not once")
+    ref = fm.fused_mlp_ref(x, w1, b1, w2, b2, approximate="tanh")
+    err = (got.float() - ref.float()).abs().max().item()
+    rel = err / max(ref.float().abs().max().item(), 1e-30)
+    if not math.isfinite(rel) or rel > 2e-2:
+        fail(f"vlm: K2 tanh {shape}: max abs err {err} is {rel:.3g} of max|out| > 2e-2")
+    n, d, f = shape
+    b_ms, b_by = bound(2 * (2 * n * d + 2 * d * f) + 4 * (f + d), 4 * n * d * f)
+    ms = cuda_ms([lambda: fm.fused_mlp(x, w1, b1, w2, b2, approximate="tanh")], repeats=5)
+    out["k2_tanh"] = {"shape": list(shape), "max_abs_err": err, "rel_err": rel, "ms": ms,
+                      "plain_ms": cuda_ms([lambda: fm.fused_mlp_ref(x, w1, b1, w2, b2, approximate="tanh")],
+                                          iters=3, warmup=1),
+                      "bound_ms": b_ms, "bound_by": b_by, "pct_of_bound": 100.0 * b_ms / ms}
+    del x, w1, b1, w2, b2, got, ref
+    out["k1"] = check_attention(fa, (kc.vision_chunk, v.heads, n_patch, n_patch, v.width // v.heads), gen)
+    print(f"vlm: K2 tanh {shape} {ms:.3f} ms ({out['k2_tanh']['pct_of_bound']:.1f} % of bound), "
+          f"K1 {out['k1']['ms']:.3f} ms", flush=True)
+
+    # (b) the engine's captioner and summariser
+    cfg = Config()
+    cfg.api.mode = "stub"
+    cfg.models.imagebind_variant = "tiny"
+    cfg.models.whisper_variant = "stub"
+    cfg.models.vlm_variant = "kimi-vl-a3b-instruct"
+    cfg.storage.base_dir = tempfile.mkdtemp(prefix="smoke-vlm-")
+    t0 = time.perf_counter()
+    mem = HippocampalMemory(cfg, device="cuda")
+    torch.cuda.synchronize()
+    out["build_s"] = time.perf_counter() - t0
+    vlm = mem.vlm
+    rng = np.random.default_rng(VLM_SEED)
+    frames = []
+    for _ in range(VLM_FRAMES):
+        base = rng.integers(0, 256, (9, 16, 3)).astype(np.float32)
+        im = np.kron(base, np.ones((40, 40, 1))) + rng.normal(0, 20, (360, 640, 3))
+        frames.append(np.clip(im, 0, 255).astype(np.uint8))
+    jpegs = [jpeg_encode(im) for im in frames]
+    tracing.RING.clear()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts(counters)
+    t0 = time.perf_counter()
+    captions = mem.frame_client.caption_images(jpegs, CAPTION_PROMPT)
+    torch.cuda.synchronize()
+    cap_s = time.perf_counter() - t0
+    launches = {k: c.launches for k, c in counters.items()}
+    chunks = math.ceil(VLM_FRAMES / kc.vision_chunk)
+    want = {k: 0 for k in counters}
+    want.update(flash_mha=v.depth * chunks, fused_mlp=v.depth * chunks)
+    if launches != want:
+        fail(f"vlm: the caption call launched {launches}, not {want}")
+    if len(captions) != VLM_FRAMES or not all(captions) or any(c.startswith("[Error") for c in captions):
+        fail(f"vlm: {len(captions)} captions, some empty or placeholders: {captions[:3]}")
+    loop = vlm.loops[-1]
+    steps = [r for r in tracing.RING if r.name == "vlm.graph_steps"]
+    if sum(r.n for r in steps) != loop["steps"] or loop["steps"] < 1:
+        fail(f"vlm: {sum(r.n for r in steps)} graph steps of {loop['steps']} decode steps")
+    decode = sum((r.end_ns - r.start_ns) for r in tracing.RING if r.name == "vlm.decode" and r.n is None)
+    out["caption"] = {"frames": VLM_FRAMES, "s": cap_s, "launches": launches, "rows": loop["rows"],
+                      "steps": loop["steps"], "decode_ms_per_step": decode / 1e6 / max(1, loop["steps"]),
+                      "peak_bytes": torch.cuda.max_memory_allocated()}
+    _reset_counts(counters)
+    t0 = time.perf_counter()
+    summary = mem.qwen.generate("Summarize these scene descriptions:\n" + "\n".join(captions), max_tokens=128)
+    torch.cuda.synchronize()
+    sum_launches = {k: c.launches for k, c in counters.items()}
+    if any(sum_launches.values()) or not summary:
+        fail(f"vlm: the summary launched {sum_launches} (want none) and wrote {len(summary)} characters")
+    out["summary"] = {"s": time.perf_counter() - t0, "launches": sum_launches,
+                      "prompt_tokens": vlm.loops[-1]["lengths"][0]}
+    # one frame's image tokens against the plain fp32 reference
+    rows = vlm.encode_images(frames[:1])[0].float()
+    pix = vlm.pixels(frames[:1])
+    want_rows = kref.vision_forward(vlm.params, hf_config(kc), pix)[0]
+    gap = ((rows - want_rows).norm(dim=1) / want_rows.norm(dim=1).clamp(min=1e-12)).max().item()
+    if not math.isfinite(gap) or gap > VLM_VISION_GAP:
+        fail(f"vlm: image tokens {gap:.4f} relative L2 from the fp32 reference > {VLM_VISION_GAP}")
+    out["vision_gap"] = gap
+    out["graph_bytes"] = vlm.graph_bytes()
+    out["wall_s"] = time.perf_counter() - started
+    print(f"vlm: caption call {cap_s:.2f} s ({loop['rows']} rows, {loop['steps']} steps, "
+          f"{out['caption']['decode_ms_per_step']:.2f} ms a step), summary {out['summary']['s']:.2f} s "
+          f"({out['summary']['prompt_tokens']} prompt tokens), image tokens {gap:.4f} from the reference, "
+          f"peak {out['caption']['peak_bytes'] / 1e9:.1f} GB; {card}", flush=True)
+    del mem, vlm
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(HERE, "hippomm_tpu_torch")):
         fail("no hippomm_tpu_torch package beside this script (run it from a checkout)", 2)
@@ -3659,6 +3807,10 @@ def main() -> int:
     # array ops' placement, stacked_blocks(remat=True)
     report["surface"] = surface_phase(counters, fa, fm, card, checked)
 
+    # 16. Kimi-VL: K2's tanh instance and K1 at the ViT chunk, then the
+    # engine's in-process captioner and summariser
+    report["vlm"] = vlm_phase(counters, fa, fm, card)
+
     sources = {"flash_mha": "hippomm_tpu_torch/csrc/flash_mha.cu",
                "fused_mlp": "hippomm_tpu_torch/csrc/fused_mlp.cu",
                "fused_ln_mlp_residual": "hippomm_tpu_torch/csrc/fused_mlp.cu",
@@ -3703,6 +3855,8 @@ def main() -> int:
     # phase 15: extract_features over numpy inputs, default and fused
     for ph in ("default", "fused"):
         by_path[f"surface_{ph}"] = report["surface"]["extract"][ph]["launches"]
+    # phase 16: the engine's caption call (MoonViT's K1 and K2 tanh)
+    by_path["vlm_caption"] = report["vlm"]["caption"]["launches"]
     # the fp32 kernels' launches per phase-13 path, each read from counts
     # set to 0 just before it
     by_path_f32 = {f"fp32_ingest_{ph}": report["fp32"]["ingest"]["runs"][ph]["launches_f32"]

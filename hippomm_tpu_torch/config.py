@@ -59,6 +59,12 @@ class ModelsConfig:
     # (beam decode shards across the mesh either way).
     whisper_beam_size: int = 1
     compute_dtype: str = "bfloat16"
+    # port extension: "" (the default) sends frame captions and event
+    # summaries to the api endpoints; a Kimi-VL variant
+    # ("kimi-vl-a3b-instruct", or "tiny" in tests) runs that model in
+    # process on the engine's device, in compute_dtype (bfloat16 on CUDA),
+    # as both the frame-captioning client and the summariser (models/kimi_vl)
+    vlm_variant: str = ""
 
 
 @dataclasses.dataclass

@@ -1,5 +1,7 @@
 // K2 and K3: fused transformer MLP for Hopper (sm_90a), bf16.
 //   K2:  out = cast(cast(x·W1ᵀ + b1) → exact-erf GELU → ·W2ᵀ + b2)
+//        (or the tanh GELU: the `hmm_fused_mlp_tanh_bf16` instance, for
+//        MoonViT's MLP in models/kimi_vl)
 //   K3:  out = x + K2(cast(LN(x)))   (LN statistics and affine in fp32)
 //
 // K2 replaces the Pallas TPU kernel `_mlp_kernel` in
@@ -78,7 +80,7 @@ constexpr int kThreads = 128 * (kConsumers + 1);
 constexpr int kRingBudget = 196 * 1024;     // shared memory for the ring
 constexpr int kBN2 = 128;                   // pass 2's tile width
 
-enum Epilogue { kGelu, kBias, kBiasResidual, kPartial };
+enum Epilogue { kGelu, kBias, kBiasResidual, kPartial, kGeluTanh };
 
 __host__ __device__ constexpr int stage_bytes(int bn) { return (kBM + bn) * kBK * 2; }
 __host__ __device__ constexpr int ring_stages(int bn) {
@@ -116,6 +118,10 @@ __device__ __forceinline__ float bf16_round(float x) {
 
 __device__ __forceinline__ float gelu_erf(float x) {
   return 0.5f * x * (1.0f + erff(x * 0.70710678118654752f));
+}
+
+__device__ __forceinline__ float gelu_tanh(float x) {
+  return 0.5f * x * (1.0f + tanhf(0.7978845608028654f * (x + 0.044715f * x * x * x)));
 }
 
 // One GEMM pass: C = A·Bᵀ over the output tiles this block takes (local
@@ -258,10 +264,11 @@ gemm_tn(const __grid_constant__ CUtensorMap ta, const __grid_constant__ CUtensor
                     *reinterpret_cast<const float2*>(args.bias + col0 + 8 * j + 2 * q);
                 const float v0 = acc[mi][4 * j + 2 * h] + bias.x;
                 const float v1 = acc[mi][4 * j + 2 * h + 1] + bias.y;
-                // pass 1: + b1 → bf16 → exact GELU → bf16, the reference's casts
+                // pass 1: + b1 → bf16 → GELU (exact, or tanh) → bf16, the reference's casts
                 const __nv_bfloat162 y =
-                    EPI == kGelu ? __floats2bfloat162_rn(gelu_erf(bf16_round(v0)), gelu_erf(bf16_round(v1)))
-                                 : __floats2bfloat162_rn(v0, v1);
+                    EPI == kGelu       ? __floats2bfloat162_rn(gelu_erf(bf16_round(v0)), gelu_erf(bf16_round(v1)))
+                    : EPI == kGeluTanh ? __floats2bfloat162_rn(gelu_tanh(bf16_round(v0)), gelu_tanh(bf16_round(v1)))
+                                       : __floats2bfloat162_rn(v0, v1);
                 v[t] = *reinterpret_cast<const uint32_t*>(&y);
               }
               quad_transpose(v, q);  // now columns 8(4g + q) .. + 7: one 16-byte store
@@ -440,11 +447,12 @@ int gemm(const void* a, const void* b, const GemmArgs& args, cudaStream_t stream
 }
 
 // the whole MLP; gamma != nullptr makes it K3 (normed is then t's workspace),
-// resid != nullptr adds that (n, d) bf16 residual in pass 2's epilogue
+// resid != nullptr adds that (n, d) bf16 residual in pass 2's epilogue; tanh
+// takes the tanh GELU in pass 1
 int mlp(const void* x, const float* gamma, const float* beta, float eps, void* normed,
         const void* w1, const float* b1, const void* w2, const float* b2, const void* resid_,
         void* out, void* hidden, void* partial, int n, int d, int f, int bn1, int splits,
-        void* stream_) {
+        void* stream_, bool tanh = false) {
   if (n < 8 || d % 128 || f % 128 || (bn1 != 128 && bn1 != 32) || splits < 1 || (f / kBK) % splits ||
       (splits > 1 && partial == nullptr))
     return (int)cudaErrorInvalidValue;
@@ -460,8 +468,10 @@ int mlp(const void* x, const float* gamma, const float* beta, float eps, void* n
   }
   // pass 1: hidden = gelu(a·W1ᵀ + b1), at one of the plans' tile widths
   const GemmArgs args1{n, f, d, 1, b1, nullptr, hidden};
-  int rc = bn1 == 128 ? gemm<128, kGelu>(a, w1, args1, stream)
-                      : gemm<32, kGelu>(a, w1, args1, stream);
+  int rc = tanh ? (bn1 == 128 ? gemm<128, kGeluTanh>(a, w1, args1, stream)
+                               : gemm<32, kGeluTanh>(a, w1, args1, stream))
+                : (bn1 == 128 ? gemm<128, kGelu>(a, w1, args1, stream)
+                              : gemm<32, kGelu>(a, w1, args1, stream));
   if (rc != 0) return rc;
   // pass 2: out = hidden·W2ᵀ + b2 (+ x), or fp32 partials of its K slices
   const __nv_bfloat16* resid = static_cast<const __nv_bfloat16*>(resid_);
@@ -497,6 +507,15 @@ int hmm_fused_mlp_bf16(const void* x, const void* w1, const void* b1, const void
   return mlp(x, nullptr, nullptr, 0.0f, nullptr, w1, static_cast<const float*>(b1), w2,
              static_cast<const float*>(b2), nullptr, out, hidden, partial, n, d, f, bn1, splits,
              stream);
+}
+
+// K2 with the tanh GELU in pass 1, the same operands.
+int hmm_fused_mlp_tanh_bf16(const void* x, const void* w1, const void* b1, const void* w2,
+                            const void* b2, void* out, void* hidden, void* partial, int n, int d,
+                            int f, int bn1, int splits, void* stream) {
+  return mlp(x, nullptr, nullptr, 0.0f, nullptr, w1, static_cast<const float*>(b1), w2,
+             static_cast<const float*>(b2), nullptr, out, hidden, partial, n, d, f, bn1, splits,
+             stream, true);
 }
 
 // K3. As K2, plus gamma/beta (d,) fp32, eps, resid (n, d) bf16 and normed

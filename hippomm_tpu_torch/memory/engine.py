@@ -40,7 +40,7 @@ from hippomm_tpu_torch.memory.consolidation import consolidate_short_term_memory
 from hippomm_tpu_torch.memory.schema import SequenceSegment, ShortTermMemory, ThetaEvent
 from hippomm_tpu_torch.memory.segmentation import segment_sequence
 from hippomm_tpu_torch.memory.store import MemoryStore
-from hippomm_tpu_torch.models.clients import make_client
+from hippomm_tpu_torch.models.clients import LocalVLMClient, make_client
 from hippomm_tpu_torch.models.foundation import ImageBind, QwenVL, Whisper
 from hippomm_tpu_torch.models.imagebind.preprocess import preprocess_audio_batch
 from hippomm_tpu_torch.models.whisper.transcribe import Segment
@@ -136,10 +136,18 @@ class HippocampalMemory:
             device=self.device,
             mesh=self.mesh,
         )
-        self.qwen: QwenVL = models.get("qwen") or QwenVL(
+        # an in-process VLM (models.vlm_variant, or models["vlm"]) serves both
+        # the frame captions and the event summaries
+        self.vlm = models.get("vlm")
+        if self.vlm is None and m.vlm_variant:
+            from hippomm_tpu_torch.models.kimi_vl.model import KimiVL
+
+            self.vlm = KimiVL(m.vlm_variant, dtype=getattr(torch, m.compute_dtype), device=self.device)
+        local = None if self.vlm is None else LocalVLMClient(self.vlm)
+        self.qwen: QwenVL = models.get("qwen") or local or QwenVL(
             model_name=qwen_path or m.qwen_path, config=self.config
         )
-        self.frame_client = models.get("frame_client") or make_client(
+        self.frame_client = models.get("frame_client") or local or make_client(
             self.config.api.frame_processing, self.config.api.mode, purpose="frame-captioning"
         )
 

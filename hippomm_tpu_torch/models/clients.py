@@ -232,6 +232,72 @@ class StubClient(ChatClient):
         return "The analyzed content shows synthetic audiovisual scenes."
 
 
+def _split_messages(messages: List[Message]):
+    """(the text parts joined by newlines, the inline images' RGB arrays)."""
+    from hippomm_tpu_torch.media.io import jpeg_decode
+
+    texts, images = [], []
+    for m in messages:
+        c = m.get("content", "")
+        if isinstance(c, str):
+            texts.append(c)
+            continue
+        for x in c:
+            if not isinstance(x, dict):
+                continue
+            if x.get("type") == "text":
+                texts.append(x.get("text", ""))
+            elif x.get("type") == "image_url":
+                url = x["image_url"]["url"]
+                images.append(jpeg_decode(base64.b64decode(url.split(",", 1)[1])))
+    return "\n".join(texts), images
+
+
+class LocalVLMClient(ChatClient):
+    """An in-process VLM (models/kimi_vl.KimiVL) behind the chat surface:
+    `caption_images` decodes a call's JPEGs and captions them all as one
+    batched generate; `chat` and `generate` (QwenVL's surface, the
+    engine's summariser) serve one row. Greedy: `temperature` is ignored."""
+
+    def __init__(self, model):
+        self.model = model
+
+    def chat(self, messages: List[Message], max_tokens: int = 512, temperature: float = 0.0) -> str:
+        text, images = _split_messages(messages)
+        return self.model.complete(text, images, max_tokens)
+
+    def caption_images(self, jpeg_batches: Sequence[bytes], prompt: str, max_workers: int = 8) -> List[str]:
+        from hippomm_tpu_torch.media.io import jpeg_decode
+
+        def one(data: bytes):
+            try:
+                return jpeg_decode(data) if data else None
+            except Exception as e:  # the reference's per-frame placeholder
+                logger.warning("caption frame unreadable: %s", e)
+                return None
+
+        if not jpeg_batches:
+            return []
+        with concurrent.futures.ThreadPoolExecutor(max_workers=max_workers) as ex:
+            images = list(ex.map(one, jpeg_batches))
+        return self.model.caption(images, prompt, max_tokens=128)
+
+    def generate(self, prompt, images=None, video_frames=None, max_tokens: int = 512,
+                 max_new_tokens: Optional[int] = None) -> str:
+        """QwenVL.generate's surface: a text prompt, optional JPEG images or
+        raw (N, H, W, 3) frames."""
+        from hippomm_tpu_torch.media.io import jpeg_decode
+
+        if max_new_tokens is not None:
+            max_tokens = max_new_tokens
+        if not isinstance(prompt, str):
+            return self.chat(prompt, max_tokens=max_tokens)
+        rgb = [jpeg_decode(j) for j in images or []]
+        if video_frames is not None:
+            rgb += list(video_frames)
+        return self.model.complete(prompt, rgb, max_tokens)
+
+
 def make_client(endpoint_cfg, mode: str = "auto", purpose: str = "qwen") -> ChatClient:
     """Factory honoring api.mode: stub | http | auto (auto = http if reachable
     else stub — the reference would hard-crash here instead)."""

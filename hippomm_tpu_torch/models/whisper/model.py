@@ -395,22 +395,24 @@ class _GreedyShard:
         return logits
 
 
-class _StepGraph:
-    """One shard's greedy decode over a `_GreedyShard` whose buffers are
-    kept across decodes. On CUDA `step` replays a CUDA graph of
-    `_GreedyShard.step()`, its buffers the graph's static inputs and
-    outputs; elsewhere it steps eagerly. `start` refills the buffers for
-    each chunk batch. The graph is captured at the first start, after one
-    warm-up step on a side stream (torch's lazy set-up: cuBLAS handles and
-    workspaces), in thread-local mode, since the vision stream and JPEG
-    threads launch work on the device meanwhile. It holds the addresses of
-    the decoder weights, which `weights` names. `logits` are the last
-    step's."""
+class StepGraph:
+    """A greedy decode over a `state` whose buffers are kept across decodes
+    (Whisper's `_GreedyShard`, models/kimi_vl's decode state): the state
+    has `start(*args)`, which refills its buffers, `step()`, which changes
+    them in place only and returns the logits, and `done`, a device flag.
+    On CUDA `step` replays a CUDA graph of `state.step()`, its buffers the
+    graph's static inputs and outputs; elsewhere it steps eagerly. The
+    graph is captured at the first start, before the state's own start,
+    after one warm-up step on a side stream (torch's lazy set-up: cuBLAS
+    handles and workspaces), in thread-local mode, since the vision stream
+    and JPEG threads launch work on the device meanwhile; each capture
+    counts one `<counter>`. It holds the addresses of the weights, which
+    `weights` names. `logits` are the last step's."""
 
-    def __init__(self, params, cfg: WhisperConfig, enc_shape, max_len: int, dtype, device, weights):
-        self.state = _GreedyShard(params, cfg, enc_shape, max_len, dtype, device)
+    def __init__(self, state, device, weights, counter: str = "asr.graph_captures"):
+        self.state = state
         self.done = self.state.done
-        self.device, self.weights = device, weights
+        self.device, self.weights, self.counter = device, weights, counter
         self.lock = threading.Lock()
         self.graph = self.logits = None
         self._released = None  # event after the last work on the buffers
@@ -443,12 +445,12 @@ class _StepGraph:
             with torch.cuda.graph(graph, stream=side, capture_error_mode="thread_local"):
                 self.logits = self.state.step()
         self.graph = graph
-        tracing.count("asr.graph_captures", 1)
+        tracing.count(self.counter, 1)
 
-    def start(self, enc_out: torch.Tensor, prompt: torch.Tensor) -> None:
+    def start(self, *args) -> None:
         if self.device.type == "cuda" and self.graph is None:
             self._capture()
-        self.state.start(enc_out, prompt)  # undoes the warm-up step
+        self.state.start(*args)  # undoes the warm-up step
 
     def step(self) -> None:
         if self.graph is None:
@@ -459,7 +461,7 @@ class _StepGraph:
 
 class DecodeGraphs:
     """The greedy decode's buffers and, on CUDA, its step's graphs, kept
-    across decodes: one `_StepGraph` per (shard, device, rows, source
+    across decodes: one `StepGraph` per (shard, device, rows, source
     length, max_len, dtype), rebuilt when the decoder's weights are others
     than those it was built with. Each entry holds its buffers (the fp32
     cross K/V, the self K/V caches) and graph pool until it is rebuilt or
@@ -468,17 +470,17 @@ class DecodeGraphs:
 
     def __init__(self):
         self._lock = threading.Lock()
-        self._graphs: Dict[tuple, _StepGraph] = {}
+        self._graphs: Dict[tuple, StepGraph] = {}
 
     def get(self, shard: int, params, cfg: WhisperConfig, enc_out: torch.Tensor, max_len: int,
-            dtype) -> _StepGraph:
+            dtype) -> StepGraph:
         key = (shard, enc_out.device, *enc_out.shape[:2], max_len, dtype)
         weights = tuple(t.data_ptr() for _, t in pmesh.tree_leaves(params["decoder"]))
         with self._lock:
             g = self._graphs.get(key)
             if g is None or g.weights != weights:
-                g = self._graphs[key] = _StepGraph(params, cfg, enc_out.shape, max_len, dtype,
-                                                   enc_out.device, weights)
+                state = _GreedyShard(params, cfg, enc_out.shape, max_len, dtype, enc_out.device)
+                g = self._graphs[key] = StepGraph(state, enc_out.device, weights)
             return g
 
     @torch.no_grad()

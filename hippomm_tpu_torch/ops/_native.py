@@ -167,6 +167,8 @@ def kernels() -> ctypes.CDLL:
         lib.hmm_flash_mha_f32_smem_bytes.restype = i32
         lib.hmm_fused_mlp_bf16.argtypes = [*[vp] * 8, *[i32] * 5, vp]
         lib.hmm_fused_mlp_bf16.restype = i32
+        lib.hmm_fused_mlp_tanh_bf16.argtypes = [*[vp] * 8, *[i32] * 5, vp]
+        lib.hmm_fused_mlp_tanh_bf16.restype = i32
         lib.hmm_fused_ln_mlp_residual_bf16.argtypes = [*[vp] * 12, *[i32] * 5, f32, vp]
         lib.hmm_fused_ln_mlp_residual_bf16.restype = i32
         lib.hmm_fused_mlp_smem_bytes.argtypes = [i32]

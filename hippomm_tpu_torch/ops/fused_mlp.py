@@ -5,6 +5,8 @@ Counterpart of hippomm_tpu/ops/fused_mlp.py:
 
   * K2 `fused_mlp` (the Pallas `_mlp_kernel`):
         h = cast(x·W1ᵀ + b1) → exact-erf GELU → cast(h·W2ᵀ + b2)
+    with `approximate="tanh"` the tanh GELU instead (bf16 only; MoonViT's
+    MLP in models/kimi_vl), a port-only instance of the same kernel
   * K3 `fused_ln_mlp_residual` (the Pallas `_ln_mlp_kernel`):
         x + K2(cast(LN(x)))  — LN statistics and affine in fp32, the residual
     add in the stream dtype. Routed by `models/layers._mlp_halfblock` (every
@@ -118,14 +120,14 @@ def fused_mlp_supported(n: int, d: int, f: int) -> bool:
     return n >= 8 and d % _LANES == 0 and f % _LANES == 0
 
 
-def fused_mlp_ref(x, w1, b1, w2, b2) -> torch.Tensor:
+def fused_mlp_ref(x, w1, b1, w2, b2, approximate: str = "none") -> torch.Tensor:
     """Plain PyTorch MLP in the kernel's op order. x (N, D) compute dtype;
     w1 (F, D), b1 (F,), w2 (D, F), b2 (D,) — weights cast to x.dtype, the
     products' fp32 results (ops/matmul), biases added in fp32. Returns
-    (N, D) in x.dtype."""
+    (N, D) in x.dtype. `approximate`: F.gelu's ("none" or "tanh")."""
     dt = x.dtype
     h = (matmul_f32(x, w1.to(dt)) + b1.float()).to(dt)
-    out = matmul_f32(F.gelu(h), w2.to(dt))
+    out = matmul_f32(F.gelu(h, approximate=approximate), w2.to(dt))
     return (out + b2.float()).to(dt)
 
 
@@ -260,11 +262,22 @@ class _Recompute(torch.autograd.Function):
         return (None, None, *(next(grads) if n else None for n in need))
 
 
-def fused_mlp(x, w1, b1, w2, b2) -> torch.Tensor:
+def fused_mlp(x, w1, b1, w2, b2, approximate: str = "none") -> torch.Tensor:
     """Fused MLP: the CUDA kernels for CUDA tensors (bf16 or fp32), the plain
     version for CPU tensors; differentiable (`_Recompute`). Counts calls
     that launch the kernels in `fused_mlp.launches`, the fp32 kernels' also
-    in `fused_mlp.launches_f32`."""
+    in `fused_mlp.launches_f32`. `approximate="tanh"` takes the tanh GELU,
+    forward only, through the bf16 kernel's tanh instance."""
+    if approximate != "none":
+        if approximate != "tanh" or needs_grad(x, w1, b1, w2, b2):
+            raise NotImplementedError(f"fused_mlp approximate={approximate!r}: forward tanh only")
+        if not _check_operands("fused_mlp", x, w1, b1, w2, b2):
+            return fused_mlp_ref(x, w1, b1, w2, b2, approximate)
+        if x.dtype != torch.bfloat16:
+            raise NotImplementedError(f"the tanh fused_mlp kernel takes bfloat16, got {x.dtype}")
+        out = _launch("hmm_fused_mlp_tanh_bf16", x, (), w1, b1, w2, b2)
+        _native.count_launch(fused_mlp)
+        return out
     if needs_grad(x, w1, b1, w2, b2):
         return _Recompute.apply(functools.partial(_fused_mlp_forward, own_out=True), fused_mlp_ref,
                                 x, w1, b1, w2, b2)

@@ -1293,3 +1293,54 @@ def test_whisper_beam_decode_stays_eager_on_cuda(cuda_device):
     _, lengths, _ = twm.beam_decode_batch(params, enc, prompt, cfg, 224, beam=2)
     assert _graph_counts() == before
     assert (lengths == 21).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,d,f", [(2392, 1152, 4352), (64, 256, 384)])
+def test_fused_mlp_tanh_instance_matches_plain_on_cuda(cuda_device, n, d, f):
+    """K2's tanh-GELU instance (MoonViT's MLP: two 1196-patch key frames,
+    the width padded to 4352) against its plain version, under K2's gate;
+    the same operands through the erf instance give another result."""
+    g = torch.Generator(device=cuda_device).manual_seed(3)
+    x = torch.randn((n, d), generator=g, device=cuda_device).to(torch.bfloat16)
+    w1 = (torch.randn((f, d), generator=g, device=cuda_device) / d ** 0.5).to(torch.bfloat16)
+    b1 = 0.1 * torch.randn((f,), generator=g, device=cuda_device)
+    w2 = (torch.randn((d, f), generator=g, device=cuda_device) / f ** 0.5).to(torch.bfloat16)
+    b2 = 0.1 * torch.randn((d,), generator=g, device=cuda_device)
+    before = tfm.fused_mlp.launches
+    out = tfm.fused_mlp(x, w1, b1, w2, b2, approximate="tanh")
+    torch.cuda.synchronize()
+    assert tfm.fused_mlp.launches == before + 1
+    ref = tfm.fused_mlp_ref(x, w1, b1, w2, b2, approximate="tanh")
+    assert (out.float() - ref.float()).abs().max().item() <= 2e-2 * ref.float().abs().max().item()
+    erf = tfm.fused_mlp(x, w1, b1, w2, b2)
+    assert (erf.float() - out.float()).abs().max().item() > 0
+
+
+@pytest.mark.cuda
+def test_kimi_vl_graph_decode_equals_the_eager_steps_on_cuda(cuda_device):
+    """The tiny Kimi-VL in bf16: a bucket's decode as CUDA graph replays
+    (grouped expert products, the absorbed MLA over the shared cache pool)
+    gives the tokens of the same steps run eagerly, rows of two lengths
+    in one bucket; the ViT's MLP launched K2."""
+    from hippomm_tpu_torch.models.kimi_vl import model as km
+
+    vlm = km.KimiVL("tiny", dtype=torch.bfloat16, device=cuda_device, seed=5)
+    rng = np.random.default_rng(0)
+    imgs = [rng.integers(0, 256, (56, 84, 3), dtype=np.uint8) for _ in range(3)]
+    before = tfm.fused_mlp.launches
+    rows = vlm.encode_images(imgs)
+    assert tfm.fused_mlp.launches == before + vlm.cfg.vision.depth
+    prompts = [vlm.tok.chat_ids(p, [r.shape[0]]) for p, r in zip(("a", "a b c", "a b"), rows)]
+    got = vlm.generate_ids(prompts, [[r] for r in rows], 12)
+    g = vlm._graphs[4, 512]
+    assert g.graph is not None
+    st = g.state
+    st.start(sorted(prompts, key=len), [[rows[i]] for i in sorted(range(3), key=lambda i: len(prompts[i]))])
+    for _ in range(11):
+        st.step()
+    eager = st.out[:3, :12].tolist()
+    order = sorted(range(3), key=lambda i: len(prompts[i]))
+    for j, i in enumerate(order):
+        row = eager[j]
+        assert got[i] == (row[: row.index(vlm.tok.im_end)] if vlm.tok.im_end in row else row)
