@@ -218,7 +218,16 @@ Phases (any failure exits non-zero and prints no result line):
      graph replay, 40 captions; its summariser writes one summary of the
      40 captions with no K1/K2 launch; one frame's image tokens within
      0.04 relative L2 of the plain fp32 reference's (reference.py, TF32
-     off); seconds of each call, decode ms a step, peak memory
+     off); seconds of each call, decode ms a step, peak memory. (c) The
+     routed experts' kernels (ops/moe: route, permute, SwiGLU, combine) at
+     a decode step's 1 and 256 rows and a prefill forward's 32768, against
+     their plain twins as the card tests hold them; each one's ms and
+     device µs beside its twin's and its bytes' bound. (d) A decode step's
+     graph at 1, 64 and 256 rows, captured once with the MoE layers through
+     the twins (the composition the kernels replaced, op for op) and once
+     through the kernels: ms a step (CUDA events over replays), device
+     operations a step (torch.profiler over replays), and whether both
+     decode the same tokens (at random weights an ulp flips near ties)
 
 Prints the card's name and power limit, a `{"kernels": [...]}` line (the
 fp32 kernels as entries of their own, `<name>_f32`, with phase 13's
@@ -3425,6 +3434,8 @@ def vlm_phase(counters, fa, fm, card):
         fail(f"vlm: image tokens {gap:.4f} relative L2 from the fp32 reference > {VLM_VISION_GAP}")
     out["vision_gap"] = gap
     out["graph_bytes"] = vlm.graph_bytes()
+    out["moe_kernels"] = moe_kernels_check()
+    out["decode_steps"] = decode_step_probe(vlm)
     out["wall_s"] = time.perf_counter() - started
     print(f"vlm: caption call {cap_s:.2f} s ({loop['rows']} rows, {loop['steps']} steps, "
           f"{out['caption']['decode_ms_per_step']:.2f} ms a step), summary {out['summary']['s']:.2f} s "
@@ -3433,6 +3444,142 @@ def vlm_phase(counters, fa, fm, card):
     del mem, vlm
     gc.collect()
     torch.cuda.empty_cache()
+    return out
+
+
+MOE_ROWS = (1, 256, 32768)  # a summary's decode step, a caption bucket's, a prefill forward
+
+
+def moe_kernels_check():
+    """16 (c): ops/moe's kernels at Kimi-VL's widths against their twins;
+    {rows: {kernel: {ms, twin_ms, device_us, twin_device_us, kernels,
+    twin_kernels, bound_ms, bit_equal_to_twin}}}."""
+    import torch
+
+    from hippomm_tpu_torch.ops import moe
+
+    d, f, e, k, scale = 2048, 1408, 64, 6, 2.446
+    gen = torch.Generator(device="cuda").manual_seed(VLM_SEED)
+    out = {}
+    for n in MOE_ROWS:
+        h = torch.randn((n, d), generator=gen, device="cuda").to(torch.bfloat16)
+        router = 0.02 * torch.randn((e, d), generator=gen, device="cuda")
+        bias = 0.1 * torch.randn((e,), generator=gen, device="cuda")
+        logits = h.float() @ router.t()
+        live = torch.rand((n,), generator=gen, device="cuda") < 0.9
+        idx, wts = moe.moe_route(logits, bias, k, scale)
+        ridx, rwts = moe.moe_route_ref(logits, bias, k, scale)
+        stats, rstats = torch.zeros(3, dtype=torch.long, device="cuda"), torch.zeros(3, dtype=torch.long, device="cuda")
+        xs, slots, offs = moe.moe_permute(idx, h, e, live, stats)
+        rxs, rslots, roffs = moe.moe_permute_ref(idx, h, e, live, rstats)
+        gu = torch.randn((n * k, 2 * f), generator=gen, device="cuda").to(torch.bfloat16)
+        y = (0.05 * torch.randn((n * k, d), generator=gen, device="cuda")).to(torch.bfloat16)
+        shared = (0.05 * torch.randn((n, d), generator=gen, device="cuda")).to(torch.bfloat16)
+        comb, rcomb = moe.moe_combine(y, slots, wts, shared, h), moe.moe_combine_ref(y, slots, wts, shared, h)
+        acc, mag = torch.zeros_like(h, dtype=torch.float32), h.float().abs() + shared.float().abs()
+        for j in range(k):
+            term = y[slots[:, j].long()].float() * wts[:, j:j + 1]
+            acc, mag = acc + term, mag + term.abs()
+        # the twin's sum over k takes torch's order: 16 roundings of the
+        # terms' magnitudes apart at most, then each rounded to bf16
+        room = 2.0 ** -20 * mag + torch.ldexp(torch.full_like(mag, 2.0), torch.frexp(rcomb.float()).exponent - 8)
+        torch.cuda.synchronize()
+        checks = {
+            "route": torch.equal(idx, ridx) and bool(torch.allclose(wts, rwts, rtol=1e-6, atol=0)),
+            "permute": torch.equal(xs, rxs) and torch.equal(slots, rslots) and torch.equal(offs, roffs)
+            and torch.equal(stats, rstats),
+            "swiglu": torch.equal(moe.swiglu(gu), moe.swiglu_ref(gu)),
+            "combine": torch.equal(comb, (h.float() + (acc + shared.float())).to(torch.bfloat16))
+            and bool(((comb.float() - rcomb.float()).abs() <= room).all()),
+        }
+        for name, ok in checks.items():
+            if not ok:
+                fail(f"vlm: the MoE {name} kernel at {n} rows differs from its twin")
+        rk = n * k
+        calls = {
+            "route": (lambda: moe.moe_route(logits, bias, k, scale), lambda: moe.moe_route_ref(logits, bias, k, scale),
+                      4 * n * e + 4 * e + 12 * rk),
+            "permute": (lambda: moe.moe_permute(idx, h, e, live, stats),
+                        lambda: moe.moe_permute_ref(idx, h, e, live, rstats),
+                        8 * rk + n + 2 * n * d + 2 * rk * d + 4 * rk + 4 * e),
+            "swiglu": (lambda: moe.swiglu(gu), lambda: moe.swiglu_ref(gu), 6 * rk * f),
+            "combine": (lambda: moe.moe_combine(y, slots, wts, shared, h),
+                        lambda: moe.moe_combine_ref(y, slots, wts, shared, h), 2 * rk * d + 8 * rk + 6 * n * d),
+        }
+        row = {}
+        for name, (kern, twin, nbytes) in calls.items():
+            iters = 50 if n < 1024 else 5
+            dev_us, launched = profile_kernels([kern])
+            twin_us, twin_launched = profile_kernels([twin])
+            row[name] = {"ms": cuda_ms([kern], iters=iters, repeats=3), "twin_ms": cuda_ms([twin], iters=iters),
+                         "device_us": sum((dev_us or {}).values()), "twin_device_us": sum((twin_us or {}).values()),
+                         "kernels": launched, "twin_kernels": twin_launched,
+                         "bound_ms": 1e3 * nbytes / PEAK_BYTES_S, "bit_equal_to_twin": name in ("permute", "swiglu")}
+        out[n] = row
+        print(f"vlm: MoE kernels at {n} rows (ms, device us, kernels; twin's): "
+              + ", ".join(f"{k_} {v['ms']:.4f} {v['device_us']:.1f} {v['kernels']} / {v['twin_ms']:.4f} "
+                          f"{v['twin_device_us']:.1f} {v['twin_kernels']}" for k_, v in row.items())
+              + f"; bounds " + ", ".join(f"{v['bound_ms'] * 1e3:.2f}" for v in row.values()) + " us", flush=True)
+        del h, logits, xs, rxs, gu, y, shared, comb, rcomb, acc, mag, room
+        torch.cuda.empty_cache()
+    return out
+
+
+def decode_step_probe(vlm, rows_list=(1, 64, 256), steps: int = 16, prompt_len: int = 317):
+    """16 (d): a decode bucket's step graph at each row count, captured
+    with the MoE layers through the twins and through the kernels: ms a
+    step over `steps` replays, device operations a step from the profiler,
+    and the tokens of both."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from hippomm_tpu_torch.models.kimi_vl import model as km
+    from hippomm_tpu_torch.models.whisper.model import StepGraph
+    from hippomm_tpu_torch.ops import moe
+
+    twins = {"moe_route": moe.moe_route_ref, "moe_permute": moe.moe_permute_ref, "swiglu": moe.swiglu_ref,
+             "moe_combine": moe.moe_combine_ref}
+    rng = np.random.default_rng(VLM_SEED)
+    out = {}
+    for rows in rows_list:
+        prompts = [rng.integers(0, 150000, size=prompt_len).tolist() for _ in range(rows)]
+        row, tokens = {}, {}
+        for mode in ("twins", "kernels"):
+            saved = {name: getattr(km, name) for name in twins}
+            if mode == "twins":
+                for name, fn in twins.items():
+                    setattr(km, name, fn)
+            try:
+                g = StepGraph(km._DecodeState(vlm, rows, 512), vlm.device, (), counter="smoke.graph_captures")
+                g.start(prompts, [[] for _ in prompts])
+            finally:
+                for name, fn in saved.items():
+                    setattr(km, name, fn)
+            for _ in range(2):
+                g.step()
+            torch.cuda.synchronize()
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(steps):
+                g.step()
+            end.record()
+            torch.cuda.synchronize()
+            ms = start.elapsed_time(end) / steps
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(4):
+                    g.step()
+                torch.cuda.synchronize()
+            ops = sum(e.count for e in prof.key_averages() if getattr(e, "device_time_total", 0) > 0) / 4
+            tokens[mode] = g.state.out[:rows, : 2 + steps + 4].tolist()
+            row[mode] = {"ms_per_step": ms, "device_ops_per_step": ops}
+            del g
+            torch.cuda.empty_cache()
+        row["same_tokens"] = tokens["twins"] == tokens["kernels"]
+        out[rows] = row
+        print(f"vlm: decode step at {rows} rows: twins {row['twins']['ms_per_step']:.3f} ms, "
+              f"{row['twins']['device_ops_per_step']:.0f} device ops; kernels {row['kernels']['ms_per_step']:.3f} ms, "
+              f"{row['kernels']['device_ops_per_step']:.0f} device ops; same tokens {row['same_tokens']}", flush=True)
     return out
 
 

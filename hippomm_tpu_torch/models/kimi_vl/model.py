@@ -19,7 +19,12 @@ card), norms, the router, RoPE angles and softmax in fp32, logits in fp32.
     normalised and scaled; the rows sorted by expert and each expert's
     SwiGLU as one grouped product over all experts (`torch._grouped_mm`,
     per-expert row ends on the device), so the step has no host sync and
-    is captured. The CPU path loops over the experts.
+    is captured. Around the products, the hand-written kernels of
+    `ops/moe` on the card: the routing after the fp32 router product, the
+    stable expert-major permutation with the device counters, every
+    SwiGLU's activation, and the weighted sum with the shared expert and
+    the residual in one pass. The CPU path runs their plain twins and
+    loops over the experts.
 Greedy generation: rows in buckets of a power of two up to `max_rows`, and
 positions a row in powers of two from 512 up to the row's share,
 `cache_slots // rows`, of one latent cache pool that all buckets view, so
@@ -47,6 +52,7 @@ from hippomm_tpu_torch.models.whisper.model import StepGraph
 from hippomm_tpu_torch.ops.flash_attention import flash_mha
 from hippomm_tpu_torch.ops.fused_mlp import fused_mlp, fused_mlp_ref, fused_mlp_supported
 from hippomm_tpu_torch.ops.matmul import bmm_f32, matmul_f32
+from hippomm_tpu_torch.ops.moe import moe_combine, moe_combine_ref, moe_permute, moe_route, swiglu
 from hippomm_tpu_torch.parallel import mesh as pmesh
 from hippomm_tpu_torch.utils import timers as tracing
 from hippomm_tpu_torch.utils.device import resolve_device
@@ -194,10 +200,7 @@ def route(cfg: KimiVLConfig, m: Params, h: torch.Tensor):
     bias are chosen; the weights are σ of the chosen, normalised to sum 1,
     times the routed scale."""
     t = cfg.text
-    scores = torch.sigmoid(matmul_f32(h.float(), m["router"]))
-    idx = torch.topk(scores + m["bias"], t.topk, dim=-1).indices
-    wts = scores.gather(1, idx)
-    return idx, wts / wts.sum(dim=-1, keepdim=True) * t.routed_scale
+    return moe_route(matmul_f32(h.float(), m["router"]), m["bias"], t.topk, t.routed_scale)
 
 
 MIN_POSITIONS = 512  # a decode bucket's fewest positions a row
@@ -233,6 +236,7 @@ class KimiVL:
         self._pool: Optional[torch.Tensor] = None
         self._graphs: Dict[int, StepGraph] = {}
         self._lock = threading.Lock()
+        self._moe_fused = False  # whether the MoE layers last ran the kernels of ops/moe
         # one entry per decode loop (rows launched, real rows, their prompt
         # lengths and tokens decoded, positions a row, steps, experts hit),
         # for the benchmark's operation and byte counts
@@ -364,46 +368,51 @@ class KimiVL:
         return _cis(pos.float()[..., None] * self._inv_freq)
 
     def _mlp(self, lw: Params, h: torch.Tensor, stats: Optional[torch.Tensor],
-             live: Optional[torch.Tensor] = None) -> torch.Tensor:
+             live: Optional[torch.Tensor] = None, x: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """The layer's MLP over rows h (N, D). With `x` (N, D), the residual
+        stream's next rows, x + MLP(h) in fp32 cast to the compute dtype;
+        without, MLP(h) alone (fp32 where the experts are routed)."""
         if "mlp" in lw:
-            return _swiglu(lw["mlp"], h, self.dtype)
-        return self._moe(lw["moe"], h, stats, live) + _swiglu(lw["moe"]["shared"], h, self.dtype).float()
+            y = _swiglu(lw["mlp"], h)
+            return y if x is None else (x.float() + y).to(self.dtype)
+        return self._moe(lw["moe"], h, stats, live, _swiglu(lw["moe"]["shared"], h), x)
 
     def _moe(self, m: Params, h: torch.Tensor, stats: Optional[torch.Tensor],
-             live: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """The routed experts' weighted sum for rows h (N, D), fp32. `stats`
+             live: Optional[torch.Tensor] = None, shared: Optional[torch.Tensor] = None,
+             x: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """The routed experts' weighted sum for rows h (N, D), fp32, plus
+        the shared expert's rows `shared` where given; with `x` too, x + that
+        in the compute dtype (`moe_combine`: on the card one kernel). `stats`
         (3,) int64 on the device gains the experts that got a row, the rows
         routed and the busiest expert's rows, over the rows `live` (N,) bool
         marks (None: every row): a bucket's padding and finished rows are
         computed but counted nowhere."""
         t = self.cfg.text
-        k, e, dt = t.topk, t.n_routed, self.dtype
-        n = h.shape[0]
         idx, wts = route(self.cfg, m, h)
-        flat = idx.reshape(-1)
-        order = torch.argsort(flat, stable=True)
-        ranked = flat[order]
-        xs = h[order // k]
-        ends = torch.searchsorted(ranked, torch.arange(1, e + 1, device=h.device))  # each expert's last row + 1
+        xs, slots, offs = moe_permute(idx, h, t.n_routed, live, stats)
         if h.is_cuda:
-            offs = ends.to(torch.int32)
             gu = torch._grouped_mm(xs, m["gate_up"].transpose(1, 2), offs=offs)
-            a = (F.silu(gu[:, : t.moe_intermediate].float()) * gu[:, t.moe_intermediate:].float()).to(dt)
-            y = torch._grouped_mm(a, m["down"].transpose(1, 2), offs=offs)
+            y = torch._grouped_mm(swiglu(gu), m["down"].transpose(1, 2), offs=offs)
         else:
-            y = torch.empty((n * k, h.shape[1]), dtype=dt, device=h.device)
+            y = torch.empty_like(xs)
             lo = 0
-            for j, hi in enumerate(ends.tolist()):
+            for j, hi in enumerate(offs.tolist()):
                 if hi > lo:
-                    y[lo:hi] = _swiglu({"gate_up": m["gate_up"][j], "down": m["down"][j]}, xs[lo:hi], dt)
+                    y[lo:hi] = _swiglu({"gate_up": m["gate_up"][j], "down": m["down"][j]}, xs[lo:hi])
                 lo = hi
-        if stats is not None:
-            ones = torch.ones_like(flat) if live is None else live[:, None].expand(n, k).reshape(-1).long()
-            counts = torch.zeros((e,), dtype=torch.long, device=h.device).index_add_(0, flat, ones)
-            stats += torch.stack([(counts > 0).sum(), counts.sum(), counts.max()])
-        back = torch.empty_like(y)
-        back[order] = y
-        return (back.reshape(n, k, -1).float() * wts[..., None]).sum(dim=1)
+        self._moe_fused = h.is_cuda
+        if x is None:
+            return moe_combine_ref(y, slots, wts, shared)
+        return moe_combine(y, slots, wts, shared, x)
+
+    def _count_moe(self, passes: int) -> None:
+        """Host counters of `passes` runs of every MoE layer (a prefill
+        forward, or a decode loop's steps): `moe.layer_passes`, and
+        `moe.fused_passes` where the layers ran the kernels of ops/moe."""
+        t = self.cfg.text
+        n = passes * (t.layers - t.first_dense)
+        tracing.count("moe.layer_passes", n)
+        tracing.count("moe.fused_passes", n if self._moe_fused else 0)
 
     def _attn_prefill(self, lw: Params, h: torch.Tensor, cache: torch.Tensor, cis) -> torch.Tensor:
         """Causal MLA over rows h (R, L, D), unabsorbed; writes the rows'
@@ -466,7 +475,8 @@ class KimiVL:
         for i, lw in enumerate(self._w["layers"]):
             x = x + self._attn_prefill(lw, _rms(x, lw["input_norm"], t.eps, dt), cache[i], cis)
             h = _rms(x, lw["post_norm"], t.eps, dt).reshape(r * n, d)
-            x = (x.float() + self._mlp(lw, h, stats, live).reshape(r, n, d)).to(dt)
+            x = self._mlp(lw, h, stats, live, x.reshape(r * n, d)).reshape(r, n, d)
+        self._count_moe(1)
         last = x[torch.arange(r, device=x.device), lengths - 1]
         return self._logits(last)
 
@@ -482,7 +492,7 @@ class KimiVL:
         for i, lw in enumerate(self._w["layers"]):
             x = x + self._attn_decode(lw, _rms(x, lw["input_norm"], t.eps, dt), cache[i], pos, cis, past)
             h = _rms(x, lw["post_norm"], t.eps, dt)
-            x = (x.float() + self._mlp(lw, h, stats, live)).to(dt)
+            x = self._mlp(lw, h, stats, live, x)
         return self._logits(x)
 
     def embed(self, ids: Sequence[int], image_rows: Sequence[torch.Tensor] = ()) -> torch.Tensor:
@@ -587,6 +597,7 @@ class KimiVL:
         tracing.count("vlm.tokens_decoded", n * steps)
         if g.graph is not None:
             tracing.count("vlm.graph_steps", steps)
+        self._count_moe(steps)
         tracing.count("vlm.experts_hit", stats[0])
         tracing.count("moe.rows_routed", stats[1] + st.prefill_stats[1])
         tracing.count("moe.rows_busiest", stats[2] + st.prefill_stats[2])
@@ -629,10 +640,8 @@ class KimiVL:
         return self.tok.decode(self.generate_ids(prompts, rows, max_tokens)[0])
 
 
-def _swiglu(p: Params, h: torch.Tensor, dt) -> torch.Tensor:
-    gu = F.linear(h, p["gate_up"])
-    f = gu.shape[-1] // 2
-    return F.linear((F.silu(gu[..., :f].float()) * gu[..., f:].float()).to(dt), p["down"])
+def _swiglu(p: Params, h: torch.Tensor) -> torch.Tensor:
+    return F.linear(swiglu(F.linear(h, p["gate_up"])), p["down"])
 
 
 @contextlib.contextmanager

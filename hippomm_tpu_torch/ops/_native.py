@@ -3,7 +3,8 @@
 Four shared libraries with plain C interfaces, loaded with ctypes:
 
   * the Hopper kernels (csrc/*.cu → one .so; K1/K4 and K2/K3 have a bf16
-    source and an fp32 one): every `.cu` source compiles
+    source and an fp32 one; moe_glue.cu holds Kimi-VL's routed-expert
+    dispatch and combine): every `.cu` source compiles
     with its own `nvcc` process, all started together, then one link step.
     Targets sm_90a. Needs `nvcc` (PATH or /usr/local/cuda/bin) — there is no
     fallback: a wrapper handed a CUDA tensor launches its kernel or raises.
@@ -43,7 +44,8 @@ logger = logging.getLogger(__name__)
 
 _CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_CSRC), "_build")
-KERNEL_SOURCES = ("flash_mha.cu", "flash_mha_f32.cu", "fused_mlp.cu", "fused_mlp_f32.cu", "topk_cosine.cu")
+KERNEL_SOURCES = ("flash_mha.cu", "flash_mha_f32.cu", "fused_mlp.cu", "fused_mlp_f32.cu", "topk_cosine.cu",
+                  "moe_glue.cu")
 KERNEL_HEADERS = ("hopper.cuh",)
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -181,6 +183,14 @@ def kernels() -> ctypes.CDLL:
         lib.hmm_fused_mlp_f32_smem_bytes.restype = i32
         lib.hmm_topk_cosine_f32.argtypes = [vp, vp, *[i32] * 7, vp, vp, vp]
         lib.hmm_topk_cosine_f32.restype = i32
+        lib.hmm_moe_route.argtypes = [vp, vp, i32, i32, i32, f32, vp, vp, vp]
+        lib.hmm_moe_route.restype = i32
+        lib.hmm_moe_permute.argtypes = [vp, vp, vp, *[i32] * 7, *[vp] * 6]
+        lib.hmm_moe_permute.restype = i32
+        lib.hmm_swiglu_bf16.argtypes = [vp, vp, i64, i32, vp]
+        lib.hmm_swiglu_bf16.restype = i32
+        lib.hmm_moe_combine_bf16.argtypes = [*[vp] * 6, i32, i32, i32, vp]
+        lib.hmm_moe_combine_bf16.restype = i32
         _kernels = lib
         return lib
 

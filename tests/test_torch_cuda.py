@@ -1344,3 +1344,161 @@ def test_kimi_vl_graph_decode_equals_the_eager_steps_on_cuda(cuda_device):
     for j, i in enumerate(order):
         row = eager[j]
         assert got[i] == (row[: row.index(vlm.tok.im_end)] if vlm.tok.im_end in row else row)
+
+
+# Kimi-VL's MoE layer at its published widths: hidden 2048, experts of 1408,
+# 64 routed, 6 a token, the router at 0.02 and the correction bias N(0, 0.1²)
+# of the benchmark's weights; 1 row (the summary's decode), 256 (a caption
+# bucket's) and 32 768 (a prefill forward, 32 permute tiles)
+MOE_ROWS = [1, 256, 32768]
+MOE_D, MOE_F, MOE_E, MOE_K, MOE_SCALE = 2048, 1408, 64, 6, 2.446
+
+
+def _moe_case(device, n, seed):
+    from hippomm_tpu_torch.ops import moe
+
+    g = torch.Generator(device=device).manual_seed(seed)
+    h = torch.randn((n, MOE_D), generator=g, device=device).to(torch.bfloat16)
+    router = 0.02 * torch.randn((MOE_E, MOE_D), generator=g, device=device)
+    bias = 0.1 * torch.randn((MOE_E,), generator=g, device=device)
+    logits = h.float() @ router.t()
+    idx, wts = moe.moe_route_ref(logits, bias, MOE_K, MOE_SCALE)
+    live = torch.rand((n,), generator=g, device=device) < 0.8
+    return h, logits, bias, idx, wts, live
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", MOE_ROWS)
+def test_moe_route_kernel_matches_twin_on_cuda(cuda_device, n):
+    """The experts bit-equal to torch's σ, + bias and topk; the weights
+    within 1e-6 (torch sums k in its own order). A row of 64 equal scores
+    gets experts 0-5 from both, the kernel's in ascending order, torch's in
+    its own (1, 0, 4, 5, 2, 3 on an H100)."""
+    from hippomm_tpu_torch.ops import moe
+
+    _, logits, bias, want_idx, want_wts, _ = _moe_case(cuda_device, n, 41)
+    before = moe.moe_route.launches
+    idx, wts = moe.moe_route(logits, bias, MOE_K, MOE_SCALE)
+    torch.cuda.synchronize()
+    assert moe.moe_route.launches == before + 1
+    assert torch.equal(idx, want_idx)
+    torch.testing.assert_close(wts, want_wts, rtol=1e-6, atol=0)
+    flat = torch.zeros_like(logits)
+    tied_idx, tied_wts = moe.moe_route(flat, torch.zeros_like(bias), MOE_K, MOE_SCALE)
+    ref_idx, ref_wts = moe.moe_route_ref(flat, torch.zeros_like(bias), MOE_K, MOE_SCALE)
+    assert torch.equal(tied_idx.sort(-1).values, ref_idx.sort(-1).values)
+    assert torch.equal(tied_idx.cpu(), torch.arange(MOE_K).expand(n, MOE_K))
+    torch.testing.assert_close(tied_wts, ref_wts, rtol=1e-6, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", MOE_ROWS)
+def test_moe_permute_kernel_matches_twin_on_cuda(cuda_device, n):
+    """Rows, slots, group ends and counters bit-equal to the stable argsort's,
+    counting live rows only; with no live mask every route counts."""
+    from hippomm_tpu_torch.ops import moe
+
+    h, _, _, idx, _, live = _moe_case(cuda_device, n, 42)
+    for mask in (live, None):
+        stats = torch.tensor([3, 5, 7], dtype=torch.long, device=cuda_device)
+        want_stats = stats.clone()
+        before = moe.moe_permute.launches
+        xs, slots, offs = moe.moe_permute(idx, h, MOE_E, mask, stats)
+        torch.cuda.synchronize()
+        assert moe.moe_permute.launches == before + 1
+        want_xs, want_slots, want_offs = moe.moe_permute_ref(idx, h, MOE_E, mask, want_stats)
+        assert torch.equal(slots, want_slots) and torch.equal(offs, want_offs)
+        assert torch.equal(xs, want_xs) and torch.equal(stats, want_stats)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,f", [(1536, 1408), (6, 1408), (256, 2816), (64, 11264), (5, 7)])
+def test_swiglu_kernel_matches_twin_on_cuda(cuda_device, m, f):
+    """Bit-equal to torch's fp32 silu, product and bf16 cast: the routed
+    experts' 1408, the shared expert's 2816, the dense layer's 11264, and an
+    odd width (one element a thread)."""
+    from hippomm_tpu_torch.ops import moe
+
+    g = torch.Generator(device=cuda_device).manual_seed(43)
+    gu = (3 * torch.randn((m, 2 * f), generator=g, device=cuda_device)).to(torch.bfloat16)
+    before = moe.swiglu.launches
+    got = moe.swiglu(gu)
+    torch.cuda.synchronize()
+    assert moe.swiglu.launches == before + 1
+    assert torch.equal(got, moe.swiglu_ref(gu))
+
+
+def _combine_rounding(y, slots, wts, shared, x, twin):
+    """What two fp32 orders of the combine's sum and their bf16 roundings
+    can differ by: 16 roundings of 2⁻²⁴ of |x| + Σ_k |w_k y_k| + |shared|,
+    and two bf16 ulps of the twin's value (bf16 keeps 8 bits)."""
+    mag = x.float().abs() + shared.float().abs()
+    for j in range(slots.shape[1]):
+        mag = mag + (y[slots[:, j].long()].float() * wts[:, j:j + 1]).abs()
+    return 2.0 ** -20 * mag + torch.ldexp(torch.full_like(twin, 2.0), torch.frexp(twin).exponent - 8)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", MOE_ROWS)
+def test_moe_combine_kernel_matches_twin_on_cuda(cuda_device, n):
+    """Bit-equal to fp32 products and sums taken one at a time, k in order.
+    Against the twin, whose sum over k takes torch's own order: the two fp32
+    sums differ by their roundings (at most 16 of 2⁻²⁴ of the terms' sum of
+    magnitudes), and each is then rounded to bf16 (a bf16 ulp each)."""
+    from hippomm_tpu_torch.ops import moe
+
+    h, _, _, idx, wts, _ = _moe_case(cuda_device, n, 44)
+    _, slots, _ = moe.moe_permute(idx, h, MOE_E)
+    g = torch.Generator(device=cuda_device).manual_seed(45)
+    y = (0.05 * torch.randn((n * MOE_K, MOE_D), generator=g, device=cuda_device)).to(torch.bfloat16)
+    shared = (0.05 * torch.randn((n, MOE_D), generator=g, device=cuda_device)).to(torch.bfloat16)
+    before = moe.moe_combine.launches
+    got = moe.moe_combine(y, slots, wts, shared, h)
+    torch.cuda.synchronize()
+    assert moe.moe_combine.launches == before + 1
+    acc = torch.zeros((n, MOE_D), device=cuda_device)
+    for j in range(MOE_K):
+        acc = acc + y[slots[:, j].long()].float() * wts[:, j:j + 1]
+    assert torch.equal(got, (h.float() + (acc + shared.float())).to(torch.bfloat16))
+    twin = moe.moe_combine_ref(y, slots, wts, shared, h).float()
+    assert bool(((got.float() - twin).abs() <= _combine_rounding(y, slots, wts, shared, h, twin)).all())
+
+
+@pytest.mark.cuda
+def test_kimi_vl_full_width_graph_decode_equals_the_eager_steps_on_cuda(cuda_device, monkeypatch):
+    """Kimi-VL's published widths in three layers (one dense, two MoE): a
+    bucket's decode as CUDA graph replays, the MoE kernels inside, gives the
+    tokens of the same steps run eagerly; every MoE layer pass counted as
+    fused."""
+    import dataclasses
+
+    from hippomm_tpu_torch.models.kimi_vl import config as kc
+    from hippomm_tpu_torch.models.kimi_vl import model as km
+    from hippomm_tpu_torch.ops import moe
+    from hippomm_tpu_torch.utils import timers
+
+    base = kc.get_config("kimi-vl-a3b-instruct")
+    cfg = dataclasses.replace(base, text=dataclasses.replace(base.text, layers=3, vocab_size=4096),
+                              vision=dataclasses.replace(base.vision, depth=1), cache_slots=16384)
+    monkeypatch.setitem(kc.CONFIGS, "full-width-3", cfg)
+    vlm = km.KimiVL("full-width-3", dtype=torch.bfloat16, device=cuda_device, seed=7)
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(0, 3800, size=n).tolist() for n in (40, 75, 9)]
+    start = len(timers.RING)
+    got = vlm.generate_ids(prompts, [[], [], []], 16)
+    recs = list(timers.RING)[start:]
+    layer = sum(r.n for r in recs if r.name == "moe.layer_passes")
+    assert layer > 0 and sum(r.n for r in recs if r.name == "moe.fused_passes") == layer
+    g = vlm._graphs[4, 512]
+    assert g.graph is not None
+    order = sorted(range(3), key=lambda i: len(prompts[i]))
+    st = g.state
+    st.start([prompts[i] for i in order], [[], [], []])
+    before = moe.moe_route.launches
+    for _ in range(15):
+        st.step()
+    assert moe.moe_route.launches == before + 15 * 2
+    eager = st.out[:3, :16].tolist()
+    for j, i in enumerate(order):
+        row = eager[j]
+        assert got[i] == (row[: row.index(vlm.tok.im_end)] if vlm.tok.im_end in row else row)
