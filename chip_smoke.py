@@ -214,9 +214,13 @@ Phases (any failure exits non-zero and prints no result line):
      "kimi-vl-a3b-instruct" (ImageBind tiny, Whisper stub): its
      frame_client captions 40 seeded 640×360 JPEG key frames in one call,
      with exact K1 and K2 launches read from counts set to 0 just before
-     (depth 27 per ViT chunk, ceil(40 / 32) chunks), every decode step a
-     graph replay, 40 captions; its summariser writes one summary of the
-     40 captions with no K1/K2 launch; one frame's image tokens within
+     (depth 27 per ViT chunk, ceil(40 / 32) chunks) and exact ops/moe
+     launches (route, permute and combine once a MoE layer, a SwiGLU once
+     a layer and once more a MoE layer, in each prefill forward and in
+     both eager steps of each graph capture; none in a replay), every
+     decode step a graph replay, 40 captions; its summariser writes one
+     summary of the 40 captions with no K1/K2 launch and its exact MoE
+     launches; one frame's image tokens within
      0.04 relative L2 of the plain fp32 reference's (reference.py, TF32
      off); seconds of each call, decode ms a step, peak memory. (c) The
      routed experts' kernels (ops/moe: route, permute, SwiGLU, combine) at
@@ -231,7 +235,8 @@ Phases (any failure exits non-zero and prints no result line):
 
 Prints the card's name and power limit, a `{"kernels": [...]}` line (the
 fp32 kernels as entries of their own, `<name>_f32`, with phase 13's
-launches), and as
+launches; the MoE kernels with phase 16's, their share of the bound from
+device time at 256 rows), and as
 its last line `{"ok": true, "device": {...}}`. Writes the same numbers to
 chiprun_out/chip_smoke.json. Needs no network and no checkpoint.
 Phase 9 writes its own checkpoint file from a seed.
@@ -3324,8 +3329,9 @@ def vlm_phase(counters, fa, fm, card):
     from a seed): (a) K2's tanh instance and K1 at the ViT chunk's shapes
     against their plain versions; (b) the engine with models.vlm_variant
     set captions VLM_FRAMES JPEG key frames in one call and writes one
-    summary through the in-process model: exact K1/K2 launches, graph
-    replays, one frame's image tokens against the fp32 reference."""
+    summary through the in-process model: exact K1/K2 and MoE kernel
+    launches, graph replays, one frame's image tokens against the fp32
+    reference."""
     import gc
 
     import numpy as np
@@ -3337,8 +3343,10 @@ def vlm_phase(counters, fa, fm, card):
     from hippomm_tpu_torch.models.kimi_vl import reference as kref
     from hippomm_tpu_torch.models.kimi_vl.config import get_config
     from hippomm_tpu_torch.models.kimi_vl.model import hf_config
+    from hippomm_tpu_torch.ops import moe
     from hippomm_tpu_torch.utils import timers as tracing
 
+    counters = dict(counters, **{name: getattr(moe, name) for name in MOE_KERNELS})
     gc.collect()
     torch.cuda.empty_cache()
     started = time.perf_counter()
@@ -3396,14 +3404,16 @@ def vlm_phase(counters, fa, fm, card):
     tracing.RING.clear()
     torch.cuda.reset_peak_memory_stats()
     _reset_counts(counters)
+    loops = len(vlm.loops)
     t0 = time.perf_counter()
     captions = mem.frame_client.caption_images(jpegs, CAPTION_PROMPT)
     torch.cuda.synchronize()
     cap_s = time.perf_counter() - t0
     launches = {k: c.launches for k, c in counters.items()}
     chunks = math.ceil(VLM_FRAMES / kc.vision_chunk)
-    want = {k: 0 for k in counters}
+    want = _moe_launches(vlm.cfg, list(vlm.loops)[loops:], tracing.RING)
     want.update(flash_mha=v.depth * chunks, fused_mlp=v.depth * chunks)
+    want = {k: want.get(k, 0) for k in counters}
     if launches != want:
         fail(f"vlm: the caption call launched {launches}, not {want}")
     if len(captions) != VLM_FRAMES or not all(captions) or any(c.startswith("[Error") for c in captions):
@@ -3416,13 +3426,17 @@ def vlm_phase(counters, fa, fm, card):
     out["caption"] = {"frames": VLM_FRAMES, "s": cap_s, "launches": launches, "rows": loop["rows"],
                       "steps": loop["steps"], "decode_ms_per_step": decode / 1e6 / max(1, loop["steps"]),
                       "peak_bytes": torch.cuda.max_memory_allocated()}
+    tracing.RING.clear()
     _reset_counts(counters)
+    loops = len(vlm.loops)
     t0 = time.perf_counter()
     summary = mem.qwen.generate("Summarize these scene descriptions:\n" + "\n".join(captions), max_tokens=128)
     torch.cuda.synchronize()
     sum_launches = {k: c.launches for k, c in counters.items()}
-    if any(sum_launches.values()) or not summary:
-        fail(f"vlm: the summary launched {sum_launches} (want none) and wrote {len(summary)} characters")
+    sum_want = _moe_launches(vlm.cfg, list(vlm.loops)[loops:], tracing.RING)
+    sum_want = {k: sum_want.get(k, 0) for k in counters}
+    if sum_launches != sum_want or not summary:
+        fail(f"vlm: the summary launched {sum_launches}, not {sum_want}, and wrote {len(summary)} characters")
     out["summary"] = {"s": time.perf_counter() - t0, "launches": sum_launches,
                       "prompt_tokens": vlm.loops[-1]["lengths"][0]}
     # one frame's image tokens against the plain fp32 reference
@@ -3448,6 +3462,48 @@ def vlm_phase(counters, fa, fm, card):
 
 
 MOE_ROWS = (1, 256, 32768)  # a summary's decode step, a caption bucket's, a prefill forward
+MOE_KERNELS = ("moe_route", "moe_permute", "swiglu", "moe_combine")
+
+
+def _moe_launches(kc, loops, ring):
+    """The ops/moe launches of the decode loops `loops` (vlm.loops entries)
+    whose spans and counters `ring` holds: each pass of the language model
+    launches route, permute and combine once a MoE layer, and a SwiGLU once
+    a layer (dense or shared expert) and once more a MoE layer (the routed
+    experts). A pass is a prefill forward (a loop's rows in groups of
+    prefill_tokens // its longest prompt) or an eager step: two for each
+    graph capture (the warm-up and the captured step); a replay launches
+    nothing."""
+    t = kc.text
+    forwards = sum(-(-lp["real"] // max(1, kc.prefill_tokens // max(lp["lengths"]))) for lp in loops)
+    captures = sum(r.n for r in ring if r.name == "vlm.graph_captures")
+    passes = forwards + 2 * captures
+    moe_layers = t.layers - t.first_dense
+    return {"moe_route": moe_layers * passes, "moe_permute": moe_layers * passes,
+            "moe_combine": moe_layers * passes, "swiglu": (t.layers + moe_layers) * passes}
+
+
+def moe_kernel_entries(vlm, by_path):
+    """The `kernels` line's entries of the routed experts' kernels from
+    phase 16's report `vlm`: the JAX package has no Kimi-VL, so they
+    replace no TPU kernel; their own path is the caption call, their head
+    shape a caption bucket's decode step (256 rows), their share of the
+    bound from device time."""
+    out = []
+    for name in MOE_KERNELS:
+        at = vlm["moe_kernels"]
+        row = name.removeprefix("moe_")  # moe_kernels_check's key
+        head = at[256][row]
+        out.append({
+            "name": name, "route": "cuda", "source": "hippomm_tpu_torch/csrc/moe_glue.cu", "replaces": None,
+            "launches": by_path["vlm_caption"][name],
+            "launches_by_path": {ph: counts.get(name, 0) for ph, counts in by_path.items()},
+            "ms": head["ms"], "plain_ms": head["twin_ms"], "device_ms": head["device_us"] / 1e3,
+            "bound_ms": head["bound_ms"], "bound_by": "bytes",
+            "pct_of_bound": 100.0 * head["bound_ms"] / max(head["device_us"] / 1e3, 1e-9),
+            "shapes": [dict(at[n][row], rows=n) for n in MOE_ROWS],
+        })
+    return out
 
 
 def moe_kernels_check():
@@ -4002,8 +4058,10 @@ def main() -> int:
     # phase 15: extract_features over numpy inputs, default and fused
     for ph in ("default", "fused"):
         by_path[f"surface_{ph}"] = report["surface"]["extract"][ph]["launches"]
-    # phase 16: the engine's caption call (MoonViT's K1 and K2 tanh)
+    # phase 16: the engine's caption call (MoonViT's K1 and K2 tanh, the
+    # MoE kernels) and its summary (the MoE kernels)
     by_path["vlm_caption"] = report["vlm"]["caption"]["launches"]
+    by_path["vlm_summary"] = report["vlm"]["summary"]["launches"]
     # the fp32 kernels' launches per phase-13 path, each read from counts
     # set to 0 just before it
     by_path_f32 = {f"fp32_ingest_{ph}": report["fp32"]["ingest"]["runs"][ph]["launches_f32"]
@@ -4030,6 +4088,7 @@ def main() -> int:
             "bound_by": head["bound_by"], "library_ms": head["library_ms"],
             "pct_of_bound": head["pct_of_bound"], "shapes": rs,
         })
+    kernels += moe_kernel_entries(report["vlm"], by_path)
     report["kernels"] = kernels
     report["wall_s"] = time.perf_counter() - started
     print(f"chip_smoke: all phases in {report['wall_s']:.1f} s, the build included", flush=True)

@@ -57,20 +57,15 @@ constexpr int kRouteWarps = 8;  // rows a route block takes
 
 typedef __nv_bfloat16 bf16;
 
-template <int V>
-struct alignas(2 * V) Pack {
-  bf16 v[V];
+constexpr int kVec = 8;  // bf16 a 16-byte load: the SwiGLU's and the combine's widths are multiples of 8
+
+struct alignas(16) Pack {
+  bf16 v[kVec];
 };
 
-template <int V>
-__device__ __forceinline__ Pack<V> load(const bf16* p) {
-  return *reinterpret_cast<const Pack<V>*>(p);
-}
+__device__ __forceinline__ Pack load(const bf16* p) { return *reinterpret_cast<const Pack*>(p); }
 
-template <int V>
-__device__ __forceinline__ void store(bf16* p, const Pack<V>& x) {
-  *reinterpret_cast<Pack<V>*>(p) = x;
-}
+__device__ __forceinline__ void store(bf16* p, const Pack& x) { *reinterpret_cast<Pack*>(p) = x; }
 
 __global__ void moe_route_kernel(const float* __restrict__ logits, const float* __restrict__ bias, int n,
                                  int e, int k, float scale, long long* __restrict__ idx,
@@ -280,64 +275,58 @@ __global__ void moe_permute_kernel(const long long* __restrict__ idx, const unsi
   }
 }
 
-template <int V>
 __global__ void swiglu_kernel(const bf16* __restrict__ gu, bf16* __restrict__ out, long long m, int f) {
-  const int fv = f / V;
+  const int fv = f / kVec;
   const long long total = m * fv;
   for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < total;
        i += (long long)gridDim.x * blockDim.x) {
     const long long row = i / fv;
-    const int c = (int)(i - row * fv) * V;
+    const int c = (int)(i - row * fv) * kVec;
     const bf16* g = gu + row * 2 * f + c;
-    const Pack<V> gv = load<V>(g), uv = load<V>(g + f);
-    Pack<V> o;
+    const Pack gv = load(g), uv = load(g + f);
+    Pack o;
 #pragma unroll
-    for (int t = 0; t < V; ++t) {
+    for (int t = 0; t < kVec; ++t) {
       const float a = __bfloat162float(gv.v[t]);
       o.v[t] = __float2bfloat16_rn((a / (1.0f + expf(-a))) * __bfloat162float(uv.v[t]));
     }
-    store<V>(out + row * f + c, o);
+    store(out + row * f + c, o);
   }
 }
 
-template <int V>
 __global__ void moe_combine_kernel(const bf16* __restrict__ y, const int* __restrict__ slots,
                                    const float* __restrict__ wts, const bf16* __restrict__ shared,
                                    const bf16* __restrict__ x, bf16* __restrict__ out, int n, int k, int d) {
-  const int dv = d / V;
+  const int dv = d / kVec;
   const long long total = (long long)n * dv;
   for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < total;
        i += (long long)gridDim.x * blockDim.x) {
     const long long row = i / dv;
-    const int c = (int)(i - row * dv) * V;
-    float acc[V];
+    const int c = (int)(i - row * dv) * kVec;
+    float acc[kVec];
 #pragma unroll
-    for (int t = 0; t < V; ++t) acc[t] = 0.f;
+    for (int t = 0; t < kVec; ++t) acc[t] = 0.f;
     for (int j = 0; j < k; ++j) {
       const long long s = slots[row * k + j];
       const float w = wts[row * k + j];
-      const Pack<V> yv = load<V>(y + s * d + c);
+      const Pack yv = load(y + s * d + c);
 #pragma unroll
-      for (int t = 0; t < V; ++t) acc[t] = __fadd_rn(acc[t], __fmul_rn(__bfloat162float(yv.v[t]), w));
+      for (int t = 0; t < kVec; ++t) acc[t] = __fadd_rn(acc[t], __fmul_rn(__bfloat162float(yv.v[t]), w));
     }
-    const Pack<V> sv = load<V>(shared + row * d + c), xv = load<V>(x + row * d + c);
-    Pack<V> o;
+    const Pack sv = load(shared + row * d + c), xv = load(x + row * d + c);
+    Pack o;
 #pragma unroll
-    for (int t = 0; t < V; ++t)
+    for (int t = 0; t < kVec; ++t)
       o.v[t] = __float2bfloat16_rn(__fadd_rn(__bfloat162float(xv.v[t]), __fadd_rn(acc[t], __bfloat162float(sv.v[t]))));
-    store<V>(out + row * d + c, o);
+    store(out + row * d + c, o);
   }
 }
 
-// widest of 8, 4, 2, 1 bf16 that divides `width` and leaves every pointer
-// aligned to it
-int vector_width(int width, const void* const* ptrs, int count) {
-  for (int v = 8; v > 1; v >>= 1) {
-    bool ok = width % v == 0;
-    for (int i = 0; i < count; ++i) ok = ok && reinterpret_cast<uintptr_t>(ptrs[i]) % (2 * v) == 0;
-    if (ok) return v;
-  }
-  return 1;
+// every pointer 16-byte aligned
+bool aligned(const void* const* ptrs, int count) {
+  for (int i = 0; i < count; ++i)
+    if (reinterpret_cast<uintptr_t>(ptrs[i]) % 16) return false;
+  return true;
 }
 
 int grid_for(long long items, int threads) {
@@ -385,41 +374,26 @@ int hmm_moe_permute(const void* idx, const void* live, const void* h, int n, int
   return (int)cudaGetLastError();
 }
 
-// gu (m, 2f) bf16 contiguous -> out (m, f) bf16. Returns the CUDA error.
+// gu (m, 2f) bf16 contiguous -> out (m, f) bf16; f % 8 == 0, both 16-byte
+// aligned. Returns the CUDA error.
 int hmm_swiglu_bf16(const void* gu, void* out, long long m, int f, void* stream) {
-  if (m < 1 || f < 1) return (int)cudaErrorInvalidValue;
   const void* ptrs[2] = {gu, out};
-  const int v = vector_width(f, ptrs, 2);
-  const int grid = grid_for(m * (f / v), 256);
-  const auto* g = static_cast<const bf16*>(gu);
-  auto* o = static_cast<bf16*>(out);
-  const auto s = (cudaStream_t)stream;
-  if (v == 8) swiglu_kernel<8><<<grid, 256, 0, s>>>(g, o, m, f);
-  else if (v == 4) swiglu_kernel<4><<<grid, 256, 0, s>>>(g, o, m, f);
-  else if (v == 2) swiglu_kernel<2><<<grid, 256, 0, s>>>(g, o, m, f);
-  else swiglu_kernel<1><<<grid, 256, 0, s>>>(g, o, m, f);
+  if (m < 1 || f < kVec || f % kVec || !aligned(ptrs, 2)) return (int)cudaErrorInvalidValue;
+  swiglu_kernel<<<grid_for(m * (f / kVec), 256), 256, 0, (cudaStream_t)stream>>>(
+      static_cast<const bf16*>(gu), static_cast<bf16*>(out), m, f);
   return (int)cudaGetLastError();
 }
 
-// y (n·k, d), shared (n, d), x (n, d) bf16 contiguous; slots (n, k) int32,
-// wts (n, k) fp32 -> out (n, d) bf16. Returns the CUDA error.
+// y (n·k, d), shared (n, d), x (n, d) bf16 contiguous, d % 8 == 0, 16-byte
+// aligned; slots (n, k) int32, wts (n, k) fp32 -> out (n, d) bf16. Returns
+// the CUDA error.
 int hmm_moe_combine_bf16(const void* y, const void* slots, const void* wts, const void* shared, const void* x,
                          void* out, int n, int k, int d, void* stream) {
-  if (n < 1 || k < 1 || d < 1) return (int)cudaErrorInvalidValue;
   const void* ptrs[4] = {y, shared, x, out};
-  const int v = vector_width(d, ptrs, 4);
-  const int grid = grid_for((long long)n * (d / v), 256);
-  const auto* yy = static_cast<const bf16*>(y);
-  const auto* sl = static_cast<const int*>(slots);
-  const auto* w = static_cast<const float*>(wts);
-  const auto* sh = static_cast<const bf16*>(shared);
-  const auto* xx = static_cast<const bf16*>(x);
-  auto* o = static_cast<bf16*>(out);
-  const auto s = (cudaStream_t)stream;
-  if (v == 8) moe_combine_kernel<8><<<grid, 256, 0, s>>>(yy, sl, w, sh, xx, o, n, k, d);
-  else if (v == 4) moe_combine_kernel<4><<<grid, 256, 0, s>>>(yy, sl, w, sh, xx, o, n, k, d);
-  else if (v == 2) moe_combine_kernel<2><<<grid, 256, 0, s>>>(yy, sl, w, sh, xx, o, n, k, d);
-  else moe_combine_kernel<1><<<grid, 256, 0, s>>>(yy, sl, w, sh, xx, o, n, k, d);
+  if (n < 1 || k < 1 || d < kVec || d % kVec || !aligned(ptrs, 4)) return (int)cudaErrorInvalidValue;
+  moe_combine_kernel<<<grid_for((long long)n * (d / kVec), 256), 256, 0, (cudaStream_t)stream>>>(
+      static_cast<const bf16*>(y), static_cast<const int*>(slots), static_cast<const float*>(wts),
+      static_cast<const bf16*>(shared), static_cast<const bf16*>(x), static_cast<bf16*>(out), n, k, d);
   return (int)cudaGetLastError();
 }
 

@@ -49,6 +49,7 @@ import torch.nn.functional as F
 from hippomm_tpu_torch.models.kimi_vl.config import KimiVLConfig, get_config
 from hippomm_tpu_torch.models.kimi_vl.tokenizer import StandInTokenizer
 from hippomm_tpu_torch.models.whisper.model import StepGraph
+from hippomm_tpu_torch.ops import moe as moe_ops
 from hippomm_tpu_torch.ops.flash_attention import flash_mha
 from hippomm_tpu_torch.ops.fused_mlp import fused_mlp, fused_mlp_ref, fused_mlp_supported
 from hippomm_tpu_torch.ops.matmul import bmm_f32, matmul_f32
@@ -236,7 +237,6 @@ class KimiVL:
         self._pool: Optional[torch.Tensor] = None
         self._graphs: Dict[int, StepGraph] = {}
         self._lock = threading.Lock()
-        self._moe_fused = False  # whether the MoE layers last ran the kernels of ops/moe
         # one entry per decode loop (rows launched, real rows, their prompt
         # lengths and tokens decoded, positions a row, steps, experts hit),
         # for the benchmark's operation and byte counts
@@ -371,7 +371,8 @@ class KimiVL:
              live: Optional[torch.Tensor] = None, x: Optional[torch.Tensor] = None) -> torch.Tensor:
         """The layer's MLP over rows h (N, D). With `x` (N, D), the residual
         stream's next rows, x + MLP(h) in fp32 cast to the compute dtype;
-        without, MLP(h) alone (fp32 where the experts are routed)."""
+        without, MLP(h) alone (fp32 where the experts are routed, and then
+        CPU tensors only)."""
         if "mlp" in lw:
             y = _swiglu(lw["mlp"], h)
             return y if x is None else (x.float() + y).to(self.dtype)
@@ -382,7 +383,8 @@ class KimiVL:
              x: Optional[torch.Tensor] = None) -> torch.Tensor:
         """The routed experts' weighted sum for rows h (N, D), fp32, plus
         the shared expert's rows `shared` where given; with `x` too, x + that
-        in the compute dtype (`moe_combine`: on the card one kernel). `stats`
+        in the compute dtype (`moe_combine`: on the card one kernel, which
+        needs `x`: without it CUDA tensors raise). `stats`
         (3,) int64 on the device gains the experts that got a row, the rows
         routed and the busiest expert's rows, over the rows `live` (N,) bool
         marks (None: every row): a bucket's padding and finished rows are
@@ -400,19 +402,20 @@ class KimiVL:
                 if hi > lo:
                     y[lo:hi] = _swiglu({"gate_up": m["gate_up"][j], "down": m["down"][j]}, xs[lo:hi])
                 lo = hi
-        self._moe_fused = h.is_cuda
-        if x is None:
-            return moe_combine_ref(y, slots, wts, shared)
-        return moe_combine(y, slots, wts, shared, x)
+        if x is not None:
+            return moe_combine(y, slots, wts, shared, x)
+        if h.is_cuda:
+            raise ValueError("on the card the MoE layer takes the residual rows x, which moe_combine adds")
+        return moe_combine_ref(y, slots, wts, shared)
 
-    def _count_moe(self, passes: int) -> None:
+    def _count_moe(self, passes: int, fused: int) -> None:
         """Host counters of `passes` runs of every MoE layer (a prefill
         forward, or a decode loop's steps): `moe.layer_passes`, and
-        `moe.fused_passes` where the layers ran the kernels of ops/moe."""
+        `moe.fused_passes`, the `fused` of them that launched
+        `moe_combine`'s kernel."""
         t = self.cfg.text
-        n = passes * (t.layers - t.first_dense)
-        tracing.count("moe.layer_passes", n)
-        tracing.count("moe.fused_passes", n if self._moe_fused else 0)
+        tracing.count("moe.layer_passes", passes * (t.layers - t.first_dense))
+        tracing.count("moe.fused_passes", fused)
 
     def _attn_prefill(self, lw: Params, h: torch.Tensor, cache: torch.Tensor, cis) -> torch.Tensor:
         """Causal MLA over rows h (R, L, D), unabsorbed; writes the rows'
@@ -472,11 +475,12 @@ class KimiVL:
         cis = self._rope(torch.arange(n, device=embeds.device))
         live = (torch.arange(n, device=embeds.device)[None] < lengths[:, None]).reshape(-1)
         x = embeds.to(dt)
+        launched = moe_ops.moe_combine.launches
         for i, lw in enumerate(self._w["layers"]):
             x = x + self._attn_prefill(lw, _rms(x, lw["input_norm"], t.eps, dt), cache[i], cis)
             h = _rms(x, lw["post_norm"], t.eps, dt).reshape(r * n, d)
             x = self._mlp(lw, h, stats, live, x.reshape(r * n, d)).reshape(r, n, d)
-        self._count_moe(1)
+        self._count_moe(1, moe_ops.moe_combine.launches - launched)
         last = x[torch.arange(r, device=x.device), lengths - 1]
         return self._logits(last)
 
@@ -597,7 +601,7 @@ class KimiVL:
         tracing.count("vlm.tokens_decoded", n * steps)
         if g.graph is not None:
             tracing.count("vlm.graph_steps", steps)
-        self._count_moe(steps)
+        self._count_moe(steps, steps * st.fused)
         tracing.count("vlm.experts_hit", stats[0])
         tracing.count("moe.rows_routed", stats[1] + st.prefill_stats[1])
         tracing.count("moe.rows_busiest", stats[2] + st.prefill_stats[2])
@@ -676,6 +680,7 @@ class _DecodeState:
         self.done = torch.zeros((), dtype=torch.bool, device=dev)
         self.stats = torch.zeros((3,), dtype=torch.long, device=dev)
         self.prefill_stats = [0, 0, 0]
+        self.fused = 0  # MoE layers whose combine was the kernel in the last eager step; a replay repeats it
 
     def buffer_bytes(self) -> int:
         return sum(t.numel() * t.element_size() for t in (self.tokens, self.pos, self.at, self.out,
@@ -712,7 +717,9 @@ class _DecodeState:
 
     def step(self) -> torch.Tensor:
         m = self.model
+        launched = moe_ops.moe_combine.launches
         logits = m.decode_logits(self.tokens, self.pos, self.cache, self.stats, ~self.finished)
+        self.fused = moe_ops.moe_combine.launches - launched
         nxt = torch.where(self.finished, m.tok.im_end, logits.argmax(dim=-1))
         self.out.index_copy_(1, self.at, nxt[:, None].to(torch.int32))
         self.finished |= nxt == m.tok.im_end

@@ -76,6 +76,14 @@ def _check_dtypes(name: str, want: torch.dtype, *ts: torch.Tensor) -> None:
         raise NotImplementedError(f"the {name} kernel takes {want}, got {[t.dtype for t in ts]}")
 
 
+def _check_rows(name: str, width: int, *ts: torch.Tensor) -> None:
+    """The SwiGLU and the combine move 8 bf16 a load: rows of a multiple of
+    8 elements, each operand 16-byte aligned."""
+    if width % 8 or any(t.data_ptr() % 16 for t in ts):
+        raise ValueError(f"the {name} kernel takes rows of a multiple of 8 elements, 16-byte aligned; got "
+                         f"width {width}")
+
+
 # ------------------------------------------------------------------ route
 
 
@@ -189,11 +197,12 @@ def swiglu_ref(gu: torch.Tensor) -> torch.Tensor:
 
 def swiglu(gu: torch.Tensor) -> torch.Tensor:
     """SwiGLU between an MLP's two products: gu (M, 2F), the gate then the
-    up projection, -> (M, F) in gu's dtype (bf16 on the card)."""
+    up projection, -> (M, F) in gu's dtype (on the card bf16, F % 8 == 0)."""
     if not _on_cuda("swiglu", gu):
         return swiglu_ref(gu)
     _check_dtypes("swiglu", torch.bfloat16, gu)
     m, f = gu.numel() // gu.shape[-1], gu.shape[-1] // 2
+    _check_rows("swiglu", f, gu)
     out = torch.empty((*gu.shape[:-1], f), dtype=gu.dtype, device=gu.device)
     _launch("hmm_swiglu_bf16", gu.device, gu.data_ptr(), out.data_ptr(), m, f)
     _native.count_launch(swiglu)
@@ -221,7 +230,7 @@ def moe_combine(y: torch.Tensor, slots: torch.Tensor, wts: torch.Tensor, shared:
     """The residual stream's next rows: x + (Σ_k wts[:, k] · y[slots[:, k]] +
     shared) for the expert outputs y (N·k, D) in expert-major order, slots
     and wts (N, k), the shared expert's rows and x (N, D); fp32 throughout,
-    k in order, cast to x's dtype (bf16 on the card)."""
+    k in order, cast to x's dtype (on the card bf16, D % 8 == 0)."""
     if not _on_cuda("moe_combine", y, slots, wts, shared, x):
         return moe_combine_ref(y, slots, wts, shared, x)
     _check_dtypes("moe_combine", torch.bfloat16, y, shared, x)
@@ -231,6 +240,7 @@ def moe_combine(y: torch.Tensor, slots: torch.Tensor, wts: torch.Tensor, shared:
             or y.shape != (n * k, d) or shared.shape != (n, d) or x.shape != (n, d)):
         raise ValueError(f"moe_combine kernel does not take y {tuple(y.shape)}, slots {tuple(slots.shape)}, "
                          f"x {tuple(x.shape)}")
+    _check_rows("moe_combine", d, y, shared, x)
     out = torch.empty_like(x)
     _launch("hmm_moe_combine_bf16", x.device, y.data_ptr(), slots.data_ptr(), wts.data_ptr(),
             shared.data_ptr(), x.data_ptr(), out.data_ptr(), n, k, d)

@@ -1412,11 +1412,10 @@ def test_moe_permute_kernel_matches_twin_on_cuda(cuda_device, n):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("m,f", [(1536, 1408), (6, 1408), (256, 2816), (64, 11264), (5, 7)])
+@pytest.mark.parametrize("m,f", [(1536, 1408), (6, 1408), (256, 2816), (64, 11264)])
 def test_swiglu_kernel_matches_twin_on_cuda(cuda_device, m, f):
     """Bit-equal to torch's fp32 silu, product and bf16 cast: the routed
-    experts' 1408, the shared expert's 2816, the dense layer's 11264, and an
-    odd width (one element a thread)."""
+    experts' 1408, the shared expert's 2816, the dense layer's 11264."""
     from hippomm_tpu_torch.ops import moe
 
     g = torch.Generator(device=cuda_device).manual_seed(43)
@@ -1426,6 +1425,25 @@ def test_swiglu_kernel_matches_twin_on_cuda(cuda_device, m, f):
     torch.cuda.synchronize()
     assert moe.swiglu.launches == before + 1
     assert torch.equal(got, moe.swiglu_ref(gu))
+
+
+@pytest.mark.cuda
+def test_moe_kernels_refuse_rows_they_do_not_take_on_cuda(cuda_device):
+    """The SwiGLU and the combine take rows of a multiple of 8 bf16, 16-byte
+    aligned, and the MoE layer on the card needs the residual rows its
+    combine adds: each refusal raises rather than running the plain ops."""
+    from hippomm_tpu_torch.models.kimi_vl import model as km
+    from hippomm_tpu_torch.ops import moe
+
+    gu = torch.zeros((5, 14), dtype=torch.bfloat16, device=cuda_device)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        moe.swiglu(gu)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        moe.swiglu(torch.zeros(3 * 2816 + 1, dtype=torch.bfloat16, device=cuda_device)[1:].view(3, 2816))
+    vlm = km.KimiVL("tiny", dtype=torch.bfloat16, device=cuda_device, seed=5)
+    h = torch.zeros((4, vlm.cfg.text.hidden), dtype=torch.bfloat16, device=cuda_device)
+    with pytest.raises(ValueError, match="residual rows"):
+        vlm._moe(vlm._w["layers"][1]["moe"], h, None)
 
 
 def _combine_rounding(y, slots, wts, shared, x, twin):

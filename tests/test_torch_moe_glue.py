@@ -170,3 +170,21 @@ def test_generate_counts_the_moe_layer_passes(tiny):
     assert passes == (1 + loop["steps"]) * layers
     assert sum(r.n for r in recs if r.name == "moe.fused_passes") == 0
     assert any(r.name == "moe.fused_passes" for r in recs)
+
+
+def test_fused_passes_are_the_layers_that_launched_the_combine_kernel(tiny, monkeypatch):
+    """`moe.fused_passes` reads the combine kernel's launches: a stand-in
+    that counts a launch per call makes every pass fused, in the prefill
+    and in each decode step."""
+    _, vlm = tiny
+
+    def launching(*args):
+        moe.moe_combine.launches += 1
+        return moe.moe_combine_ref(*args)
+
+    monkeypatch.setattr(km, "moe_combine", launching)
+    start = len(timers.RING)
+    vlm.generate_ids([list(range(5, 20))], [[]], 4)
+    recs = list(timers.RING)[start:]
+    passes = sum(r.n for r in recs if r.name == "moe.layer_passes")
+    assert passes > 0 and sum(r.n for r in recs if r.name == "moe.fused_passes") == passes
