@@ -221,10 +221,10 @@ Phases (any failure exits non-zero and prints no result line):
      decode step a graph replay, 40 captions; its summariser writes one
      summary of the 40 captions with no K1/K2 launch and its exact MoE
      launches; one frame's image tokens within
-     0.04 relative L2 of the plain fp32 reference's (reference.py, TF32
-     off); seconds of each call, decode ms a step, peak memory. (c) The
-     routed experts' kernels (ops/moe: route, permute, SwiGLU, combine) at
-     a decode step's 1 and 256 rows and a prefill forward's 32768, against
+     0.04 relative L2 of the plain fp32 reference's
+     (portbench/reference/kimi_vl.py, TF32 off); seconds of each call,
+     decode ms a step, peak memory. (c) The routed experts' kernels
+     (ops/moe: route, permute, SwiGLU, combine) at a decode step's 1 and 256 rows and a prefill forward's 32768, against
      their plain twins as the card tests hold them; each one's ms and
      device µs beside its twin's and its bytes' bound. (d) A decode step's
      graph at 1, 64 and 256 rows, captured once with the MoE layers through
@@ -3332,6 +3332,7 @@ def vlm_phase(counters, fa, fm, card):
     summary through the in-process model: exact K1/K2 and MoE kernel
     launches, graph replays, one frame's image tokens against the fp32
     reference."""
+    import dataclasses
     import gc
 
     import numpy as np
@@ -3340,11 +3341,11 @@ def vlm_phase(counters, fa, fm, card):
     from hippomm_tpu_torch.config import Config
     from hippomm_tpu_torch.media.io import jpeg_encode
     from hippomm_tpu_torch.memory.engine import CAPTION_PROMPT, HippocampalMemory
-    from hippomm_tpu_torch.models.kimi_vl import reference as kref
     from hippomm_tpu_torch.models.kimi_vl.config import get_config
-    from hippomm_tpu_torch.models.kimi_vl.model import hf_config
+    from hippomm_tpu_torch.models.kimi_vl.model import hf_config, init_params
     from hippomm_tpu_torch.ops import moe
     from hippomm_tpu_torch.utils import timers as tracing
+    from portbench.reference import kimi_vl as kref
 
     counters = dict(counters, **{name: getattr(moe, name) for name in MOE_KERNELS})
     gc.collect()
@@ -3442,7 +3443,10 @@ def vlm_phase(counters, fa, fm, card):
     # one frame's image tokens against the plain fp32 reference
     rows = vlm.encode_images(frames[:1])[0].float()
     pix = vlm.pixels(frames[:1])
-    want_rows = kref.vision_forward(vlm.params, hf_config(kc), pix)[0]
+    # the engine's model draws its weights from seed 0, the ViT's and the
+    # projector's first: the same draws without the language model's layers
+    vision_only = dataclasses.replace(kc, text=dataclasses.replace(kc.text, layers=0))
+    want_rows = kref.vision_forward(init_params(vision_only, 0, vlm.device, vlm.dtype), hf_config(kc), pix)[0]
     gap = ((rows - want_rows).norm(dim=1) / want_rows.norm(dim=1).clamp(min=1e-12)).max().item()
     if not math.isfinite(gap) or gap > VLM_VISION_GAP:
         fail(f"vlm: image tokens {gap:.4f} relative L2 from the fp32 reference > {VLM_VISION_GAP}")
@@ -3591,7 +3595,7 @@ def decode_step_probe(vlm, rows_list=(1, 64, 256), steps: int = 16, prompt_len: 
     from torch.profiler import ProfilerActivity, profile
 
     from hippomm_tpu_torch.models.kimi_vl import model as km
-    from hippomm_tpu_torch.models.whisper.model import StepGraph
+    from hippomm_tpu_torch.models.decode import StepGraph
     from hippomm_tpu_torch.ops import moe
 
     twins = {"moe_route": moe.moe_route_ref, "moe_permute": moe.moe_permute_ref, "swiglu": moe.swiglu_ref,

@@ -30,13 +30,14 @@ positions a row in powers of two from 512 up to the row's share,
 `cache_slots // rows`, of one latent cache pool that all buckets view, so
 the cache's bytes are fixed; a step reads its bucket's positions only.
 Each bucket's decode step is a CUDA graph replayed through
-`whisper.model.StepGraph`, as Whisper's step. Counts for the tracing ring
+`models/decode.StepGraph`, as Whisper's step. Counts for the tracing ring
 are accumulated on the device and read once a loop.
 """
 
 from __future__ import annotations
 
 import contextlib
+import functools
 import math
 import threading
 from collections import deque
@@ -46,15 +47,14 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from hippomm_tpu_torch.models.decode import GraphCache, StepGraph
 from hippomm_tpu_torch.models.kimi_vl.config import KimiVLConfig, get_config
 from hippomm_tpu_torch.models.kimi_vl.tokenizer import StandInTokenizer
-from hippomm_tpu_torch.models.whisper.model import StepGraph
 from hippomm_tpu_torch.ops import moe as moe_ops
 from hippomm_tpu_torch.ops.flash_attention import flash_mha
 from hippomm_tpu_torch.ops.fused_mlp import fused_mlp, fused_mlp_ref, fused_mlp_supported
 from hippomm_tpu_torch.ops.matmul import bmm_f32, matmul_f32
-from hippomm_tpu_torch.ops.moe import moe_combine, moe_combine_ref, moe_permute, moe_route, swiglu
-from hippomm_tpu_torch.parallel import mesh as pmesh
+from hippomm_tpu_torch.ops.moe import moe_combine, moe_permute, moe_route, swiglu
 from hippomm_tpu_torch.utils import timers as tracing
 from hippomm_tpu_torch.utils.device import resolve_device
 
@@ -228,14 +228,13 @@ class KimiVL:
         self.dtype = dtype
         if params is None:
             params = init_params(self.cfg, seed, self.device, dtype)
-        self.params = params
         self.tok = StandInTokenizer(self.cfg.text.vocab_size, self.cfg.n_special)
         self._w = self._prepare(params)
         t = self.cfg.text
         self._inv_freq = 1.0 / t.rope_theta ** (
             torch.arange(0, t.rope_dim, 2, device=self.device).float() / t.rope_dim)
         self._pool: Optional[torch.Tensor] = None
-        self._graphs: Dict[int, StepGraph] = {}
+        self._graphs = GraphCache("vlm.graph_captures")  # a decode bucket's, by (rows, positions)
         self._lock = threading.Lock()
         # one entry per decode loop (rows launched, real rows, their prompt
         # lengths and tokens decoded, positions a row, steps, experts hit),
@@ -367,29 +366,25 @@ class KimiVL:
     def _rope(self, pos: torch.Tensor):
         return _cis(pos.float()[..., None] * self._inv_freq)
 
-    def _mlp(self, lw: Params, h: torch.Tensor, stats: Optional[torch.Tensor],
-             live: Optional[torch.Tensor] = None, x: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """The layer's MLP over rows h (N, D). With `x` (N, D), the residual
-        stream's next rows, x + MLP(h) in fp32 cast to the compute dtype;
-        without, MLP(h) alone (fp32 where the experts are routed, and then
-        CPU tensors only)."""
+    def _mlp(self, lw: Params, h: torch.Tensor, stats: Optional[torch.Tensor], live: Optional[torch.Tensor],
+             x: torch.Tensor) -> torch.Tensor:
+        """The residual stream's next rows: x + the layer's MLP over rows h
+        (N, D), in fp32 cast to the compute dtype."""
         if "mlp" in lw:
-            y = _swiglu(lw["mlp"], h)
-            return y if x is None else (x.float() + y).to(self.dtype)
-        return self._moe(lw["moe"], h, stats, live, _swiglu(lw["moe"]["shared"], h), x)
+            return (x.float() + _swiglu(lw["mlp"], h)).to(self.dtype)
+        return self._moe(lw["moe"], h, stats, live, x)
 
-    def _moe(self, m: Params, h: torch.Tensor, stats: Optional[torch.Tensor],
-             live: Optional[torch.Tensor] = None, shared: Optional[torch.Tensor] = None,
-             x: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """The routed experts' weighted sum for rows h (N, D), fp32, plus
-        the shared expert's rows `shared` where given; with `x` too, x + that
-        in the compute dtype (`moe_combine`: on the card one kernel, which
-        needs `x`: without it CUDA tensors raise). `stats`
-        (3,) int64 on the device gains the experts that got a row, the rows
-        routed and the busiest expert's rows, over the rows `live` (N,) bool
-        marks (None: every row): a bucket's padding and finished rows are
-        computed but counted nowhere."""
+    def _moe(self, m: Params, h: torch.Tensor, stats: Optional[torch.Tensor], live: Optional[torch.Tensor],
+             x: torch.Tensor) -> torch.Tensor:
+        """x + the routed experts' weighted sum for rows h (N, D) + the
+        shared expert's, in fp32 cast to the compute dtype (`moe_combine`:
+        on the card one kernel). `stats` (3,) int64 on the device gains the
+        experts that got a row, the rows routed and the busiest expert's
+        rows, over the rows `live` (N,) bool marks (None: every row): a
+        bucket's padding and finished rows are computed but counted
+        nowhere."""
         t = self.cfg.text
+        shared = _swiglu(m["shared"], h)
         idx, wts = route(self.cfg, m, h)
         xs, slots, offs = moe_permute(idx, h, t.n_routed, live, stats)
         if h.is_cuda:
@@ -402,11 +397,7 @@ class KimiVL:
                 if hi > lo:
                     y[lo:hi] = _swiglu({"gate_up": m["gate_up"][j], "down": m["down"][j]}, xs[lo:hi])
                 lo = hi
-        if x is not None:
-            return moe_combine(y, slots, wts, shared, x)
-        if h.is_cuda:
-            raise ValueError("on the card the MoE layer takes the residual rows x, which moe_combine adds")
-        return moe_combine_ref(y, slots, wts, shared)
+        return moe_combine(y, slots, wts, shared, x)
 
     def _count_moe(self, passes: int, fused: int) -> None:
         """Host counters of `passes` runs of every MoE layer (a prefill
@@ -536,12 +527,8 @@ class KimiVL:
         return held
 
     def _step_graph(self, rows: int, positions: int) -> StepGraph:
-        g = self._graphs.get((rows, positions))
-        if g is None:
-            weights = tuple(t.data_ptr() for _, t in pmesh.tree_leaves(self._w["layers"]))
-            g = self._graphs[rows, positions] = StepGraph(_DecodeState(self, rows, positions), self.device,
-                                                          weights, counter="vlm.graph_captures")
-        return g
+        return self._graphs.entry((rows, positions), self.device, self._w["layers"],
+                                  functools.partial(_DecodeState, self, rows, positions))
 
     @torch.no_grad()
     def generate_ids(self, prompts: Sequence[Sequence[int]], images: Sequence[Sequence[torch.Tensor]],

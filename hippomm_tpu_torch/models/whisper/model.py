@@ -27,15 +27,15 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import math
-import threading
 from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from hippomm_tpu_torch.models import layers as L
-from hippomm_tpu_torch.parallel import mesh as pmesh
+from hippomm_tpu_torch.models.decode import GraphCache, StepGraph
 from hippomm_tpu_torch.utils import timers as tracing
 
 
@@ -395,93 +395,21 @@ class _GreedyShard:
         return logits
 
 
-class StepGraph:
-    """A greedy decode over a `state` whose buffers are kept across decodes
-    (Whisper's `_GreedyShard`, models/kimi_vl's decode state): the state
-    has `start(*args)`, which refills its buffers, `step()`, which changes
-    them in place only and returns the logits, and `done`, a device flag.
-    On CUDA `step` replays a CUDA graph of `state.step()`, its buffers the
-    graph's static inputs and outputs; elsewhere it steps eagerly. The
-    graph is captured at the first start, before the state's own start,
-    after one warm-up step on a side stream (torch's lazy set-up: cuBLAS
-    handles and workspaces), in thread-local mode, since the vision stream
-    and JPEG threads launch work on the device meanwhile; each capture
-    counts one `<counter>`. It holds the addresses of the weights, which
-    `weights` names. `logits` are the last step's."""
-
-    def __init__(self, state, device, weights, counter: str = "asr.graph_captures"):
-        self.state = state
-        self.done = self.state.done
-        self.device, self.weights, self.counter = device, weights, counter
-        self.lock = threading.Lock()
-        self.graph = self.logits = None
-        self._released = None  # event after the last work on the buffers
-
-    @contextlib.contextmanager
-    def held(self):
-        """The buffers for one decode: under the lock, and on CUDA with the
-        current stream ordered after the previous holder's work."""
-        with self.lock:
-            if self.device.type != "cuda":
-                yield self
-                return
-            stream = torch.cuda.current_stream(self.device)
-            if self._released is not None:
-                stream.wait_event(self._released)
-            try:
-                yield self
-            finally:
-                self._released = torch.cuda.Event()
-                self._released.record(stream)
-
-    def _capture(self) -> None:
-        with torch.cuda.device(self.device):
-            side = torch.cuda.Stream()
-            side.wait_stream(torch.cuda.current_stream())
-            with torch.cuda.stream(side):
-                self.state.step()
-            torch.cuda.current_stream().wait_stream(side)
-            graph = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(graph, stream=side, capture_error_mode="thread_local"):
-                self.logits = self.state.step()
-        self.graph = graph
-        tracing.count(self.counter, 1)
-
-    def start(self, *args) -> None:
-        if self.device.type == "cuda" and self.graph is None:
-            self._capture()
-        self.state.start(*args)  # undoes the warm-up step
-
-    def step(self) -> None:
-        if self.graph is None:
-            self.logits = self.state.step()
-        else:
-            self.graph.replay()
-
-
 class DecodeGraphs:
     """The greedy decode's buffers and, on CUDA, its step's graphs, kept
-    across decodes: one `StepGraph` per (shard, device, rows, source
-    length, max_len, dtype), rebuilt when the decoder's weights are others
-    than those it was built with. Each entry holds its buffers (the fp32
-    cross K/V, the self K/V caches) and graph pool until it is rebuilt or
-    this object is dropped. A decode holds each of its entries for its
-    whole loop, so two threads never step one set of buffers at once."""
+    across decodes in `_graphs` (models/decode.GraphCache): one entry per
+    (shard, device, rows, source length, max_len, dtype), which holds the
+    fp32 cross K/V and the self K/V caches, rebuilt when the decoder's
+    weights move."""
 
     def __init__(self):
-        self._lock = threading.Lock()
-        self._graphs: Dict[tuple, StepGraph] = {}
+        self._graphs = GraphCache("asr.graph_captures")
 
     def get(self, shard: int, params, cfg: WhisperConfig, enc_out: torch.Tensor, max_len: int,
             dtype) -> StepGraph:
         key = (shard, enc_out.device, *enc_out.shape[:2], max_len, dtype)
-        weights = tuple(t.data_ptr() for _, t in pmesh.tree_leaves(params["decoder"]))
-        with self._lock:
-            g = self._graphs.get(key)
-            if g is None or g.weights != weights:
-                state = _GreedyShard(params, cfg, enc_out.shape, max_len, dtype, enc_out.device)
-                g = self._graphs[key] = StepGraph(state, enc_out.device, weights)
-            return g
+        return self._graphs.entry(key, enc_out.device, params["decoder"], functools.partial(
+            _GreedyShard, params, cfg, enc_out.shape, max_len, dtype, enc_out.device))
 
     @torch.no_grad()
     def decode(self, shards: Sequence[Tuple[Dict, torch.Tensor, torch.Tensor]], cfg: WhisperConfig,

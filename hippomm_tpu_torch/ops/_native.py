@@ -26,7 +26,8 @@ Four shared libraries with plain C interfaces, loaded with ctypes:
 
 Outputs go to `_build/` inside the package (listed in .gitignore), named by
 a hash of sources, headers and flags, so an edited source or header never
-loads a stale build.
+loads a stale build. `launch` calls a kernel's C entry on the current
+stream: every kernel wrapper of ops/ launches through it.
 """
 
 from __future__ import annotations
@@ -39,6 +40,8 @@ import shutil
 import subprocess
 import threading
 from typing import List, Optional
+
+import torch
 
 logger = logging.getLogger(__name__)
 
@@ -85,10 +88,35 @@ def bind_thread(device) -> None:
     if bound is None:
         bound = _thread_state.bound = set()
     if device.index not in bound:
-        import torch
-
         torch.cuda.current_stream(device).query()
         bound.add(device.index)
+
+
+def current_stream(device) -> int:
+    """`device`'s current CUDA stream as an int. The raw getter skips
+    building a Stream object, which costs as much as the launches of a
+    text-tower call; `torch.cuda.current_stream` where it is missing."""
+    raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+    if raw is not None:
+        return raw(device.index)
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def launch(entry: str, device, *args) -> None:
+    """Call the kernel library's C entry `entry` with `args` and, last,
+    `device`'s current stream, from a thread bound to the device
+    (`bind_thread`) and with the device current (guarded only when it is
+    not already); raises when the entry returns an error."""
+    fn = getattr(kernels(), entry)
+    bind_thread(device)
+    if device.index == torch.cuda.current_device():
+        rc = fn(*args, current_stream(device))
+    else:
+        with torch.cuda.device(device):
+            rc = fn(*args, current_stream(device))
+    if rc != 0:
+        raise RuntimeError(f"{entry} kernel launch failed: error {rc} (CUDA error, or 1000 + the "
+                           "CUresult of a tensor map that could not be built)")
 
 
 def count_launch(fn, fp32: bool = False) -> None:

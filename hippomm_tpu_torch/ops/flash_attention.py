@@ -164,16 +164,9 @@ def _flash_f32(counter, q, k, v, scale: float, bthd: bool) -> torch.Tensor:
     width = q.shape[3]
     plan = _attn_plan_f32(tq, tk, width)
     out = torch.empty(q.shape, dtype=torch.float32, device=q.device)
-    lib = _native.kernels()
-    _native.bind_thread(q.device)
-    with torch.cuda.device(q.device):
-        rc = lib.hmm_flash_mha_f32(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, h, tq, tk, width,
-            *strides(q), *strides(k), *strides(v), *strides(out), len(plan.q_tiles),
-            len(plan.key_tiles), plan.nc, float(scale), torch.cuda.current_stream(q.device).cuda_stream,
-        )
-    if rc != 0:
-        raise RuntimeError(f"hmm_flash_mha_f32 kernel launch failed: CUDA error {rc}")
+    _native.launch("hmm_flash_mha_f32", q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                   b, h, tq, tk, width, *strides(q), *strides(k), *strides(v), *strides(out),
+                   len(plan.q_tiles), len(plan.key_tiles), plan.nc, float(scale))
     _native.count_launch(counter, fp32=True)
     return out if width == hd else out[..., :hd]
 
@@ -268,16 +261,8 @@ def _flash_mha_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale:
         # zero columns add 0 to q·k and give zero output columns (sliced off)
         q, k, v = (F.pad(t, (0, hdp - hd)) for t in (q, k, v))
     out = torch.empty_like(q)
-    lib = _native.kernels()
-    _native.bind_thread(q.device)
-    with torch.cuda.device(q.device):
-        rc = lib.hmm_flash_mha_bf16(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            b, h, tq, tk, hdp, plan.n_full, plan.tail, float(scale),
-            torch.cuda.current_stream(q.device).cuda_stream,
-        )
-    if rc != 0:
-        raise RuntimeError(f"flash_mha kernel launch failed: CUDA error {rc}")
+    _native.launch("hmm_flash_mha_bf16", q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                   b, h, tq, tk, hdp, plan.n_full, plan.tail, float(scale))
     _native.count_launch(flash_mha)
     return out if hdp == hd else out[..., :hd]
 
@@ -390,16 +375,9 @@ def _flash_mha_bthd_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, s
                 f"multiples of 8 and a 16-byte aligned start; got strides {t.stride()}"
             )
     out = torch.empty((b, tq, h, hdp), dtype=q.dtype, device=q.device)
-    lib = _native.kernels()
-    _native.bind_thread(q.device)
-    with torch.cuda.device(q.device):
-        rc = lib.hmm_flash_mha_bthd_bf16(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, h, tq, tk, hdp,
-            *_bht_strides(q), *_bht_strides(k), *_bht_strides(v), plan.n_full, plan.tail, float(scale),
-            torch.cuda.current_stream(q.device).cuda_stream,
-        )
-    if rc != 0:
-        raise RuntimeError(f"flash_mha_bthd kernel launch failed: CUDA error {rc}")
+    _native.launch("hmm_flash_mha_bthd_bf16", q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                   out.data_ptr(), b, h, tq, tk, hdp, *_bht_strides(q), *_bht_strides(k), *_bht_strides(v),
+                   plan.n_full, plan.tail, float(scale))
     _native.count_launch(flash_mha_bthd)
     return out if hdp == hd else out[..., :hd]
 

@@ -176,16 +176,6 @@ def _workspace(n: int, d: int, f: int, ln: bool, f32: bool):
     return plan, offsets, at // esize
 
 
-def _current_stream() -> int:
-    """The current device's current CUDA stream as an int. The raw getter
-    skips building a Stream object, which costs as much as the launches of a
-    text-tower call; `torch.cuda.current_stream()` where it is missing."""
-    raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
-    if raw is not None:
-        return raw(torch.cuda.current_device())
-    return torch.cuda.current_stream().cuda_stream
-
-
 def _launch(entry: str, x, vectors, w1, b1, w2, b2, eps=None, own_out: bool = False,
             resid=None) -> torch.Tensor:
     """Allocate one workspace of x.dtype for the plan's passes with the (N,
@@ -226,16 +216,7 @@ def _launch(entry: str, x, vectors, w1, b1, w2, b2, eps=None, own_out: bool = Fa
              plan.splits]
     if eps is not None:
         args.append(float(eps))
-    fn = getattr(_native.kernels(), entry)
-    _native.bind_thread(x.device)
-    if x.device.index == torch.cuda.current_device():
-        rc = fn(*args, _current_stream())
-    else:
-        with torch.cuda.device(x.device):
-            rc = fn(*args, _current_stream())
-    if rc != 0:
-        raise RuntimeError(f"{entry} kernel launch failed: error {rc} (CUDA error, or 1000 + the "
-                           "CUresult of a tensor map that could not be built)")
+    _native.launch(entry, x.device, *args)
     return out
 
 

@@ -45,17 +45,6 @@ _TILE = 1024  # rows one permute block ranks
 _SMS = 132  # the H100's SMs
 
 
-def _launch(entry: str, device: torch.device, *args) -> None:
-    """`entry` of the kernel library on `device`'s current stream; raises on
-    a CUDA error."""
-    lib = _native.kernels()
-    _native.bind_thread(device)
-    with torch.cuda.device(device):
-        rc = getattr(lib, entry)(*args, torch.cuda.current_stream(device).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"{entry} kernel launch failed: CUDA error {rc}")
-
-
 def _on_cuda(name: str, *ts: torch.Tensor) -> bool:
     """True when the kernel runs (CUDA tensors), False for the twin (CPU);
     raises for mixed devices, other devices and non-contiguous operands."""
@@ -110,8 +99,8 @@ def moe_route(logits: torch.Tensor, bias: torch.Tensor, k: int, scale: float):
                          f"{tuple(bias.shape)}, k {k}")
     idx = torch.empty((n, k), dtype=torch.int64, device=logits.device)
     wts = torch.empty((n, k), dtype=torch.float32, device=logits.device)
-    _launch("hmm_moe_route", logits.device, logits.data_ptr(), bias.data_ptr(), n, e, k, float(scale),
-            idx.data_ptr(), wts.data_ptr())
+    _native.launch("hmm_moe_route", logits.device, logits.data_ptr(), bias.data_ptr(), n, e, k, float(scale),
+                   idx.data_ptr(), wts.data_ptr())
     _native.count_launch(moe_route)
     return idx, wts
 
@@ -177,9 +166,10 @@ def moe_permute(idx: torch.Tensor, h: torch.Tensor, n_experts: int, live: Option
     slots = torch.empty((n, k), dtype=torch.int32, device=dev)
     offs = torch.empty((n_experts,), dtype=torch.int32, device=dev)
     counts = torch.empty((tiles, 2, n_experts), dtype=torch.int32, device=dev) if tiles > 1 else None
-    _launch("hmm_moe_permute", dev, idx.data_ptr(), None if live is None else live.data_ptr(), h.data_ptr(),
-            n, k, n_experts, d, tiles, splits, threads, None if counts is None else counts.data_ptr(),
-            xs.data_ptr(), slots.data_ptr(), offs.data_ptr(), None if stats is None else stats.data_ptr())
+    _native.launch("hmm_moe_permute", dev, idx.data_ptr(), None if live is None else live.data_ptr(),
+                   h.data_ptr(), n, k, n_experts, d, tiles, splits, threads,
+                   None if counts is None else counts.data_ptr(), xs.data_ptr(), slots.data_ptr(), offs.data_ptr(),
+                   None if stats is None else stats.data_ptr())
     _native.count_launch(moe_permute)
     return xs, slots, offs
 
@@ -204,7 +194,7 @@ def swiglu(gu: torch.Tensor) -> torch.Tensor:
     m, f = gu.numel() // gu.shape[-1], gu.shape[-1] // 2
     _check_rows("swiglu", f, gu)
     out = torch.empty((*gu.shape[:-1], f), dtype=gu.dtype, device=gu.device)
-    _launch("hmm_swiglu_bf16", gu.device, gu.data_ptr(), out.data_ptr(), m, f)
+    _native.launch("hmm_swiglu_bf16", gu.device, gu.data_ptr(), out.data_ptr(), m, f)
     _native.count_launch(swiglu)
     return out
 
@@ -242,8 +232,8 @@ def moe_combine(y: torch.Tensor, slots: torch.Tensor, wts: torch.Tensor, shared:
                          f"x {tuple(x.shape)}")
     _check_rows("moe_combine", d, y, shared, x)
     out = torch.empty_like(x)
-    _launch("hmm_moe_combine_bf16", x.device, y.data_ptr(), slots.data_ptr(), wts.data_ptr(),
-            shared.data_ptr(), x.data_ptr(), out.data_ptr(), n, k, d)
+    _native.launch("hmm_moe_combine_bf16", x.device, y.data_ptr(), slots.data_ptr(), wts.data_ptr(),
+                   shared.data_ptr(), x.data_ptr(), out.data_ptr(), n, k, d)
     _native.count_launch(moe_combine)
     return out
 

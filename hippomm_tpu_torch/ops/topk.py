@@ -185,20 +185,12 @@ def top_k_cosine_kernel(query: torch.Tensor, feats: torch.Tensor, k: int, packed
     q = query.reshape(-1).float().contiguous()
     if feats.data_ptr() % 4:
         raise ValueError("top_k_cosine_kernel takes a 4-byte aligned store")
-    lib = _native.kernels()
     dev = feats.device
-    _native.bind_thread(dev)
     plan = _topk_plan(n, d, k, _sm_count(dev.index), feats.data_ptr() % 16 // 4)
     out = torch.empty((2, k), dtype=torch.int32, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        scratch = _scratch_for(dev, stream, plan.scratch_entries)
-        rc = lib.hmm_topk_cosine_f32(
-            q.data_ptr(), feats.data_ptr(), n, d, k, plan.blocks, plan.chunk_rows, plan.stages,
-            plan.smem_bytes, scratch.data_ptr(), out.data_ptr(), stream,
-        )
-    if rc != 0:
-        raise RuntimeError(f"hmm_topk_cosine_f32 kernel launch failed: CUDA error {rc}")
+    scratch = _scratch_for(dev, _native.current_stream(dev), plan.scratch_entries)
+    _native.launch("hmm_topk_cosine_f32", dev, q.data_ptr(), feats.data_ptr(), n, d, k, plan.blocks,
+                   plan.chunk_rows, plan.stages, plan.smem_bytes, scratch.data_ptr(), out.data_ptr())
     _native.count_launch(top_k_cosine_kernel)
     return out if packed else (out[0].view(torch.float32), out[1])
 

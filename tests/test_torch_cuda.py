@@ -1430,9 +1430,7 @@ def test_swiglu_kernel_matches_twin_on_cuda(cuda_device, m, f):
 @pytest.mark.cuda
 def test_moe_kernels_refuse_rows_they_do_not_take_on_cuda(cuda_device):
     """The SwiGLU and the combine take rows of a multiple of 8 bf16, 16-byte
-    aligned, and the MoE layer on the card needs the residual rows its
-    combine adds: each refusal raises rather than running the plain ops."""
-    from hippomm_tpu_torch.models.kimi_vl import model as km
+    aligned: each refusal raises rather than running the plain ops."""
     from hippomm_tpu_torch.ops import moe
 
     gu = torch.zeros((5, 14), dtype=torch.bfloat16, device=cuda_device)
@@ -1440,10 +1438,10 @@ def test_moe_kernels_refuse_rows_they_do_not_take_on_cuda(cuda_device):
         moe.swiglu(gu)
     with pytest.raises(ValueError, match="multiple of 8"):
         moe.swiglu(torch.zeros(3 * 2816 + 1, dtype=torch.bfloat16, device=cuda_device)[1:].view(3, 2816))
-    vlm = km.KimiVL("tiny", dtype=torch.bfloat16, device=cuda_device, seed=5)
-    h = torch.zeros((4, vlm.cfg.text.hidden), dtype=torch.bfloat16, device=cuda_device)
-    with pytest.raises(ValueError, match="residual rows"):
-        vlm._moe(vlm._w["layers"][1]["moe"], h, None)
+    x = torch.zeros((4, 12), dtype=torch.bfloat16, device=cuda_device)
+    slots, wts = torch.zeros((4, 2), dtype=torch.int32, device=cuda_device), torch.zeros((4, 2), device=cuda_device)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        moe.moe_combine(torch.zeros((8, 12), dtype=torch.bfloat16, device=cuda_device), slots, wts, x, x)
 
 
 def _combine_rounding(y, slots, wts, shared, x, twin):

@@ -1,5 +1,5 @@
 """Kimi-VL-A3B-Instruct in the port (models/kimi_vl) against its plain
-float32 reference (models/kimi_vl/reference.py), at the tiny variant on
+float32 reference (portbench/reference/kimi_vl.py), at the tiny variant on
 seeded random weights, on the CPU.
 
 The program runs here in float32 through the same code as on the card
@@ -22,10 +22,10 @@ from hippomm_tpu_torch.media.synth import SynthSpec, write_synthetic_video
 from hippomm_tpu_torch.memory.engine import HippocampalMemory
 from hippomm_tpu_torch.models.clients import LocalVLMClient, StubClient, make_client
 from hippomm_tpu_torch.models.kimi_vl import model as km
-from hippomm_tpu_torch.models.kimi_vl import reference as ref
 from hippomm_tpu_torch.models.kimi_vl.config import get_config
 from hippomm_tpu_torch.models.kimi_vl.tokenizer import StandInTokenizer
 from hippomm_tpu_torch.utils import timers as tracing
+from portbench.reference import kimi_vl as ref
 
 CFG = get_config("tiny")
 HF = km.hf_config(CFG)
@@ -151,16 +151,19 @@ def test_router_follows_reference_with_and_without_correction_bias(params, vlm, 
 
 def test_moe_layer_matches_reference_and_every_expert_counts(params, vlm):
     """The grouped experts' weighted sum plus the shared expert equals the
-    reference's layer; dropping one routed expert's output moves it."""
+    reference's layer; dropping one routed expert's output moves it. The
+    layer adds a zero residual, which in float32 leaves its sum as it is."""
     h = torch.randn(40, CFG.text.hidden, generator=torch.Generator().manual_seed(1))
+    zero = torch.zeros_like(h)
     lw = vlm._w["layers"][1]
-    got = vlm._mlp(lw, h, None)
+    got = vlm._mlp(lw, h, None, None, zero)
     want = ref._moe(ref._mm, HF, params["layers"][1]["moe"], h)
     assert (got - want).abs().max().item() < TOL * want.abs().max().item()
     dropped = dict(lw["moe"], down=lw["moe"]["down"].clone())
     idx, _ = km.route(CFG, lw["moe"], h)
     dropped["down"][int(idx[0, 0])] = 0.0
-    assert (vlm._mlp({"moe": dropped}, h, None) - want).abs().max().item() > 100 * TOL * want.abs().max().item()
+    moved = (vlm._mlp({"moe": dropped}, h, None, None, zero) - want).abs().max().item()
+    assert moved > 100 * TOL * want.abs().max().item()
 
 
 def test_moe_counts_only_live_rows(vlm):
@@ -171,8 +174,9 @@ def test_moe_counts_only_live_rows(vlm):
     m = vlm._w["layers"][1]["moe"]
     live = torch.arange(12) < 5
     got, every = torch.zeros(3, dtype=torch.long), torch.zeros(3, dtype=torch.long)
-    out = vlm._moe(m, h, got, live)
-    assert torch.equal(out, vlm._moe(m, h, every))
+    x = torch.zeros_like(h)
+    out = vlm._moe(m, h, got, live, x)
+    assert torch.equal(out, vlm._moe(m, h, every, None, x))
     idx, _ = km.route(CFG, m, h[:5])
     per = torch.bincount(idx.reshape(-1), minlength=CFG.text.n_routed)
     assert got.tolist() == [int((per > 0).sum()), 5 * CFG.text.topk, int(per.max())]

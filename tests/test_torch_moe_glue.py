@@ -5,18 +5,18 @@ against the inline torch composition that models/kimi_vl computed before
 the kernels, at tiny shapes: 1, 7 and 64 rows, 8 experts, k 3, experts that
 get no row, tied scores, and a `live` mask with dead and padding rows. The
 indices, slots, group ends and counters exactly, the weights and the
-combine to 1e-6 relative; the tiny Kimi-VL's MoE layer, with and without
-the residual, against reference.py; the permute's launch plan; and the
-counters of MoE layer passes a generate records."""
+combine to 1e-6 relative; the tiny Kimi-VL's MoE layer, with a zero and a
+random residual, against portbench/reference/kimi_vl.py; the permute's
+launch plan; and the counters of MoE layer passes a generate records."""
 
 import pytest
 import torch
 import torch.nn.functional as F
 
 from hippomm_tpu_torch.models.kimi_vl import model as km
-from hippomm_tpu_torch.models.kimi_vl import reference as ref
 from hippomm_tpu_torch.ops import moe
 from hippomm_tpu_torch.utils import timers
+from portbench.reference import kimi_vl as ref
 
 E, K, D, FF = 8, 3, 16, 12
 SCALE = 2.446
@@ -145,7 +145,8 @@ def tiny():
 @pytest.mark.parametrize("n", [1, 7, 40])
 def test_tiny_moe_layer_matches_the_reference(tiny, n):
     """The tiny model's MoE layer through the twins, the residual taken in
-    the layer, against reference.py's layer plus the residual."""
+    the layer, against the reference's layer plus the residual: a zero one
+    (in float32 the layer's sum as it is) and a random one."""
     params, vlm = tiny
     cfg = km.hf_config(vlm.cfg)
     g = torch.Generator().manual_seed(n)
@@ -153,7 +154,7 @@ def test_tiny_moe_layer_matches_the_reference(tiny, n):
     lw = vlm._w["layers"][1]
     want = ref._moe(ref._mm, cfg, params["layers"][1]["moe"], h)
     tol = 2e-5 * want.abs().max().item()
-    assert (vlm._mlp(lw, h, None) - want).abs().max().item() < tol
+    assert (vlm._mlp(lw, h, None, None, torch.zeros_like(h)) - want).abs().max().item() < tol
     assert (vlm._mlp(lw, h, None, None, x) - (x + want)).abs().max().item() < tol + 2e-5 * x.abs().max().item()
 
 

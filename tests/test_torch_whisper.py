@@ -157,23 +157,17 @@ def test_greedy_decode_matches_jax(trees, enc_pair, forced_trees, case):
 
 
 def test_kept_decode_buffers_reused_on_cpu(trees, enc_pair, forced_trees):
-    """A DecodeGraphs kept across decodes holds one entry per bucket shape,
-    steps eagerly on the CPU (no graph captured or counted), gives every
-    decode what a fresh greedy_decode gives, and rebuilds its entry for
-    other weights."""
+    """A DecodeGraphs kept across decodes gives every decode what a fresh
+    greedy_decode gives, over the same weights again and over others (its
+    cache, models/decode.GraphCache: tests/test_torch_decode.py)."""
     _, tparams = trees
     got_enc, prompt = enc_pair[1], torch.from_numpy(_prompt(3))
     ml = CFG.max_target_positions
     graphs = twm.DecodeGraphs()
-    t0 = time.perf_counter_ns()
     for params in (tparams, tparams, forced_trees[1]):
         want_t, want_l = twm.greedy_decode(params, got_enc, prompt, CFG, max_len=ml, dtype=torch.float32)
         got_t, got_l = graphs.decode([(params, got_enc, prompt)], CFG, max_len=ml, dtype=torch.float32)[0]
         assert torch.equal(got_t, want_t) and torch.equal(got_l, want_l)
-        (entry,) = graphs._graphs.values()
-        assert entry.graph is None and entry.state.params is params
-    names = {r.name for r in list(timers.RING) if r.start_ns >= t0}
-    assert "asr.decode_step" in names and not names & {"asr.graph_steps", "asr.graph_captures"}
 
 
 @pytest.mark.parametrize("beam,case", [(1, "lean"), (3, "lean"), (1, "forced_eot"), (3, "forced_eot")],
