@@ -1,4 +1,6 @@
-// Pillow-exact bicubic resample + center-crop for 8-bit RGB frames.
+// Host pixel conversions of the ingest path, in one library that links
+// nothing external: the Pillow-exact bicubic resample + center-crop for
+// 8-bit RGB frames, and the Y4M reader's YUV 4:2:0 -> RGB (at the end).
 //
 // Replaces the PIL call in the ingest vision preprocess (ops/resize.py
 // resize_crop_u8) with the SAME fixed-point algorithm Pillow runs
@@ -207,6 +209,117 @@ int hmm_resize_bicubic_crop_batch(const uint8_t* in, int64_t n, int ih, int iw,
     threads.emplace_back(run, lo, hi);
   }
   for (auto& th : threads) th.join();
+  return 0;
+}
+
+}  // extern "C"
+
+// YUV 4:2:0 -> RGB for the Y4M reader (media/io.py Y4MReader.read_rgb),
+// bit-equal to media/io._yuv420_to_rgb_np: float32 arithmetic in numpy's
+// order, each constant the float32 rounding of numpy's Python float, round
+// half to even, then the clip to 0..255. The library builds with
+// -ffp-contract=off and without -ffast-math, so no product is fused into
+// its sum and no sum is reassociated. Pinned by tests/test_torch_y4m_rgb.py.
+namespace {
+
+// numpy rounds a Python float to float32 before a float32 ufunc
+const float kRV = (float)1.402, kGU = (float)0.344136, kGV = (float)0.714136;
+const float kBU = (float)1.772, kYS = (float)(255.0 / 219.0), kCS = (float)(255.0 / 224.0);
+
+// np.clip(np.round(x), 0, 255).astype(np.uint8). For |x| < 2^22 (every
+// value here is within +-600), x + 2^23 in float32 rounds x to the nearest
+// integer, ties to even, where x >= 0; a negative x gives a value <= 0, as
+// its rounding does, and both clip to 0. The clamp is on ints, which the
+// vectoriser takes without SSE4.1; a float compare would stay a branch.
+inline uint8_t round_clip(float x) {
+  int i = (int)(x + 8388608.f) - 8388608;
+  i = i < 0 ? 0 : i;
+  i = i > 255 ? 255 : i;
+  return (uint8_t)i;
+}
+
+inline float luma(uint8_t y, bool limited) {
+  float f = (float)y;
+  return limited ? (f - 16.f) * kYS : f;
+}
+
+// One frame. A chroma row's four products are computed once, each stored
+// twice side by side so that `row` (4 * w floats) lines up with the luma
+// row, and used by both of its luma rows. Always inlined, so that each
+// clone of the entry below vectorises it for its own instruction set.
+template <bool limited>
+__attribute__((always_inline)) inline void yuv420_frame(
+    const uint8_t* y, const uint8_t* u, const uint8_t* v, int h, int w,
+    float* row, uint8_t* out) {
+  const int cw = w / 2;
+  float* __restrict rv = row;
+  float* __restrict gu = row + w;
+  float* __restrict gv = row + 2 * w;
+  float* __restrict bu = row + 3 * w;
+  for (int cy = 0; cy < h / 2; cy++) {
+    const uint8_t* __restrict ur = u + (size_t)cy * cw;
+    const uint8_t* __restrict vr = v + (size_t)cy * cw;
+    for (int c = 0; c < cw; c++) {
+      float uf = (float)ur[c] - 128.f, vf = (float)vr[c] - 128.f;
+      if (limited) {
+        uf = uf * kCS;
+        vf = vf * kCS;
+      }
+      rv[2 * c] = rv[2 * c + 1] = kRV * vf;
+      gu[2 * c] = gu[2 * c + 1] = kGU * uf;
+      gv[2 * c] = gv[2 * c + 1] = kGV * vf;
+      bu[2 * c] = bu[2 * c + 1] = kBU * uf;
+    }
+    for (int dy = 0; dy < 2; dy++) {
+      const uint8_t* __restrict yr = y + (size_t)(2 * cy + dy) * w;
+      uint8_t* __restrict o = out + (size_t)(2 * cy + dy) * w * 3;
+      for (int x = 0; x < w; x++) {
+        float yf = luma(yr[x], limited);
+        o[3 * x + 0] = round_clip(yf + rv[x]);
+        o[3 * x + 1] = round_clip((yf - gu[x]) - gv[x]);
+        o[3 * x + 2] = round_clip(yf + bu[x]);
+      }
+    }
+  }
+}
+
+}  // namespace
+
+// The byte shuffles of the interleaved RGB store vectorise with SSSE3's
+// pshufb; baseline x86-64 (SSE2) leaves that loop scalar at about twice the
+// time. One clone for each, picked when the library loads; the float
+// arithmetic is the same in both.
+#if defined(__x86_64__) && defined(__GNUC__)
+#define HMM_CLONES __attribute__((target_clones("avx2", "sse4.1", "default")))
+#else
+#define HMM_CLONES
+#endif
+
+extern "C" {
+
+// n frames of 4:2:0 planes -> out (n, h, w, 3) uint8. Frame i's Y plane
+// (h, w) starts at y + i * y_stride, its U and V planes (h/2, w/2) at
+// u + i * c_stride and v + i * c_stride: contiguous planes give strides of
+// h*w and h*w/4, one buffer of whole Y4M frame payloads the payload size
+// for both. limited != 0 expands studio swing first. Returns 0, or -1 for
+// a size that is not positive and even.
+HMM_CLONES int hmm_yuv420_to_rgb_batch(const uint8_t* y, const uint8_t* u,
+                            const uint8_t* v, int64_t n, int h, int w,
+                            int64_t y_stride, int64_t c_stride, int limited,
+                            uint8_t* out) {
+  if (h <= 0 || w <= 0 || h % 2 || w % 2) return -1;
+  std::vector<float> row((size_t)4 * w);
+  const size_t out_sz = (size_t)h * w * 3;
+  for (int64_t i = 0; i < n; i++) {
+    const uint8_t* yi = y + i * y_stride;
+    const uint8_t* ui = u + i * c_stride;
+    const uint8_t* vi = v + i * c_stride;
+    uint8_t* oi = out + (size_t)i * out_sz;
+    if (limited)
+      yuv420_frame<true>(yi, ui, vi, h, w, row.data(), oi);
+    else
+      yuv420_frame<false>(yi, ui, vi, h, w, row.data(), oi);
+  }
   return 0;
 }
 

@@ -5,9 +5,11 @@
     shim
   * MJPEG-AVI through the same shim (threaded batch decode); without the
     shim `AviReader` and `write_avi` raise
-  * Y4M (uncompressed YUV4MPEG2 420) in numpy: frames are fixed-size, so
-    seeking is pointer arithmetic; YUV→RGB runs on the host, and the scoring
-    luma is the Y plane itself
+  * Y4M (uncompressed YUV4MPEG2 420): frames are fixed-size, so seeking is
+    pointer arithmetic, and the scoring luma is the Y plane itself. YUV→RGB
+    runs on the host in one native call per read (csrc/media_resize.cpp,
+    the interpreter lock released), bit-equal to `_yuv420_to_rgb_np`, which
+    converts where that library did not build
   * WAV (PCM16/24/32, float32, WAVE_FORMAT_EXTENSIBLE) in numpy, with channel
     downmix and low-passed linear resampling to 16 kHz mono
 
@@ -18,8 +20,8 @@
     mono, and an H.264/MPEG-4 + AAC writer. Without the shim they raise
     RuntimeError naming it, as the JAX package's readers do without theirs.
 
-Both shims are built on first use (ops/_native.media_lib and
-media_libav_lib), each on its own.
+Both shims and the conversion library are built on first use
+(ops/_native.media_lib, media_libav_lib and resize_lib), each on its own.
 """
 
 from __future__ import annotations
@@ -258,8 +260,12 @@ def _luma_u8(rgb: np.ndarray) -> np.ndarray:
 def _yuv420_to_rgb_np(
     y: np.ndarray, u: np.ndarray, v: np.ndarray, limited: bool = False
 ) -> np.ndarray:
-    """Host BT.601 full-range YUV420 -> RGB (inverse of _rgb_to_yuv420_np),
-    the Y4M read path."""
+    """Host BT.601 full-range YUV420 -> RGB (inverse of _rgb_to_yuv420_np).
+    The reference of the Y4M read path: `Y4MReader.read_rgb` converts with
+    the native `hmm_yuv420_to_rgb_batch` (csrc/media_resize.cpp), which is
+    bit-equal to this, and with this only where that library did not build.
+    float32 throughout: each Python-float constant is rounded to float32
+    first, products are not fused into sums, rounding is half to even."""
     yf = y.astype(np.float32)
     uf = np.repeat(np.repeat(u.astype(np.float32), 2, axis=1), 2, axis=2) - 128.0
     vf = np.repeat(np.repeat(v.astype(np.float32), 2, axis=1), 2, axis=2) - 128.0
@@ -381,32 +387,57 @@ class Y4MReader:
             self.width, self.height, self.fps, self.num_frames, self.num_frames / self.fps
         )
 
-    def read_yuv(self, indices: Sequence[int]):
-        """Returns (Y (N,H,W), U (N,H/2,W/2), V (N,H/2,W/2)) uint8."""
+    def _read_payloads(self, indices: Sequence[int]) -> np.ndarray:
+        """(N, Y + U + V bytes) uint8: each frame's planes as the file holds them."""
         n = len(indices)
-        y = np.empty((n, self.height, self.width), dtype=np.uint8)
-        u = np.empty((n, self.height // 2, self.width // 2), dtype=np.uint8)
-        v = np.empty_like(u)
+        size = self._ysize + 2 * self._csize
+        buf = np.empty((n, size), dtype=np.uint8)
         with open(self.path, "rb") as f:
             for i, idx in enumerate(indices):
                 if not 0 <= idx < self.num_frames:
                     raise IndexError(idx)
                 f.seek(self._data_start + idx * self._frame_bytes + len(b"FRAME\n"))
-                buf = f.read(self._ysize + 2 * self._csize)
-                y[i] = np.frombuffer(buf, np.uint8, self._ysize).reshape(
-                    self.height, self.width
-                )
-                u[i] = np.frombuffer(
-                    buf, np.uint8, self._csize, self._ysize
-                ).reshape(self.height // 2, self.width // 2)
-                v[i] = np.frombuffer(
-                    buf, np.uint8, self._csize, self._ysize + self._csize
-                ).reshape(self.height // 2, self.width // 2)
+                if f.readinto(memoryview(buf[i])) != size:
+                    raise ValueError(f"y4m frame {idx} truncated: {self.path!r}")
+        return buf
+
+    def read_yuv(self, indices: Sequence[int]):
+        """Returns (Y (N,H,W), U (N,H/2,W/2), V (N,H/2,W/2)) uint8."""
+        buf = self._read_payloads(indices)
+        n, hw, ch = len(buf), (self.height, self.width), (self.height // 2, self.width // 2)
+        y = buf[:, : self._ysize].reshape(n, *hw).copy()
+        u = buf[:, self._ysize : self._ysize + self._csize].reshape(n, *ch).copy()
+        v = buf[:, self._ysize + self._csize :].reshape(n, *ch).copy()
         return y, u, v
 
     def read_rgb(self, indices: Sequence[int]) -> np.ndarray:
-        y, u, v = self.read_yuv(indices)
-        return _yuv420_to_rgb_np(y, u, v, limited=self.limited_range)
+        """(N, H, W, 3) uint8. One native call converts the frames' planes
+        where the host conversion library built, with the interpreter lock
+        released; `_yuv420_to_rgb_np` otherwise. Both give the same bytes.
+        Spanned as `media.y4m_rgb` and counted in `media.y4m_rgb_frames`
+        and `media.y4m_rgb_native_frames`."""
+        from hippomm_tpu_torch.ops._native import resize_lib
+        from hippomm_tpu_torch.utils import timers
+
+        n, h, w = len(indices), self.height, self.width
+        with timers.span("media.y4m_rgb"):
+            lib = resize_lib()
+            if lib is None:
+                y, u, v = self.read_yuv(indices)
+                rgb = _yuv420_to_rgb_np(y, u, v, limited=self.limited_range)
+            else:
+                buf = self._read_payloads(indices)
+                rgb = np.empty((n, h, w, 3), dtype=np.uint8)
+                base, stride = buf.ctypes.data, buf.shape[1]
+                rc = lib.hmm_yuv420_to_rgb_batch(
+                    base, base + self._ysize, base + self._ysize + self._csize, n, h, w,
+                    stride, stride, int(self.limited_range), rgb.ctypes.data,
+                )
+                if rc != 0:
+                    raise RuntimeError(f"hmm_yuv420_to_rgb_batch failed with code {rc}")
+        timers.count("media.y4m_rgb_frames", n)
+        timers.count("media.y4m_rgb_native_frames", 0 if lib is None else n)
+        return rgb
 
     def read_gray_small(self, indices: Sequence[int], gh: int, gw: int) -> np.ndarray:
         """Scoring-resolution luma: reads only the Y plane (the luma is the

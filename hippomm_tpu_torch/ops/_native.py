@@ -8,9 +8,11 @@ Four shared libraries with plain C interfaces, loaded with ctypes:
     with its own `nvcc` process, all started together, then one link step.
     Targets sm_90a. Needs `nvcc` (PATH or /usr/local/cuda/bin) — there is no
     fallback: a wrapper handed a CUDA tensor launches its kernel or raises.
-  * the Pillow-exact bicubic resize (csrc/media_resize.cpp, host C++), built
-    with the host C++ compiler. None when no compiler is found; the caller
-    then resamples with PIL, as the JAX package does without its shim.
+  * the host pixel conversions (csrc/media_resize.cpp, host C++): the
+    Pillow-exact bicubic resize and the Y4M reader's YUV420→RGB, built with
+    the host C++ compiler, with no contraction of a product into a sum. None
+    when no compiler is found; the callers then resample with PIL, as the
+    JAX package does without its shim, and convert in numpy.
   * the host media shim (csrc/media_jpeg.cpp: libjpeg codec, MJPEG-AVI
     reader and writer), built with the host C++ compiler against -ljpeg.
     None when there is no compiler, or no jpeglib.h / libjpeg: JPEG then
@@ -224,7 +226,8 @@ def kernels() -> ctypes.CDLL:
 
 
 def resize_lib() -> Optional[ctypes.CDLL]:
-    """The host bicubic resize+crop library, or None without a C++ compiler."""
+    """The host pixel-conversion library (bicubic resize+crop, YUV420→RGB),
+    or None without a C++ compiler."""
     global _resize, _resize_tried
     with _lock:
         if _resize is not None or _resize_tried:
@@ -234,7 +237,8 @@ def resize_lib() -> Optional[ctypes.CDLL]:
         if cxx is None:
             return None
         src = os.path.join(_CSRC, "media_resize.cpp")
-        flags = ["-O3", "-fPIC", "-shared", "-std=c++17", "-pthread"]
+        # the YUV420→RGB loop is bit-equal to numpy only without FMA contraction
+        flags = ["-O3", "-ffp-contract=off", "-fPIC", "-shared", "-std=c++17", "-pthread"]
         lib_path = os.path.join(BUILD_DIR, f"libhmm_resize_{_digest([src], flags)}.so")
         if not os.path.exists(lib_path):
             os.makedirs(BUILD_DIR, exist_ok=True)
@@ -247,6 +251,12 @@ def resize_lib() -> Optional[ctypes.CDLL]:
             ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_int,
             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
             ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
+        ]
+        lib.hmm_yuv420_to_rgb_batch.restype = ctypes.c_int
+        lib.hmm_yuv420_to_rgb_batch.argtypes = [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
+            ctypes.c_int, ctypes.c_int, ctypes.c_int64, ctypes.c_int64, ctypes.c_int,
+            ctypes.c_void_p,
         ]
         _resize = lib
         return lib
